@@ -1,0 +1,32 @@
+"""Transport-aware federated learning: the synchronous round engine, its
+strategies and the edge-client model."""
+
+from repro_torch.core.client import EdgeClient, LocalTask, bucket_rows, mnist_cnn_task
+from repro_torch.core.server import (
+    FederatedServer,
+    FitJob,
+    History,
+    PendingRound,
+    RoundRecord,
+    ServerConfig,
+    derive_rng,
+)
+from repro_torch.core.strategy import STRATEGIES, Strategy, fedavg, fedprox
+
+__all__ = [
+    "EdgeClient",
+    "LocalTask",
+    "bucket_rows",
+    "mnist_cnn_task",
+    "FederatedServer",
+    "FitJob",
+    "PendingRound",
+    "derive_rng",
+    "ServerConfig",
+    "History",
+    "RoundRecord",
+    "Strategy",
+    "STRATEGIES",
+    "fedavg",
+    "fedprox",
+]

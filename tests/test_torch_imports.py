@@ -1,0 +1,52 @@
+"""Import hygiene of the PyTorch port: ``src/repro_torch`` and
+``chip_smoke.py`` import neither jax nor the JAX package ``repro``, and
+every CUDA source lives in ``src/repro_torch/kernels/csrc/``."""
+
+import ast
+from pathlib import Path
+
+import pytest
+
+ROOT = Path(__file__).resolve().parents[1]
+PORT = ROOT / "src" / "repro_torch"
+FILES = sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py"]
+SKIP_DIRS = {".git", "build", "__pycache__"}
+
+
+def _forbidden(name: str) -> bool:
+    top = name.split(".")[0]
+    return top in ("jax", "jaxlib", "repro")
+
+
+@pytest.mark.parametrize("path", FILES, ids=[str(p.relative_to(ROOT)) for p in FILES])
+def test_no_jax_or_reference_imports(path):
+    assert path.is_file(), path
+    bad = []
+    for node in ast.walk(ast.parse(path.read_text(), filename=str(path))):
+        if isinstance(node, ast.Import):
+            bad += [a.name for a in node.names if _forbidden(a.name)]
+        elif isinstance(node, ast.ImportFrom) and node.level == 0 and node.module:
+            if _forbidden(node.module):
+                bad.append(node.module)
+        elif isinstance(node, ast.Call) and getattr(node.func, "attr", getattr(node.func, "id", "")) in (
+            "import_module", "__import__"
+        ):
+            args = [a.value for a in node.args if isinstance(a, ast.Constant) and isinstance(a.value, str)]
+            bad += [a for a in args if _forbidden(a)]
+    assert not bad, f"{path.relative_to(ROOT)} imports {bad}"
+
+
+def test_forbidden_names_are_caught():
+    assert _forbidden("jax.numpy") and _forbidden("repro.core") and _forbidden("repro")
+    assert not _forbidden("repro_torch.core") and not _forbidden("torch")
+
+
+def test_cuda_sources_live_in_the_port_csrc():
+    csrc = PORT / "kernels" / "csrc"
+    found = [
+        p for ext in ("*.cu", "*.cuh") for p in ROOT.rglob(ext)
+        if not SKIP_DIRS.intersection(p.relative_to(ROOT).parts)
+    ]
+    assert found, "the port ships at least one CUDA source"
+    outside = [str(p.relative_to(ROOT)) for p in found if p.parent != csrc]
+    assert not outside, outside

@@ -1,0 +1,153 @@
+"""Port parity: the synchronous round engine. With the same config and the
+same initial params, the port's History equals the reference's exactly on
+every numpy-computed field, and within 1e-3 on eval accuracy and loss.
+Also the paper's system claims, run on the port."""
+
+import dataclasses
+
+import pytest
+
+from _torch_parity import ref_params_np, with_params
+import repro.chaos as r_chaos
+import repro.core as r_core
+import repro.data as r_data
+import repro.transport as r_tr
+import repro_torch.chaos as p_chaos
+import repro_torch.core as p_core
+from repro_torch.compress import Compressor
+import repro_torch.data as p_data
+import repro_torch.transport as p_tr
+
+R_TASK = r_core.mnist_cnn_task()
+P_TASK = with_params(p_core.mnist_cnn_task(device="cpu"), ref_params_np(0))
+TOL = 1e-3
+
+# (name, ServerConfig overrides, chaos kind, tcp name)
+ENGINES = [
+    ("sequential_analytic", dict(batched=False), "quickstart", "DEFAULT"),
+    ("batched_analytic", dict(batched=True), "quickstart", "DEFAULT"),
+    ("batched_analytic_split", dict(batched=True, rng_streams="split"), "restart", "TUNED_EDGE"),
+    ("sequential_stochastic", dict(batched=False, stochastic=True), "quickstart", "TUNED_EDGE"),
+    ("batched_stochastic", dict(batched=True, stochastic=True), "quickstart", "DEFAULT"),
+    ("fused_transport", dict(batched=True, stochastic=True, engine="fused_transport"),
+     "quickstart", "DEFAULT"),
+    ("batched_retry_zero_rtt",
+     dict(batched=True, stochastic=True, transport_profile="zero_rtt", quorum_close_fraction=0.8),
+     "restart", "DEFAULT"),
+]
+
+
+def _chaos(pkg, tr, kind):
+    sched = pkg.ChaosSchedule(tr.LAB)
+    sched.add(
+        pkg.netem(1.5, 10_000.0, delay=0.4, loss=0.05),
+        pkg.client_failure_schedule(6, 0.3, t_start=2.0, seed=3),
+    )
+    if kind == "restart":  # lands inside round 2
+        sched.add(pkg.server_restart(8.0, downtime=5.0))
+    return sched
+
+
+def _run(core, data, tr, chaos_pkg, task, name, overrides, chaos_kind, tcp_name):
+    shards = data.make_federated_mnist(6, 64, seed=0)
+    clients = [core.EdgeClient(i, dataset=s) for i, s in enumerate(shards)]
+    kw = dict(rounds=3, local_steps=2, seed=0, **overrides)
+    if name == "batched_retry_zero_rtt":
+        kw["retry"] = tr.RetryPolicy(max_retries=2, jitter=0.3, resume=True)
+    server = core.FederatedServer(
+        task,
+        clients,
+        core.fedavg(min_fit=0.3),
+        tcp=getattr(tr, tcp_name),
+        chaos=_chaos(chaos_pkg, tr, chaos_kind),
+        config=core.ServerConfig(**kw),
+        eval_data=data.synthetic_mnist(2000, seed=77),
+    )
+    return server.run(), clients
+
+
+def _assert_histories_match(r_hist, p_hist):
+    assert (r_hist.status, r_hist.cause) == (p_hist.status, p_hist.cause)
+    assert len(r_hist.rounds) == len(p_hist.rounds)
+    for r_rec, p_rec in zip(r_hist.rounds, p_hist.rounds):
+        r_d, p_d = dataclasses.asdict(r_rec), dataclasses.asdict(p_rec)
+        r_m, p_m = r_d.pop("metrics"), p_d.pop("metrics")
+        assert r_d == p_d  # clock, counts, reconnects, ids, cause, bytes: exact
+        assert sorted(r_m) == sorted(p_m)
+        for k in r_m:
+            assert abs(r_m[k] - p_m[k]) <= TOL, k
+    assert len(r_hist.eval_metrics) == len(p_hist.eval_metrics)
+    for r_e, p_e in zip(r_hist.eval_metrics, p_hist.eval_metrics):
+        assert (r_e["round"], r_e["t"]) == (p_e["round"], p_e["t"])
+        assert abs(r_e["accuracy"] - p_e["accuracy"]) <= TOL
+        assert abs(r_e["loss"] - p_e["loss"]) <= TOL
+
+
+@pytest.mark.parametrize("name,overrides,chaos_kind,tcp_name", ENGINES, ids=[e[0] for e in ENGINES])
+def test_history_matches_reference(name, overrides, chaos_kind, tcp_name):
+    r_hist, r_clients = _run(r_core, r_data, r_tr, r_chaos, R_TASK, name, overrides, chaos_kind, tcp_name)
+    p_hist, p_clients = _run(p_core, p_data, p_tr, p_chaos, P_TASK, name, overrides, chaos_kind, tcp_name)
+    assert p_hist.completed_rounds > 0
+    _assert_histories_match(r_hist, p_hist)
+    for rc, pc in zip(r_clients, p_clients):
+        assert (rc.connected, rc.rounds_participated, rc.bytes_sent) == (
+            pc.connected, pc.rounds_participated, pc.bytes_sent
+        )
+
+
+def _port_server(tcp, link=p_tr.LAB, rounds=4, chaos=None, min_fit=0.5, batched=False):
+    shards = p_data.make_federated_mnist(8, 80, seed=0)
+    clients = [p_core.EdgeClient(i, dataset=s) for i, s in enumerate(shards)]
+    return p_core.FederatedServer(
+        P_TASK,
+        clients,
+        p_core.fedavg(min_fit=min_fit),
+        tcp=tcp,
+        chaos=chaos or p_chaos.ChaosSchedule(link),
+        config=p_core.ServerConfig(rounds=rounds, local_steps=3, seed=0, batched=batched),
+        eval_data=p_data.synthetic_mnist(250, seed=11),
+    )
+
+
+@pytest.mark.parametrize("batched", [False, True])
+def test_paper_headline_claim_on_the_port(batched):
+    """At 6 s one-way delay the default stack cannot train; the three tuned
+    TCP parameters restore training."""
+    link = p_tr.LAB.replace(delay=6.0)
+    dead = _port_server(p_tr.DEFAULT, link, batched=batched).run()
+    alive = _port_server(p_tr.TUNED_EDGE, link, batched=batched).run()
+    assert dead.completed_rounds == 0
+    assert alive.completed_rounds == 4
+    assert alive.final_accuracy() is not None and alive.final_accuracy() > 0.3
+
+
+def test_rec3_min_fit_under_90pct_failure_on_the_port():
+    chaos = p_chaos.ChaosSchedule(p_tr.LAB).add(p_chaos.client_failure_schedule(8, 0.875, seed=2))
+    hist = _port_server(p_tr.DEFAULT, chaos=chaos, min_fit=0.1, rounds=3).run()
+    assert hist.completed_rounds == 3  # one surviving client suffices
+
+
+def _bare_server(**kw):
+    args = dict(strategy=p_core.fedavg(), compressor=None)
+    args.update(kw)
+    return p_core.FederatedServer(
+        P_TASK, [], args["strategy"], tcp=p_tr.DEFAULT,
+        chaos=p_chaos.ChaosSchedule(p_tr.LAB), config=p_core.ServerConfig(),
+        compressor=args["compressor"],
+    )
+
+
+@pytest.mark.parametrize(
+    "build",
+    [
+        lambda: p_core.ServerConfig(async_mode=True),
+        lambda: p_core.ServerConfig(transport_backend="device", stochastic=True, batched=True),
+        lambda: _bare_server(strategy=p_core.Strategy("fedadam", server_opt=object())),
+        lambda: _bare_server(compressor=Compressor("int8", None, None, None)),
+        lambda: _bare_server().run(checkpoint_dir="unused"),
+    ],
+    ids=["async", "device_backend", "server_opt", "compressor", "checkpoint"],
+)
+def test_configs_outside_the_slice_raise(build):
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        build()
