@@ -11,6 +11,7 @@ from repro_torch.core.server import (
     ServerConfig,
     derive_rng,
 )
+from repro_torch.core.stateplane import StatePlane
 from repro_torch.core.strategy import STRATEGIES, Strategy, fedavg, fedprox
 
 __all__ = [
@@ -23,6 +24,7 @@ __all__ = [
     "PendingRound",
     "derive_rng",
     "ServerConfig",
+    "StatePlane",
     "History",
     "RoundRecord",
     "Strategy",

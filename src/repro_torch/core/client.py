@@ -34,7 +34,14 @@ from repro_torch.optim import (
     clip_by_global_norm_stacked,
     sgd,
 )
-from repro_torch.utils import resolve_device, tree_leaves, tree_map, tree_stack, tree_sub
+from repro_torch.utils import (
+    resolve_device,
+    tree_leaves,
+    tree_map,
+    tree_stack,
+    tree_sub,
+    tree_unflatten,
+)
 
 
 @dataclass
@@ -126,7 +133,7 @@ def _plane_sgd_runner(cohort_loss_fn, lr: float):
             if use_prox:
                 prox = _prox_term(ps, anchor, lambda l: tuple(range(1, l.ndim)))
                 losses = losses + 0.5 * mu * prox
-            grads = _rebuild(ps, iter(torch.autograd.grad(losses.sum(), tree_leaves(ps))))
+            grads = tree_unflatten(ps, torch.autograd.grad(losses.sum(), tree_leaves(ps)))
             grads, _ = clip_by_global_norm_stacked(grads, 1.0)
             updates, opt_state = opt.update(grads, opt_state, stacked, 0)
             stacked = apply_updates(stacked, updates)
@@ -136,14 +143,6 @@ def _plane_sgd_runner(cohort_loss_fn, lr: float):
     run_rows.dispatch_widths = []
     run_rows.anchor_widths = []
     return run_rows
-
-
-def _rebuild(template, it):
-    """A tree shaped like ``template`` filled from ``it`` in sorted-key
-    (``tree_leaves``) order."""
-    if isinstance(template, dict):
-        return {k: _rebuild(template[k], it) for k in sorted(template)}
-    return next(it)
 
 
 def _unstack_metrics(stacked: Dict[str, Any], n: int) -> List[Dict[str, float]]:
@@ -184,7 +183,7 @@ def _sgd_local_fit(loss_fn, lr: float, batch_size: int, device: torch.device):
         loss, metrics = loss_fn(ps, batch)
         if mu is not None:
             loss = loss + 0.5 * mu * _prox_term(ps, anchor, lambda l: tuple(range(l.ndim)))
-        grads = _rebuild(ps, iter(torch.autograd.grad(loss, tree_leaves(ps))))
+        grads = tree_unflatten(ps, torch.autograd.grad(loss, tree_leaves(ps)))
         grads, _ = clip_by_global_norm(grads, 1.0)
         updates, opt_state = opt.update(grads, opt_state, params, 0)
         return apply_updates(params, updates), opt_state, {k: v.detach() for k, v in metrics.items()}

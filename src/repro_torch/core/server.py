@@ -20,9 +20,10 @@ agree exactly on every numpy-computed field.
 
 The round is a state machine with drivable halves: ``select_cohort`` ->
 ``run_transport`` -> ``finish_transport`` -> ``execute_fit`` ->
-``finish_round``. The slice covers the sequential and batched engines and
-``engine="fused_transport"``; configurations it does not cover raise
-``NotImplementedError`` at construction, naming the ROADMAP item.
+``finish_round``. The port covers the sequential and batched engines,
+``engine="fused_transport"`` and every compressor, with error feedback in
+a dense or sparse ``StatePlane``; configurations it does not cover raise
+``NotImplementedError``, naming the ROADMAP item.
 """
 
 from __future__ import annotations
@@ -37,11 +38,12 @@ import torch
 from repro_torch.chaos import ChaosSchedule
 from repro_torch.compress import Compressor, none_compressor
 from repro_torch.core.client import EdgeClient, LocalTask
+from repro_torch.core.stateplane import StatePlane
 from repro_torch.core.strategy import Strategy
 from repro_torch.transport import LinkProfile, TcpParams, client_round as analytic_round
 from repro_torch.transport.des import sim_client_round, sim_cohort_round, sim_grid_round
 from repro_torch.transport.params import RetryPolicy
-from repro_torch.utils import tree_leaves, tree_stack
+from repro_torch.utils import tree_leaves, tree_stack, tree_unstack
 
 
 @dataclass
@@ -180,7 +182,9 @@ class ServerConfig:
     transport_profile: Optional[str] = None
     # reject a round with a non-finite loss/delta and retire the run
     quarantine: bool = True
-    # per-client state storage; matters only with a compressor
+    # per-client state storage ("dense" | "sparse"; bitwise equal on every
+    # History observable); matters only with a compressor on the stacked
+    # engines
     state_plane: str = "dense"
 
     def __post_init__(self):
@@ -258,11 +262,6 @@ class FederatedServer:
                 "lazy client populations are not ported yet (ROADMAP Queue 1, "
                 "item 12); pass a list of EdgeClient"
             )
-        if compressor is not None and compressor.name != "none":
-            raise NotImplementedError(
-                f"compressor {compressor.name!r} is not ported yet (ROADMAP "
-                "Queue 1, item 7)"
-            )
         if strategy.server_opt is not None:
             raise NotImplementedError(
                 f"strategy {strategy.name!r} uses a server-side optimizer, "
@@ -286,6 +285,11 @@ class FederatedServer:
         # cohort stream) and this transport stream at each round boundary
         self._transport_rng = None
         self.global_params = task.init_fn(torch.Generator().manual_seed(config.seed))
+        # plane-resident error feedback: a StatePlane of per-client f32
+        # residual rows (dense or sparse per config.state_plane), allocated
+        # on the first compressed stacked round. The sequential engine keeps
+        # per-client EdgeClient.residual.
+        self._residual_plane: Optional[StatePlane] = None
         self.history = History()
         self.sim_time = 0.0
         self.consecutive_failures = 0
@@ -616,9 +620,30 @@ class FederatedServer:
             per_metrics.append(m)
         return None, deltas, weights, per_metrics
 
+    def _ensure_residual_plane(self) -> StatePlane:
+        """The per-client residual StatePlane (dense or sparse per
+        ``config.state_plane``), allocated on the first compressed stacked
+        round on the device of the global params."""
+        if self._residual_plane is None:
+            self._residual_plane = StatePlane(
+                self.global_params,
+                len(self.clients),
+                storage=self.config.state_plane,
+            )
+        return self._residual_plane
+
+    def client_slots(self, clients: List[EdgeClient]) -> List[int]:
+        """Population-wide state slots for a list of (delivering) clients:
+        list universes key them by ``client_id``. ``StatePlane.rows_for``
+        maps them to physical buffer rows."""
+        return [c.client_id for c in clients]
+
     def finish_round(self, job: FitJob, stacked, deltas, weights, per_metrics) -> None:
-        """Fault checks, bookkeeping, aggregation, clock advance, eval.
-        Consumes no RNG."""
+        """Fault checks, compression, bookkeeping, aggregation, clock
+        advance, eval. A quarantined round is rejected before compression,
+        so the residuals never ingest a non-finite delta. Byte accounting
+        credits ``job.payload_bytes``, the compressed upload size. Consumes
+        no RNG."""
         cfg = self.config
         rnd = job.rnd
         record = job.record
@@ -635,6 +660,31 @@ class FederatedServer:
             if cause is not None:
                 self._quarantine_round(job, cause)
                 return
+
+        # compression: the plane path keeps the cohort stacked (the
+        # delivering rows' residuals are gathered from the StatePlane,
+        # compressed and scattered back, bitwise equal to the per-client
+        # loop); compressors without a plane twin (randk) and unstacked
+        # deltas take the per-client loop
+        if self.compressor.name != "none":
+            plane_fn = self.compressor.compress_plane
+            if stacked is not None and plane_fn is not None:
+                plane = self._ensure_residual_plane()
+                # physical buffer rows for the cohort's slots (identity
+                # under dense storage; compacted rows under sparse)
+                rows = plane.rows_for(self.client_slots(job.clients))
+                stacked, plane.buffer = plane_fn(stacked, plane.buffer, rows)
+            else:
+                if stacked is not None:
+                    deltas = tree_unstack(stacked)
+                    stacked = None
+                compressed = []
+                for client, delta in zip(job.clients, deltas):
+                    payload, client.residual = self.compressor.compress(
+                        delta, client.residual
+                    )
+                    compressed.append(self.compressor.decompress(payload))
+                deltas = compressed
 
         for client, m in zip(job.clients, per_metrics):
             client.rounds_participated += 1

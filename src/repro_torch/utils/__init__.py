@@ -8,6 +8,7 @@ from repro_torch.utils.pytree import (
     tree_size,
     tree_stack,
     tree_sub,
+    tree_unflatten,
     tree_unstack,
     tree_weighted_mean,
     unflatten_from_vector,
@@ -23,6 +24,7 @@ __all__ = [
     "tree_size",
     "tree_weighted_mean",
     "tree_stack",
+    "tree_unflatten",
     "tree_unstack",
     "flatten_to_vector",
     "unflatten_from_vector",

@@ -66,6 +66,19 @@ def tree_weighted_mean(trees, weights):
     return tree_map(_avg, *trees)
 
 
+def tree_unflatten(template, leaves):
+    """A tree shaped like ``template`` filled from ``leaves`` in sorted-key
+    (``tree_leaves``) order; the inverse of ``tree_leaves``."""
+    it = iter(leaves)
+
+    def _fill(node):
+        if isinstance(node, dict):
+            return {k: _fill(node[k]) for k in sorted(node)}
+        return next(it)
+
+    return _fill(template)
+
+
 def tree_stack(trees):
     """Stack identically-structured trees along a new leading axis C."""
     return tree_map(lambda *leaves: torch.stack(leaves, dim=0), *trees)
@@ -102,11 +115,4 @@ def unflatten_from_vector(vec, meta):
         n = int(np.prod(shape, dtype=np.int64))
         leaves.append(vec[offset : offset + n].reshape(shape).to(dtype))
         offset += n
-    it = iter(leaves)
-
-    def _fill(node):
-        if isinstance(node, dict):
-            return {k: _fill(node[k]) for k in sorted(node)}
-        return next(it)
-
-    return _fill(template)
+    return tree_unflatten(template, leaves)

@@ -3,24 +3,20 @@ same initial params, the port's History equals the reference's exactly on
 every numpy-computed field, and within 1e-3 on eval accuracy and loss.
 Also the paper's system claims, run on the port."""
 
-import dataclasses
-
 import pytest
 
-from _torch_parity import ref_params_np, with_params
+from _torch_parity import assert_histories_match, ref_params_np, with_params
 import repro.chaos as r_chaos
 import repro.core as r_core
 import repro.data as r_data
 import repro.transport as r_tr
 import repro_torch.chaos as p_chaos
 import repro_torch.core as p_core
-from repro_torch.compress import Compressor
 import repro_torch.data as p_data
 import repro_torch.transport as p_tr
 
 R_TASK = r_core.mnist_cnn_task()
 P_TASK = with_params(p_core.mnist_cnn_task(device="cpu"), ref_params_np(0))
-TOL = 1e-3
 
 # (name, ServerConfig overrides, chaos kind, tcp name)
 ENGINES = [
@@ -66,29 +62,12 @@ def _run(core, data, tr, chaos_pkg, task, name, overrides, chaos_kind, tcp_name)
     return server.run(), clients
 
 
-def _assert_histories_match(r_hist, p_hist):
-    assert (r_hist.status, r_hist.cause) == (p_hist.status, p_hist.cause)
-    assert len(r_hist.rounds) == len(p_hist.rounds)
-    for r_rec, p_rec in zip(r_hist.rounds, p_hist.rounds):
-        r_d, p_d = dataclasses.asdict(r_rec), dataclasses.asdict(p_rec)
-        r_m, p_m = r_d.pop("metrics"), p_d.pop("metrics")
-        assert r_d == p_d  # clock, counts, reconnects, ids, cause, bytes: exact
-        assert sorted(r_m) == sorted(p_m)
-        for k in r_m:
-            assert abs(r_m[k] - p_m[k]) <= TOL, k
-    assert len(r_hist.eval_metrics) == len(p_hist.eval_metrics)
-    for r_e, p_e in zip(r_hist.eval_metrics, p_hist.eval_metrics):
-        assert (r_e["round"], r_e["t"]) == (p_e["round"], p_e["t"])
-        assert abs(r_e["accuracy"] - p_e["accuracy"]) <= TOL
-        assert abs(r_e["loss"] - p_e["loss"]) <= TOL
-
-
 @pytest.mark.parametrize("name,overrides,chaos_kind,tcp_name", ENGINES, ids=[e[0] for e in ENGINES])
 def test_history_matches_reference(name, overrides, chaos_kind, tcp_name):
     r_hist, r_clients = _run(r_core, r_data, r_tr, r_chaos, R_TASK, name, overrides, chaos_kind, tcp_name)
     p_hist, p_clients = _run(p_core, p_data, p_tr, p_chaos, P_TASK, name, overrides, chaos_kind, tcp_name)
     assert p_hist.completed_rounds > 0
-    _assert_histories_match(r_hist, p_hist)
+    assert_histories_match(r_hist, p_hist)
     for rc, pc in zip(r_clients, p_clients):
         assert (rc.connected, rc.rounds_participated, rc.bytes_sent) == (
             pc.connected, pc.rounds_participated, pc.bytes_sent
@@ -127,27 +106,29 @@ def test_rec3_min_fit_under_90pct_failure_on_the_port():
     assert hist.completed_rounds == 3  # one surviving client suffices
 
 
-def _bare_server(**kw):
-    args = dict(strategy=p_core.fedavg(), compressor=None)
-    args.update(kw)
+def _bare_server(strategy=None):
     return p_core.FederatedServer(
-        P_TASK, [], args["strategy"], tcp=p_tr.DEFAULT,
+        P_TASK, [], strategy or p_core.fedavg(), tcp=p_tr.DEFAULT,
         chaos=p_chaos.ChaosSchedule(p_tr.LAB), config=p_core.ServerConfig(),
-        compressor=args["compressor"],
     )
 
 
 @pytest.mark.parametrize(
-    "build",
+    "build,item",
     [
-        lambda: p_core.ServerConfig(async_mode=True),
-        lambda: p_core.ServerConfig(transport_backend="device", stochastic=True, batched=True),
-        lambda: _bare_server(strategy=p_core.Strategy("fedadam", server_opt=object())),
-        lambda: _bare_server(compressor=Compressor("int8", None, None, None)),
-        lambda: _bare_server().run(checkpoint_dir="unused"),
+        (lambda: p_core.ServerConfig(async_mode=True), 11),
+        (lambda: p_core.ServerConfig(transport_backend="device", stochastic=True, batched=True),
+         13),
+        (lambda: _bare_server(strategy=p_core.Strategy("fedadam", server_opt=object())), 5),
+        # any client universe other than a list stands in for a lazy Population
+        (lambda: p_core.FederatedServer(
+            P_TASK, tuple(), p_core.fedavg(), tcp=p_tr.DEFAULT,
+            chaos=p_chaos.ChaosSchedule(p_tr.LAB), config=p_core.ServerConfig(),
+        ), 12),
+        (lambda: _bare_server().run(checkpoint_dir="unused"), 10),
     ],
-    ids=["async", "device_backend", "server_opt", "compressor", "checkpoint"],
+    ids=["async", "device_backend", "server_opt", "population", "checkpoint"],
 )
-def test_configs_outside_the_slice_raise(build):
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+def test_configs_outside_the_slice_raise(build, item):
+    with pytest.raises(NotImplementedError, match=rf"ROADMAP Queue 1, item {item}\)"):
         build()
