@@ -33,7 +33,23 @@ Run from the repository root. Phases, each printing one JSON line:
 8. engines   the sequential engine on the same config: equal numpy fields,
              final accuracy within 1e-3;
 9. headline  6 s one-way delay: DEFAULT completes 0 rounds, TUNED_EDGE all 4
-             (accuracy > 0.3); one stochastic fused_transport run.
+             (accuracy > 0.3); one stochastic fused_transport run;
+10. lm_kernels
+             flash_attention and swiglu against their plain versions on the
+             card: the reference sweeps, serving lengths, the serving shape
+             (B = 4, S = 16, 32 / 8 heads, D = 128), one S = 4096 prefill,
+             and swiglu at Qwen3-8B's widths for M = 1, 4, 7, 64, with the
+             same timing fields as ``kernel`` and one PyTorch call's time;
+11. serve     ``Server("qwen3-8b", reduced=False)`` on the card, params from a
+             seeded generator: serve.py:main's 8 requests (batch 4, 12 new
+             tokens each); launches asserted per prefill and per decode step;
+             prefill ms, decode ms per step, tokens/s, peak memory, and the
+             device-idle share of one profiled run (``serve_profile``);
+12. full_width
+             a 2-layer model at Qwen3-8B's full widths with the served
+             params: one prefill and three decode steps on the card
+             (kernels) and on the CPU (plain versions, fed the card's
+             tokens); logits within 3e-2 of max |logit|.
 
 Then the kernels line, the card's name and power limit as nvidia-smi gives
 them, and the final ``{"ok": true, ...}`` line. A failed phase raises: the
@@ -53,6 +69,7 @@ from pathlib import Path
 ROOT = Path(__file__).resolve().parent
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM HBM3 (NVIDIA data sheet)
 F32_FLOPS_PER_S = 67e12  # H100 SXM float32 outside the tensor cores
+BF16_FLOPS_PER_S = 989e12  # H100 SXM bf16 tensor cores, dense (NVIDIA data sheet)
 MAIN_ROUNDS = 8
 
 
@@ -125,11 +142,12 @@ def fedavg_work(C: int, N: int, itemsize: int) -> tuple:
     return C * N * itemsize + 4 * C + 4 * N, 2 * C * N
 
 
-def bound_us(bytes_moved: int, flops: int) -> tuple:
-    """Least time the card could take: HBM time or f32 FMA time, whichever
-    is larger, and which of the two it is."""
+def bound_us(bytes_moved: int, flops: int, flops_per_s: float = F32_FLOPS_PER_S) -> tuple:
+    """Least time the card could take: HBM time or compute time at the peak
+    rate for the operands' type (f32 FMA by default), whichever is larger,
+    and which of the two it is."""
     t_bytes = bytes_moved / HBM_BYTES_PER_S * 1e6
-    t_ops = flops / F32_FLOPS_PER_S * 1e6
+    t_ops = flops / flops_per_s * 1e6
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
@@ -399,18 +417,23 @@ def paper_server(torch, *, tcp_name="DEFAULT", batched=True, rounds=MAIN_ROUNDS,
 
 def reset_launches() -> None:
     from repro_torch.kernels import fedavg_reduce as fr
+    from repro_torch.kernels import flash_attention as fa
     from repro_torch.kernels import quantize as qz
+    from repro_torch.kernels import swiglu as sw
 
-    fr.launches = 0
+    fr.launches = fa.launches = sw.launches = 0
     for name in qz.launches:
         qz.launches[name] = 0
 
 
 def read_launches() -> dict:
     from repro_torch.kernels import fedavg_reduce as fr
+    from repro_torch.kernels import flash_attention as fa
     from repro_torch.kernels import quantize as qz
+    from repro_torch.kernels import swiglu as sw
 
-    return {"fedavg_reduce": fr.launches, **qz.launches}
+    return {"fedavg_reduce": fr.launches, **qz.launches,
+            "flash_attention": fa.launches, "swiglu": sw.launches}
 
 
 def timed_run(torch, server):
@@ -459,30 +482,14 @@ def phase_profile(torch, unprofiled_wall_s, phase="profile", names=("fedavg_redu
     """Device time by kernel name over one more main-path run (CUPTI). The
     profiler slows the host, so the idle share is taken against the wall
     time of the same run unprofiled."""
-    from torch.profiler import ProfilerActivity, profile
-
     server = paper_server(torch, **cfg)
     torch.cuda.synchronize()
     t0 = time.perf_counter()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        server.run()
-        torch.cuda.synchronize()
+    busy, top, by_name = device_profile(torch, server.run, names)
     wall = time.perf_counter() - t0
-    kernels = [e for e in prof.key_averages() if "CUDA" in str(getattr(e, "device_type", ""))]
-
-    def device_time(e):
-        t = getattr(e, "self_device_time_total", None)
-        return t if t is not None else e.self_cuda_time_total
-
-    device_total = sum(device_time(e) for e in kernels)
-    top = sorted(kernels, key=lambda e: -device_time(e))[:12]
-    by_name = {f"{n}_device_us": sum(device_time(e) for e in kernels if n in e.key)
-               for n in names}
     emit(phase, profiled_wall_s=wall, unprofiled_wall_s=unprofiled_wall_s,
-         device_busy_us=device_total, **by_name,
-         device_idle_share=1.0 - device_total / (unprofiled_wall_s * 1e6),
-         top=[{"name": e.key[:90], "device_us": device_time(e), "calls": e.count}
-              for e in top])
+         device_busy_us=busy, **by_name,
+         device_idle_share=1.0 - busy / (unprofiled_wall_s * 1e6), top=top)
 
 
 def phase_engines(torch, batched_hist):
@@ -531,6 +538,345 @@ def phase_headline(torch):
     emit("headline", default_completed=dead.completed_rounds,
          tuned_completed=alive.completed_rounds, tuned_accuracy=alive.final_accuracy(),
          fused_transport=fused.summary(), fused_wall_s=wall)
+
+
+# --------------------------------------------------------------------------
+# the LM serving path: flash_attention and swiglu, the Qwen3-8B server
+# --------------------------------------------------------------------------
+
+QWEN_D, QWEN_F, QWEN_LAYERS = 4096, 12288, 36
+SWIGLU_NO_LIBRARY = "none: no single PyTorch call computes the fused SwiGLU MLP"
+SERVE_LOGIT_RTOL = 3e-2  # bf16 card vs bf16 CPU logits, relative to max |logit|
+
+
+def attention_pairs(Sq: int, Skv: int, causal: bool, window: int) -> int:
+    """(query, key) pairs one head attends to under the masks."""
+    n = 0
+    for i in range(Sq):
+        hi = min(Skv, i + 1) if causal else Skv
+        lo = max(0, i - window + 1) if window else 0
+        n += max(0, hi - lo)
+    return n
+
+
+def flash_work(B, Sq, Skv, Hq, Hkv, D, itemsize, causal=True, window=0) -> tuple:
+    """(bytes, flops): q, k, v read once and the output written once; a
+    multiply-add for q.k and for p.v per unmasked pair and head dim."""
+    bytes_moved = (2 * B * Hq * Sq * D + 2 * B * Hkv * Skv * D) * itemsize
+    return bytes_moved, 4 * D * B * Hq * attention_pairs(Sq, Skv, causal, window)
+
+
+def swiglu_work(M, d, F, itemsize) -> tuple:
+    """(bytes, flops): x and the three weights read once, the output
+    written once; three products of 2*M*d*F."""
+    return (2 * M * d + 3 * d * F) * itemsize, 6 * M * d * F
+
+
+def _timings(torch, kernel, plain, library, work, dtype, *, iters=100, reps=7):
+    peak = BF16_FLOPS_PER_S if dtype == torch.bfloat16 else F32_FLOPS_PER_S
+    bound, bound_by = bound_us(*work, flops_per_s=peak)
+    return {
+        "us": device_us(torch, kernel, iters, reps), "wall_us": wall_us(torch, kernel, iters, reps),
+        "plain_us": device_us(torch, plain, iters, reps),
+        "library_us": device_us(torch, library, iters, reps) if library else None,
+        "bound_us": bound, "bound_by": bound_by, "bytes": work[0], "flops": work[1],
+    }
+
+
+def phase_lm_kernels(torch):
+    """flash_attention and swiglu against their plain versions on the card;
+    timed at the serving shapes, the S = 4096 prefill and full width."""
+    import torch.nn.functional as F
+
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import swiglu as sw
+    from repro_torch.kernels.ref import flash_attention_ref, swiglu_ref
+
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(2)
+    f32, bf16 = torch.float32, torch.bfloat16
+    name = {f32: "float32", bf16: "bfloat16"}
+    out = {k: {"max_abs_err": 0.0, "max_rel_err": 0.0, "timed": {}} for k in ("flash_attention", "swiglu")}
+    out["flash_attention"]["max_row_rel_err"] = 0.0
+
+    flash_cases = [(shape, dt, 0, "reference") for shape in (
+        (1, 128, 128, 2, 2, 64), (2, 256, 256, 4, 2, 64), (1, 128, 256, 8, 1, 32),
+        (2, 128, 128, 4, 4, 128)) for dt in (f32, bf16)]
+    flash_cases += [((1, 256, 256, 2, 2, 32), f32, w, "window") for w in (32, 64)]
+    flash_cases += [((4, S, S, 32, 8, 128), dt, 0, "lengths") for S in (1, 7, 100) for dt in (f32, bf16)]
+    flash_cases += [((4, 16, 16, 32, 8, 128), f32, 0, "lengths")]
+    flash_cases += [((4, 16, 16, 32, 8, 128), bf16, 0, "serving"),
+                    ((1, 4096, 4096, 32, 8, 128), bf16, 0, "long_prefill")]
+    tol = {f32: 2e-5, bf16: 5e-2}
+    # per query row, relative to that row's max |plain|: a late row of the
+    # S = 4096 prefill averages ~1,500 keys and is only ~0.02 in size, below
+    # the absolute bf16 tolerance; bf16 rounds each output once (2**-8)
+    row_tol = {f32: 1e-3, bf16: 1e-2}
+    for (B, Sq, Skv, Hq, Hkv, D), dt, window, group in flash_cases:
+        q = torch.randn(B * Hq, Sq, D, generator=gen, device=dev).to(dt)
+        k = torch.randn(B * Hkv, Skv, D, generator=gen, device=dev).to(dt)
+        v = torch.randn(B * Hkv, Skv, D, generator=gen, device=dev).to(dt)
+        kernel = lambda: fa.flash_attention_bhsd(q, k, v, causal=True, window=window)
+        plain = lambda: flash_attention_ref(q, k, v, causal=True, window=window)
+        got, want = kernel(), plain()
+        torch.cuda.synchronize()
+        err = float(torch.max(torch.abs(got.float() - want.float())))
+        scale = float(torch.max(torch.abs(want.float())))
+        row_err = float(torch.max(torch.amax(torch.abs(got.float() - want.float()), -1)
+                                  / torch.amax(torch.abs(want.float()), -1).clamp_min(1e-30)))
+        check(got.dtype == dt and got.shape == q.shape, f"flash_attention {group} output")
+        check(err < tol[dt], f"flash_attention {(B, Sq, Skv, Hq, Hkv, D)} {dt} w={window}: "
+                             f"max err {err} >= {tol[dt]}")
+        check(row_err < row_tol[dt], f"flash_attention {(B, Sq, Skv, Hq, Hkv, D)} {dt} "
+                                     f"w={window}: row-relative err {row_err} >= {row_tol[dt]}")
+        acc = out["flash_attention"]
+        acc["max_abs_err"] = max(acc["max_abs_err"], err)
+        acc["max_rel_err"] = max(acc["max_rel_err"], err / max(scale, 1e-30))
+        acc["max_row_rel_err"] = max(acc["max_row_rel_err"], row_err)
+        row = {"kernel": "flash_attention", "shape": [B, Sq, Skv, Hq, Hkv, D], "dtype": name[dt],
+               "window": window, "group": group, "max_abs_err": err, "max_abs_ref": scale,
+               "max_row_rel_err": row_err, "row_rtol": row_tol[dt]}
+        if group in ("serving", "long_prefill"):
+            library = lambda: F.scaled_dot_product_attention(
+                q.view(B, Hq, Sq, D), k.view(B, Hkv, Skv, D), v.view(B, Hkv, Skv, D),
+                is_causal=True, enable_gqa=True)
+            n = 100 if group == "serving" else 5
+            row.update(_timings(torch, kernel, plain, library,
+                                flash_work(B, Sq, Skv, Hq, Hkv, D, q.element_size()), dt,
+                                iters=n, reps=7 if n == 100 else 3))
+            acc["timed"][group] = row
+        emit("lm_kernels", **row)
+
+    swiglu_cases = [((M, d, F_), dt, "reference") for M, d, F_ in (
+        (64, 32, 128), (128, 64, 256), (256, 128, 512)) for dt in (f32, bf16)]
+    swiglu_cases += [((M, QWEN_D, QWEN_F), dt, "full_width") for M in (1, 4, 7, 64) for dt in (f32, bf16)]
+    # full width: relative to max |plain|; f32 differs in summation order
+    # only, bf16 also rounds h and the output to bf16
+    rel_tol = {f32: 1e-5, bf16: 2e-2}
+    for (M, d, F_), dt, group in swiglu_cases:
+        full = group == "full_width"
+        x = torch.randn(M, d, generator=gen, device=dev).to(dt)
+        ws = [(torch.randn(s, generator=gen, device=dev) * (s[0] ** -0.5 if full else 0.1)).to(dt)
+              for s in ((d, F_), (d, F_), (F_, d))]
+        kernel = lambda: sw.swiglu_fused(x, *ws)
+        plain = lambda: swiglu_ref(x, *ws)
+        got, want = kernel(), plain()
+        torch.cuda.synchronize()
+        err = float(torch.max(torch.abs(got.float() - want.float())))
+        scale = float(torch.max(torch.abs(want.float())))
+        check(got.dtype == dt and got.shape == (M, d), f"swiglu {group} output")
+        limit = rel_tol[dt] * scale if full else (1e-4 if dt == f32 else 5e-2)
+        check(err <= limit, f"swiglu {(M, d, F_)} {dt}: max err {err} > {limit}")
+        acc = out["swiglu"]
+        acc["max_abs_err"] = max(acc["max_abs_err"], err)
+        acc["max_rel_err"] = max(acc["max_rel_err"], err / max(scale, 1e-30))
+        row = {"kernel": "swiglu", "shape": [M, d, F_], "dtype": name[dt], "group": group,
+               "max_abs_err": err, "max_abs_ref": scale}
+        if full and dt == bf16:
+            wg, wu, wd = ws
+            composite = lambda: (F.silu(x @ wg) * (x @ wu)) @ wd
+            row.update(_timings(torch, kernel, plain, None, swiglu_work(M, d, F_, 2), dt,
+                                iters=20, reps=5))
+            row["composite_us"] = device_us(torch, composite, 20, 5)
+            acc["timed"][M] = row
+        emit("lm_kernels", **row)
+    return out
+
+
+def device_profile(torch, fn, names=()):
+    """Run ``fn`` under the profiler (CUPTI): (device busy us, top kernels,
+    device us by name substring)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    kernels = [e for e in prof.key_averages() if "CUDA" in str(getattr(e, "device_type", ""))]
+
+    def device_time(e):
+        t = getattr(e, "self_device_time_total", None)
+        return t if t is not None else e.self_cuda_time_total
+
+    total = sum(device_time(e) for e in kernels)
+    top = [{"name": e.key[:90], "device_us": device_time(e), "calls": e.count}
+           for e in sorted(kernels, key=lambda e: -device_time(e))[:12]]
+    by_name = {f"{n}_device_us": sum(device_time(e) for e in kernels if n in e.key) for n in names}
+    return total, top, by_name
+
+
+def phase_serve(torch):
+    """The Qwen3-8B server at full width on the card: every request gets its
+    12 tokens, every token lies below padded_vocab, every logit is finite,
+    and each prefill launches flash_attention and swiglu once per layer,
+    each decode step swiglu once per layer and flash_attention never."""
+    from repro_torch.launch import Server
+    from repro_torch.launch.serve import example_requests
+
+    t0 = time.perf_counter()
+    server = Server("qwen3-8b", reduced=False, device="cuda")
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    cfg = server.cfg
+    prefill, decode = server._prefill, server._decode
+    calls = {"prefill": [], "decode": []}
+
+    def traced(kind, fn):
+        def call(*args):
+            torch.cuda.synchronize()
+            before = read_launches()
+            t = time.perf_counter()
+            logits, cache = fn(*args)
+            torch.cuda.synchronize()
+            ms = (time.perf_counter() - t) * 1e3
+            after = read_launches()
+            check(logits.dtype == torch.float32 and logits.shape == (server.batch, cfg.padded_vocab),
+                  f"{kind}: logits {logits.dtype} {tuple(logits.shape)}")
+            check(bool(torch.isfinite(logits).all()), f"{kind}: non-finite logits")
+            calls[kind].append((ms, after["flash_attention"] - before["flash_attention"],
+                                after["swiglu"] - before["swiglu"]))
+            return logits, cache
+        return call
+
+    server._prefill, server._decode = traced("prefill", prefill), traced("decode", decode)
+    server.run(example_requests(cfg.vocab_size))  # warm-up: kernel builds, cuBLAS handles
+    for v in calls.values():
+        v.clear()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_launches()
+    t0 = time.perf_counter()
+    done = server.run(example_requests(cfg.vocab_size))
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = read_launches()
+    peak = torch.cuda.max_memory_allocated()
+    n_tok = sum(len(r.generated) for r in done)
+    check(len(done) == 8 and all(len(r.generated) == 12 for r in done),
+          f"serve: generated {[len(r.generated) for r in done]}")
+    check(all(0 <= t < cfg.padded_vocab for r in done for t in r.generated), "serve: token range")
+    n_pre, n_dec = len(calls["prefill"]), len(calls["decode"])
+    check(all(c[1:] == (QWEN_LAYERS, QWEN_LAYERS) for c in calls["prefill"]),
+          f"serve: per-prefill launches {[c[1:] for c in calls['prefill']]}")
+    check(all(c[1:] == (0, QWEN_LAYERS) for c in calls["decode"]),
+          f"serve: per-decode launches {[c[1:] for c in calls['decode']]}")
+    check(launches["flash_attention"] == QWEN_LAYERS * n_pre
+          and launches["swiglu"] == QWEN_LAYERS * (n_pre + n_dec), f"serve: launches {launches}")
+    prefill_ms = [c[0] for c in calls["prefill"]]
+    decode_ms = [c[0] for c in calls["decode"]]
+
+    # the same requests unwrapped (no per-call synchronize), then profiled
+    server._prefill, server._decode = prefill, decode
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    server.run(example_requests(cfg.vocab_size))
+    torch.cuda.synchronize()
+    plain_wall = time.perf_counter() - t0
+    busy, top, by_name = device_profile(
+        torch, lambda: server.run(example_requests(cfg.vocab_size)),
+        names=("flash_kernel", "swiglu_kernel", "nvjet", "elementwise"))
+    emit("serve", arch=cfg.name, n_layers=cfg.n_layers, d_model=cfg.d_model,
+         params=cfg.param_count(), init_s=init_s, requests=len(done), tokens=n_tok,
+         wall_s=wall, tokens_per_s=n_tok / wall, unsynced_wall_s=plain_wall,
+         unsynced_tokens_per_s=n_tok / plain_wall,
+         prefills=n_pre, decode_steps=n_dec, prefill_ms=prefill_ms,
+         decode_ms_per_step=statistics.mean(decode_ms), decode_ms_median=statistics.median(decode_ms),
+         peak_memory_bytes=peak, launches={k: launches[k] for k in ("flash_attention", "swiglu")},
+         prompt_lengths=[len(r.prompt) for r in done], first_tokens=[r.generated[:4] for r in done])
+    emit("serve_profile", device_busy_us=busy, unsynced_wall_s=plain_wall,
+         device_idle_share=1.0 - busy / (plain_wall * 1e6), **by_name, top=top)
+    # (flash_attention, swiglu) launches of one call, equal for every call
+    return server, {"launches": launches, "prefills": n_pre, "decode_steps": n_dec,
+                    "per_prefill": calls["prefill"][0][1:], "per_decode": calls["decode"][0][1:]}
+
+
+def phase_full_width(torch, server):
+    """A 2-layer model at Qwen3-8B's full widths, the served params' first
+    two layers: one prefill and three decode steps on the card (kernels)
+    and on the CPU (plain versions), the CPU fed the card's tokens."""
+    import numpy as np
+
+    from repro_torch.configs import get_config
+    from repro_torch.launch.serve import example_requests
+    from repro_torch.models import Model
+    from repro_torch.utils import tree_map
+
+    cfg = get_config("qwen3-8b").replace(n_layers=2)
+    params = {k: tree_map(lambda t: t[:2], v) if k.startswith("seg") else v
+              for k, v in server.params.items()}
+    cpu_params = tree_map(lambda t: t.cpu(), params)
+    model = Model(cfg)
+    reqs = example_requests(cfg.vocab_size)[:4]
+    S = max(8, max(len(r.prompt) for r in reqs))
+    toks = np.zeros((4, S), np.int32)
+    for i, r in enumerate(reqs):
+        toks[i, S - len(r.prompt):] = r.prompt
+    toks = torch.from_numpy(toks)
+
+    reset_launches()
+    logits, cache = model.prefill(params, {"tokens": toks.cuda()}, 128)
+    card = [logits.cpu()]
+    for _ in range(3):
+        cur = logits.argmax(-1)[:, None].to(torch.int32)
+        logits, cache = model.decode_step(params, cache, cur)
+        card.append(logits.cpu())
+    counts = read_launches()
+    check(counts["flash_attention"] == 2 and counts["swiglu"] == 8, f"full_width launches {counts}")
+
+    logits, cache = model.prefill(cpu_params, {"tokens": toks}, 128)
+    cpu = [logits]
+    for step in range(3):
+        cur = card[step].argmax(-1)[:, None].to(torch.int32)  # the card's tokens
+        logits, cache = model.decode_step(cpu_params, cache, cur)
+        cpu.append(logits)
+    errs, scales, agree = [], [], 0
+    for a, b in zip(card, cpu):
+        check(bool(torch.isfinite(a).all()), "full_width: non-finite card logits")
+        errs.append(float(torch.max(torch.abs(a - b))))
+        scales.append(float(torch.max(torch.abs(b))))
+        agree += int((a.argmax(-1) == b.argmax(-1)).sum())
+    worst = max(e / s for e, s in zip(errs, scales))
+    check(worst <= SERVE_LOGIT_RTOL, f"full_width: logits differ by {worst} of max |logit|")
+    emit("full_width", n_layers=2, d_model=cfg.d_model, max_abs_err=errs, max_abs_logit=scales,
+         rel_err=worst, rtol=SERVE_LOGIT_RTOL, greedy_agree=agree, greedy_total=4 * len(card))
+
+
+def lm_rows(lm, served):
+    """The kernels-line rows of flash_attention (at the serving prefill
+    shape, with the S = 4096 prefill beside it) and swiglu (at decode,
+    M = 4, with the M = 64 prefill beside it), launches from the serve run."""
+    launches, n_pre, n_dec = served["launches"], served["prefills"], served["decode_steps"]
+    per_pre, per_dec = served["per_prefill"], served["per_decode"]
+
+    def ms(row, prefix=""):
+        lib = row["library_us"]
+        return {f"{prefix}ms": row["us"] / 1e3, f"{prefix}plain_ms": row["plain_us"] / 1e3,
+                f"{prefix}bound_ms": row["bound_us"] / 1e3, f"{prefix}bound_by": row["bound_by"],
+                f"{prefix}library_ms": None if lib is None else lib / 1e3,
+                f"{prefix}wall_ms": row["wall_us"] / 1e3, f"{prefix}shape": row["shape"]}
+
+    fa, sw = lm["flash_attention"], lm["swiglu"]
+    return [
+        {"name": "flash_attention", "route": "cuda",
+         "source": "src/repro_torch/kernels/csrc/flash_attention.cu",
+         "replaces": "src/repro/kernels/flash_attention.py:127",
+         "launches": launches["flash_attention"],
+         "launches_per_prefill": per_pre[0], "launches_per_decode_step": per_dec[0],
+         "prefills": n_pre, "decode_steps": n_dec,
+         "max_abs_err": fa["max_abs_err"], "max_rel_err": fa["max_rel_err"],
+         "max_row_rel_err": fa["max_row_rel_err"],
+         **ms(fa["timed"]["serving"]), **ms(fa["timed"]["long_prefill"], "long_prefill_"),
+         "library_note": "F.scaled_dot_product_attention(is_causal=True, enable_gqa=True)"},
+        {"name": "swiglu", "route": "cuda", "source": "src/repro_torch/kernels/csrc/swiglu.cu",
+         "replaces": "src/repro/kernels/swiglu.py:46", "launches": launches["swiglu"],
+         "launches_per_prefill": per_pre[1], "launches_per_decode_step": per_dec[1],
+         "prefills": n_pre, "decode_steps": n_dec,
+         "max_abs_err": sw["max_abs_err"], "max_rel_err": sw["max_rel_err"],
+         **ms(sw["timed"][4]), **ms(sw["timed"][64], "prefill_"),
+         "composite_ms": sw["timed"][4]["composite_us"] / 1e3,
+         "prefill_composite_ms": sw["timed"][64]["composite_us"] / 1e3,
+         "library_note": SWIGLU_NO_LIBRARY + " (composite_ms: silu(x@Wg)*(x@Wu)@Wd in cuBLAS bf16)"},
+    ]
 
 
 def main() -> int:
@@ -583,6 +929,9 @@ def main() -> int:
                       compressor=get_compressor(name, ratio=0.05))
     phase_engines(torch, runs["DEFAULT"][0])
     phase_headline(torch)
+    lm = phase_lm_kernels(torch)
+    server, served = phase_serve(torch)
+    phase_full_width(torch, server)
 
     us = main_kernel
     agg_bound_us, agg_bound_by = bound_us(us["bytes"], us["flops"])
@@ -633,6 +982,7 @@ def main() -> int:
                   "x.to(torch.bfloat16)"),
         # the whole flattened CNN (N = 206,922), as ops.quantize_tree feeds it
         quant_row("quantize_stochastic", None, "src/repro/kernels/quantize.py:44", NO_LIBRARY),
+        *lm_rows(lm, served),
     ]}), flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {

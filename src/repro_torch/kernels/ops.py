@@ -1,17 +1,22 @@
-"""Tree-level wrappers around the port's kernels (the port of the slice's
-part of ``repro/kernels/ops.py``)."""
+"""Public wrappers around the port's kernels (the port of
+``repro/kernels/ops.py``): tree-level aggregation and quantization, and
+the layout side of attention and SwiGLU. The port's kernels take any
+sequence length and row count, so the reference's padding and
+power-of-two block search have no counterpart here."""
 
 from __future__ import annotations
 
 import torch
 
 from repro_torch.kernels.fedavg_reduce import fedavg_reduce_flat
+from repro_torch.kernels.flash_attention import flash_attention_bhsd
 from repro_torch.kernels.quantize import (
     dequantize_flat,
     downcast_bf16_rows_flat,
     quantize_rows_flat,
     quantize_stochastic_flat,
 )
+from repro_torch.kernels.swiglu import swiglu_fused
 from repro_torch.utils.pytree import flatten_to_vector, tree_map, unflatten_from_vector
 
 
@@ -61,3 +66,26 @@ def downcast_bf16_rows(x: torch.Tensor) -> torch.Tensor:
 def dequantize_tree(payload, template):
     _, meta = flatten_to_vector(template)
     return unflatten_from_vector(dequantize_flat(payload["q"], payload["scale"]), meta)
+
+
+def flash_attention(q, k, v, *, causal=True, window=0):
+    """q [B, Sq, Hq, D]; k/v [B, Skv, Hkv, D] -> [B, Sq, Hq, D].
+
+    GQA by head-major flattening: [B, S, H, D] -> [B*H, S, D], the kernel
+    reading kv head bh // G (no repeated copy of k and v)."""
+    B, Sq, Hq, D = q.shape
+    _, Skv, Hkv, Dv = v.shape
+    qf = q.transpose(1, 2).reshape(B * Hq, Sq, D).contiguous()
+    kf = k.transpose(1, 2).reshape(B * Hkv, Skv, D).contiguous()
+    vf = v.transpose(1, 2).reshape(B * Hkv, Skv, Dv).contiguous()
+    out = flash_attention_bhsd(qf, kf, vf, causal=causal, window=window)
+    return out.reshape(B, Hq, Sq, Dv).transpose(1, 2)
+
+
+def swiglu(x, w_gate, w_up, w_down):
+    """Fused SwiGLU over [..., d] inputs."""
+    lead = x.shape[:-1]
+    d = x.shape[-1]
+    out = swiglu_fused(x.reshape(-1, d).contiguous(), w_gate.contiguous(), w_up.contiguous(),
+                       w_down.contiguous())
+    return out.reshape(*lead, d)

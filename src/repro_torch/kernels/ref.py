@@ -1,13 +1,48 @@
 """Plain PyTorch versions of the port's hand-written kernels.
 
 Each is the kernel's target: the tests hold the kernel to it on the card
-(allclose for the reduction, bitwise for the quantize family), and the
-kernel's wrapper runs it for tensors on the CPU.
+(allclose for the reduction, attention and SwiGLU, bitwise for the
+quantize family), and the kernel's wrapper runs it for tensors on the CPU.
 """
 
 from __future__ import annotations
 
 import torch
+
+NEG_INF = -1e30
+
+
+def flash_attention_ref(q, k, v, *, causal=True, window=0, scale=None):
+    """q [BH, Sq, D]; k/v [BKV, Skv, D]; GQA via BH = G * BKV (query head
+    bh reads kv head bh // G). Scores, softmax and the product in f32; the
+    causal mask is top-left aligned (query i sees keys j <= i)."""
+    BH, Sq, D = q.shape
+    BKV, Skv, _ = v.shape
+    G = BH // BKV
+    scale = scale if scale is not None else D ** -0.5
+    kr = torch.repeat_interleave(k, G, dim=0)
+    vr = torch.repeat_interleave(v, G, dim=0)
+    s = torch.einsum("bqd,bkd->bqk", q.float(), kr.float()) * scale
+    qpos = torch.arange(Sq, device=q.device)[:, None]
+    kpos = torch.arange(Skv, device=q.device)[None, :]
+    mask = torch.ones((Sq, Skv), dtype=torch.bool, device=q.device)
+    if causal:
+        mask &= qpos >= kpos
+    if window and window > 0:
+        mask &= qpos - kpos < window
+    s = torch.where(mask[None], s, torch.full_like(s, NEG_INF))
+    p = torch.softmax(s, dim=-1)
+    return torch.einsum("bqk,bkd->bqd", p, vr.float()).to(q.dtype)
+
+
+def swiglu_ref(x, w_gate, w_up, w_down):
+    """x [M, d], w_gate/w_up [d, F], w_down [F, d] -> [M, d] in x's dtype:
+    (silu(x @ Wg) * (x @ Wu)) @ Wd, all in f32."""
+    xf = x.float()
+    g = xf @ w_gate.float()
+    u = xf @ w_up.float()
+    h = g * torch.sigmoid(g) * u
+    return (h @ w_down.float()).to(x.dtype)
 
 
 def fedavg_reduce_ref(x, w):

@@ -1,2 +1,7 @@
-"""Model payloads. This slice ports the paper's MNIST CNN; the LM side of
-``repro.models`` is not ported yet."""
+"""Model payloads: the paper's MNIST CNN (``cnn``) and the dense GQA
+decoder LM for serving (``lm`` through ``api.Model``). The other LM
+families of ``repro.models`` are not ported yet."""
+
+from repro_torch.models.api import Model
+
+__all__ = ["Model"]

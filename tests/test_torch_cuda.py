@@ -10,13 +10,17 @@ import pytest
 import torch
 
 from repro_torch.kernels import fedavg_reduce as fr
+from repro_torch.kernels import flash_attention as fa
 from repro_torch.kernels import ops
 from repro_torch.kernels import quantize as qz
+from repro_torch.kernels import swiglu as sw
 from repro_torch.kernels.ref import (
     downcast_bf16_rows_ref,
     fedavg_reduce_ref,
+    flash_attention_ref,
     quantize_rows_ref,
     quantize_stochastic_ref,
+    swiglu_ref,
 )
 
 pytestmark = pytest.mark.cuda
@@ -157,3 +161,105 @@ def test_quantize_wrappers_refuse_bad_inputs(device):
         qz.quantize_rows_flat(x, torch.ones(4))  # scales on another device
     with pytest.raises(TypeError):
         qz.downcast_bf16_rows_flat(x.double())
+
+
+# flash attention: the reference sweep, serving lengths (not tile multiples),
+# the serving shape and one long prefill; (B, Sq, Skv, Hq, Hkv, D)
+FLASH_SHAPES = [
+    (1, 128, 128, 2, 2, 64), (2, 256, 256, 4, 2, 64), (1, 128, 256, 8, 1, 32),
+    (2, 128, 128, 4, 4, 128),
+    (4, 1, 1, 32, 8, 128), (4, 7, 7, 32, 8, 128), (4, 16, 16, 32, 8, 128),
+    (4, 100, 100, 32, 8, 128), (1, 4096, 4096, 32, 8, 128),
+]
+FLASH_TOL = {torch.float32: 2e-5, torch.bfloat16: 5e-2}
+
+
+def _attn_inputs(B, Sq, Skv, Hq, Hkv, D, dtype, device, seed=0):
+    g = torch.Generator(device=device).manual_seed(seed)
+    return [torch.randn(shape, generator=g, device=device).to(dtype)
+            for shape in ((B * Hq, Sq, D), (B * Hkv, Skv, D), (B * Hkv, Skv, D))]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("B,Sq,Skv,Hq,Hkv,D", FLASH_SHAPES)
+def test_flash_attention_kernel_matches_plain(device, B, Sq, Skv, Hq, Hkv, D, dtype):
+    q, k, v = _attn_inputs(B, Sq, Skv, Hq, Hkv, D, dtype, device)
+    before = fa.launches
+    got = fa.flash_attention_bhsd(q, k, v, causal=True)
+    torch.cuda.synchronize()
+    assert fa.launches == before + 1
+    assert got.dtype == dtype and got.shape == q.shape
+    want = flash_attention_ref(q, k, v, causal=True)
+    assert torch.max(torch.abs(got.float() - want.float())).item() < FLASH_TOL[dtype]
+
+
+@pytest.mark.parametrize("window", [32, 64])
+@pytest.mark.parametrize("causal", [True, False])
+def test_flash_attention_kernel_window_matches_plain(device, window, causal):
+    q, k, v = _attn_inputs(1, 256, 256, 2, 2, 32, torch.float32, device, seed=window)
+    got = fa.flash_attention_bhsd(q, k, v, causal=causal, window=window)
+    want = flash_attention_ref(q, k, v, causal=causal, window=window)
+    assert torch.max(torch.abs(got - want)).item() < FLASH_TOL[torch.float32]
+
+
+def test_flash_attention_bshd_wrapper_on_the_card(device):
+    g = torch.Generator(device=device).manual_seed(3)
+    q = torch.randn(2, 16, 8, 64, generator=g, device=device)
+    k = torch.randn(2, 16, 2, 64, generator=g, device=device)
+    v = torch.randn(2, 16, 2, 64, generator=g, device=device)
+    got = ops.flash_attention(q, k, v)
+    want = ops.flash_attention(q.cpu(), k.cpu(), v.cpu())  # the plain version
+    assert torch.max(torch.abs(got.cpu() - want)).item() < FLASH_TOL[torch.float32]
+
+
+def test_flash_attention_refuses_bad_inputs(device):
+    q, k, v = _attn_inputs(1, 16, 16, 2, 1, 64, torch.float32, device)
+    with pytest.raises(TypeError):
+        fa.flash_attention_bhsd(q.half(), k.half(), v.half())
+    with pytest.raises(ValueError):
+        fa.flash_attention_bhsd(q[..., :48].contiguous(), k[..., :48].contiguous(),
+                                v[..., :48].contiguous())  # D = 48 has no kernel
+    with pytest.raises(ValueError):
+        fa.flash_attention_bhsd(q.transpose(1, 2), k, v)
+
+
+# swiglu: the reference sweep (weights x 0.1), then Qwen3-8B's widths at the
+# serving row counts (fan-in scaled weights); tolerance 1e-4 / 5e-2 on the
+# sweep, relative to max |plain| at full width: 1e-5 in f32 (only the
+# summation order differs), 2e-2 in bf16 (h and the output rounded to bf16)
+SWIGLU_SHAPES = [(64, 32, 128), (128, 64, 256), (256, 128, 512),
+                 (1, 4096, 12288), (4, 4096, 12288), (7, 4096, 12288), (64, 4096, 12288)]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("M,d,F", SWIGLU_SHAPES)
+def test_swiglu_kernel_matches_plain(device, M, d, F, dtype):
+    g = torch.Generator(device=device).manual_seed(M + d)
+    full = d == 4096
+    x = torch.randn(M, d, generator=g, device=device).to(dtype)
+    w = [(torch.randn(s, generator=g, device=device) * (s[0] ** -0.5 if full else 0.1)).to(dtype)
+         for s in ((d, F), (d, F), (F, d))]
+    before = sw.launches
+    got = sw.swiglu_fused(x, *w)
+    torch.cuda.synchronize()
+    assert sw.launches == before + 1
+    assert got.dtype == dtype and got.shape == (M, d)
+    want = swiglu_ref(x, *w).float()
+    err = torch.max(torch.abs(got.float() - want)).item()
+    if full:
+        rel = 1e-5 if dtype == torch.float32 else 2e-2
+        assert err <= rel * torch.max(torch.abs(want)).item()
+    else:
+        assert err < (1e-4 if dtype == torch.float32 else 5e-2)
+
+
+def test_swiglu_refuses_bad_inputs(device):
+    x = torch.randn(4, 32, device=device)
+    w = [torch.randn(32, 64, device=device), torch.randn(32, 64, device=device),
+         torch.randn(64, 32, device=device)]
+    with pytest.raises(TypeError):
+        sw.swiglu_fused(x.bfloat16(), *w)  # mixed dtypes
+    with pytest.raises(ValueError):
+        sw.swiglu_fused(x, w[0].t().contiguous().t(), w[1], w[2])  # not contiguous
+    with pytest.raises(ValueError):
+        sw.swiglu_fused(x, w[0], w[1], w[2].cpu())
