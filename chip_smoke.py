@@ -8,7 +8,9 @@ Run from the repository root. Phases, each printing one JSON line:
 1. device    card, torch/CUDA versions, TF32 turned off for matmul and cuDNN
              (the JAX reference computes in full f32);
 2. build     every ``src/repro_torch/kernels/csrc/*.cu``, one nvcc each, in
-             parallel, into ``build/repro_torch/``;
+             parallel, into ``build/repro_torch/``; registers, shared memory
+             and spill bytes of the bf16 flash_attention and swiglu kernels,
+             which must not spill;
 3. kernel    each hand-written kernel against its plain PyTorch version on
              the card, at the reference test shapes and the main path's
              shapes, with device time, plain time, one-call library time
@@ -36,10 +38,14 @@ Run from the repository root. Phases, each printing one JSON line:
              (accuracy > 0.3); one stochastic fused_transport run;
 10. lm_kernels
              flash_attention and swiglu against their plain versions on the
-             card: the reference sweeps, serving lengths, the serving shape
-             (B = 4, S = 16, 32 / 8 heads, D = 128), one S = 4096 prefill,
-             and swiglu at Qwen3-8B's widths for M = 1, 4, 7, 64, with the
-             same timing fields as ``kernel`` and one PyTorch call's time;
+             card: the reference sweeps, serving lengths, bf16 windows, both
+             sides of the GQA packing boundary (G * Sq = 64, 65), the
+             serving shape (B = 4, S = 16, 32 / 8 heads, D = 128), one
+             S = 4096 prefill, and swiglu at Qwen3-8B's widths for
+             M = 1, 4, 7, 44, 56, 64, with the same timing fields as
+             ``kernel`` and one PyTorch call's time; the share of the bf16
+             swiglu's time that its cross-block reduction takes (the
+             kernel built again with ``-DSWIGLU_NO_REDUCE``);
 11. serve     ``Server("qwen3-8b", reduced=False)`` on the card, params from a
              seeded generator: serve.py:main's 8 requests (batch 4, 12 new
              tokens each); launches asserted per prefill and per decode step;
@@ -572,6 +578,90 @@ def swiglu_work(M, d, F, itemsize) -> tuple:
     return (2 * M * d + 3 * d * F) * itemsize, 6 * M * d * F
 
 
+# the redesigned bf16 kernels (flash_attention: wgmma + TMA; swiglu: cp.async
+# ring + mma.sync, and its cast launch), held to zero spills at build time
+NEW_KERNELS = ("flash_kernel_wgmma", "swiglu_kernel_mma", "swiglu_cast_kernel")
+KNOWN_ENTRIES = NEW_KERNELS + ("flash_kernel_simt", "swiglu_kernel_simt")
+
+
+def ptxas_entries(report: str) -> list:
+    """Registers, static shared memory and spill bytes of each entry function
+    in an ``nvcc -Xptxas -v`` report, by kernel name (and template D)."""
+    import re
+
+    entries, cur = [], None
+    for ln in report.splitlines():
+        m = re.search(r"Compiling entry function '(\S+)'", ln)
+        if m:
+            mangled = m.group(1)
+            kernel = next((k for k in KNOWN_ENTRIES if k in mangled), mangled)
+            d = re.search(re.escape(kernel) + r"ILi(\d+)E", mangled)
+            cur = {"entry": kernel + (f"<{d.group(1)}>" if d else ""), "kernel": kernel}
+            entries.append(cur)
+            continue
+        if cur is None:
+            continue
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", ln)
+        if m:
+            cur["spill_stores"], cur["spill_loads"] = int(m.group(1)), int(m.group(2))
+        m = re.search(r"Used (\d+) registers", ln)
+        if m:
+            cur["registers"] = int(m.group(1))
+            sm = re.search(r"(\d+) bytes smem", ln)
+            cur["static_smem_bytes"] = int(sm.group(1)) if sm else 0
+    return entries
+
+
+def redesigned_smem() -> dict:
+    """Dynamic shared memory the bf16 kernels ask for at launch."""
+    from repro_torch.kernels.build import load_library
+
+    fa = load_library("flash_attention").flash_attention_bf16_smem_bytes
+    return {**{f"flash_kernel_wgmma<{D}>": fa(D) for D in (32, 64, 128)},
+            "swiglu_kernel_mma": load_library("swiglu").swiglu_bf16_smem_bytes()}
+
+
+def swiglu_reduction_share(torch, rows=(4, 64)) -> dict:
+    """Device us of the bf16 swiglu as the wrapper launches it, and of the
+    same source built with ``-DSWIGLU_NO_REDUCE`` (its workspace atomics
+    behind a branch never taken: the products still run, nothing is added),
+    at Qwen3-8B's widths; the share of the call that the cross-block
+    reduction takes is 1 - without / with."""
+    import ctypes
+
+    from repro_torch.kernels.build import CSRC, NVCC_FLAGS, _nvcc, library_path, load_library
+
+    full = library_path("swiglu")
+    bare = full.with_name(full.stem + "-no-reduce.so")
+    if not bare.exists():
+        built = subprocess.run([_nvcc(), *NVCC_FLAGS, "-DSWIGLU_NO_REDUCE", "-o", str(bare),
+                                str(CSRC / "swiglu.cu")], capture_output=True, text=True)
+        check(built.returncode == 0, f"swiglu -DSWIGLU_NO_REDUCE failed to build:\n"
+                                     f"{(built.stdout + built.stderr)[-4000:]}")
+    libs = {"full": load_library("swiglu"), "no_reduce": ctypes.CDLL(str(bare))}
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(5)
+    out = {}
+    for M in rows:
+        x = torch.randn(M, QWEN_D, generator=gen, device=dev).to(torch.bfloat16)
+        ws = [(torch.randn(s, generator=gen, device=dev) * s[0] ** -0.5).to(torch.bfloat16)
+              for s in ((QWEN_D, QWEN_F), (QWEN_D, QWEN_F), (QWEN_F, QWEN_D))]
+        bufs = [torch.zeros(M, QWEN_D, device=dev),
+                torch.empty(M, QWEN_D, dtype=torch.bfloat16, device=dev)]
+        ptrs = [t.data_ptr() for t in (x, *ws, *bufs)]
+        stream = torch.cuda.current_stream().cuda_stream
+        us = {}
+        for name, lib in libs.items():
+            fn = lib.swiglu_bf16
+            fn.restype = ctypes.c_int
+            fn.argtypes = [ctypes.c_void_p] * len(ptrs) + [ctypes.c_int] * 3 + [ctypes.c_void_p]
+            check(fn(*ptrs, M, QWEN_D, QWEN_F, stream) == 0, f"swiglu {name} launch failed")
+            us[name] = device_us(torch, lambda: fn(*ptrs, M, QWEN_D, QWEN_F, stream), 20, 5)
+        out[M] = {"us": us["full"], "no_reduce_us": us["no_reduce"],
+                  "reduction_share": 1.0 - us["no_reduce"] / us["full"]}
+    return out
+
+
 def _timings(torch, kernel, plain, library, work, dtype, *, iters=100, reps=7):
     peak = BF16_FLOPS_PER_S if dtype == torch.bfloat16 else F32_FLOPS_PER_S
     bound, bound_by = bound_us(*work, flops_per_s=peak)
@@ -602,7 +692,9 @@ def phase_lm_kernels(torch):
     flash_cases = [(shape, dt, 0, "reference") for shape in (
         (1, 128, 128, 2, 2, 64), (2, 256, 256, 4, 2, 64), (1, 128, 256, 8, 1, 32),
         (2, 128, 128, 4, 4, 128)) for dt in (f32, bf16)]
-    flash_cases += [((1, 256, 256, 2, 2, 32), f32, w, "window") for w in (32, 64)]
+    flash_cases += [((1, 256, 256, 2, 2, 32), dt, w, "window") for w in (32, 64) for dt in (f32, bf16)]
+    # G * Sq = 64 packs the query heads of a kv head into one tile, 65 does not
+    flash_cases += [((1, 16, 16, 4, 1, 128), bf16, 0, "packing"), ((1, 13, 13, 5, 1, 128), bf16, 0, "packing")]
     flash_cases += [((4, S, S, 32, 8, 128), dt, 0, "lengths") for S in (1, 7, 100) for dt in (f32, bf16)]
     flash_cases += [((4, 16, 16, 32, 8, 128), f32, 0, "lengths")]
     flash_cases += [((4, 16, 16, 32, 8, 128), bf16, 0, "serving"),
@@ -649,7 +741,9 @@ def phase_lm_kernels(torch):
 
     swiglu_cases = [((M, d, F_), dt, "reference") for M, d, F_ in (
         (64, 32, 128), (128, 64, 256), (256, 128, 512)) for dt in (f32, bf16)]
-    swiglu_cases += [((M, QWEN_D, QWEN_F), dt, "full_width") for M in (1, 4, 7, 64) for dt in (f32, bf16)]
+    # M = 44 and 56: the serve run's prefill rows (B = 4 x S = 11, 14)
+    swiglu_cases += [((M, QWEN_D, QWEN_F), dt, "full_width") for M in (1, 4, 7, 44, 56, 64)
+                     for dt in (f32, bf16)]
     # full width: relative to max |plain|; f32 differs in summation order
     # only, bf16 also rounds h and the output to bf16
     rel_tol = {f32: 1e-5, bf16: 2e-2}
@@ -680,6 +774,9 @@ def phase_lm_kernels(torch):
             row["composite_us"] = device_us(torch, composite, 20, 5)
             acc["timed"][M] = row
         emit("lm_kernels", **row)
+    share = swiglu_reduction_share(torch)
+    out["swiglu"]["reduction"] = share
+    emit("lm_kernels", kernel="swiglu", group="reduction_share", rows=share)
     return out
 
 
@@ -774,7 +871,7 @@ def phase_serve(torch):
     plain_wall = time.perf_counter() - t0
     busy, top, by_name = device_profile(
         torch, lambda: server.run(example_requests(cfg.vocab_size)),
-        names=("flash_kernel", "swiglu_kernel", "nvjet", "elementwise"))
+        names=("flash_kernel", "swiglu_kernel", "swiglu_cast", "nvjet", "elementwise"))
     emit("serve", arch=cfg.name, n_layers=cfg.n_layers, d_model=cfg.d_model,
          params=cfg.param_count(), init_s=init_s, requests=len(done), tokens=n_tok,
          wall_s=wall, tokens_per_s=n_tok / wall, unsynced_wall_s=plain_wall,
@@ -841,6 +938,14 @@ def phase_full_width(torch, server):
          rel_err=worst, rtol=SERVE_LOGIT_RTOL, greedy_agree=agree, greedy_total=4 * len(card))
 
 
+FL_DESIGN = {
+    "fedavg_reduce": "grid-stride, one thread per column, weights in shared memory",
+    "quantize_rows": "grid-stride, one thread per element, correctly rounded quotient",
+    "downcast_bf16_rows": "grid-stride, one thread per element",
+    "quantize_stochastic": "grid-stride, one thread per element, correctly rounded quotient",
+}
+
+
 def lm_rows(lm, served):
     """The kernels-line rows of flash_attention (at the serving prefill
     shape, with the S = 4096 prefill beside it) and swiglu (at decode,
@@ -860,6 +965,7 @@ def lm_rows(lm, served):
         {"name": "flash_attention", "route": "cuda",
          "source": "src/repro_torch/kernels/csrc/flash_attention.cu",
          "replaces": "src/repro/kernels/flash_attention.py:127",
+         "design": "wgmma+tma, bf16 P, GQA rows packed (bf16); CUDA cores (f32)",
          "launches": launches["flash_attention"],
          "launches_per_prefill": per_pre[0], "launches_per_decode_step": per_dec[0],
          "prefills": n_pre, "decode_steps": n_dec,
@@ -868,13 +974,18 @@ def lm_rows(lm, served):
          **ms(fa["timed"]["serving"]), **ms(fa["timed"]["long_prefill"], "long_prefill_"),
          "library_note": "F.scaled_dot_product_attention(is_causal=True, enable_gqa=True)"},
         {"name": "swiglu", "route": "cuda", "source": "src/repro_torch/kernels/csrc/swiglu.cu",
-         "replaces": "src/repro/kernels/swiglu.py:46", "launches": launches["swiglu"],
+         "replaces": "src/repro/kernels/swiglu.py:46",
+         "design": "cp.async ring + swap-AB mma.sync, float4 atomics, cast launch (bf16); "
+                   "CUDA cores (f32)",
+         "launches": launches["swiglu"],
          "launches_per_prefill": per_pre[1], "launches_per_decode_step": per_dec[1],
          "prefills": n_pre, "decode_steps": n_dec,
          "max_abs_err": sw["max_abs_err"], "max_rel_err": sw["max_rel_err"],
          **ms(sw["timed"][4]), **ms(sw["timed"][64], "prefill_"),
          "composite_ms": sw["timed"][4]["composite_us"] / 1e3,
          "prefill_composite_ms": sw["timed"][64]["composite_us"] / 1e3,
+         "reduction_share": sw["reduction"][4]["reduction_share"],
+         "prefill_reduction_share": sw["reduction"][64]["reduction_share"],
          "library_note": SWIGLU_NO_LIBRARY + " (composite_ms: silu(x@Wg)*(x@Wu)@Wd in cuBLAS bf16)"},
     ]
 
@@ -911,9 +1022,17 @@ def main() -> int:
 
     t0 = time.perf_counter()
     reports = build_all()
-    emit("build", seconds=time.perf_counter() - t0, sources=sorted(reports),
+    build_s = time.perf_counter() - t0
+    redesigned = ptxas_entries(reports["flash_attention"] + reports["swiglu"])
+    check(set(NEW_KERNELS) <= {e["kernel"] for e in redesigned},
+          f"build: ptxas reported {[e['kernel'] for e in redesigned]}")
+    for e in redesigned:
+        if e["kernel"] in NEW_KERNELS:
+            check(e["spill_stores"] == 0 and e["spill_loads"] == 0, f"build: {e['entry']} spills")
+    emit("build", seconds=build_s, sources=sorted(reports),
          ptxas={k: [ln.strip() for ln in v.splitlines() if "Used" in ln]
-                for k, v in reports.items()})
+                for k, v in reports.items()},
+         redesigned=redesigned, dynamic_smem_bytes=redesigned_smem())
 
     leaf_sizes = [l.numel() for l in tree_leaves(cnn_init(torch.Generator()))]
     max_err, main_kernel = phase_kernel(torch, leaf_sizes)
@@ -948,6 +1067,7 @@ def main() -> int:
         return {
             "name": name, "route": "cuda",
             "source": "src/repro_torch/kernels/csrc/quantize.cu", "replaces": replaces,
+            "design": FL_DESIGN[name],
             "launches": n, "launches_per_round": per_round,
             "max_abs_err": q["max_abs_err"], "max_err": q["max_abs_err"],
             "ms": q["us"] / 1e3, "plain_ms": q["plain_us"] / 1e3,
@@ -963,6 +1083,7 @@ def main() -> int:
         "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/fedavg_reduce.cu",
         "replaces": "src/repro/kernels/fedavg_reduce.py:37",
+        "design": FL_DESIGN["fedavg_reduce"],
         "launches": launches,
         "launches_per_round": launches // max(hist.completed_rounds, 1),
         "max_abs_err": max_err,

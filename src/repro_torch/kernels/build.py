@@ -51,14 +51,18 @@ def sources() -> List[str]:
 
 def build_all(names: List[str] | None = None) -> Dict[str, str]:
     """Compile every missing library in parallel; returns each source's
-    ``ptxas -v`` report (empty for a library that was already built).
-    Raises with the compiler's output if any build fails."""
+    ``ptxas -v`` report (kept beside the library, so a library that was
+    already built returns the report of its build). Raises with the
+    compiler's output if any build fails."""
     names = sources() if names is None else names
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     procs = {}
+    reports = {}
     for name in names:
         out = library_path(name)
         if out.exists():
+            log = out.with_suffix(".log")
+            reports[name] = log.read_text() if log.exists() else ""
             continue
         tmp = out.with_suffix(f".{os.getpid()}.tmp")
         cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{name}.cu")]
@@ -67,7 +71,6 @@ def build_all(names: List[str] | None = None) -> Dict[str, str]:
             tmp,
             out,
         )
-    reports = {name: "" for name in names}
     failed = []
     for name, (proc, tmp, out) in procs.items():
         log, _ = proc.communicate()
@@ -76,6 +79,7 @@ def build_all(names: List[str] | None = None) -> Dict[str, str]:
             failed.append(f"nvcc failed for {name}.cu (exit {proc.returncode}):\n{log}")
             tmp.unlink(missing_ok=True)
         else:
+            out.with_suffix(".log").write_text(log)
             os.replace(tmp, out)
     if failed:
         raise RuntimeError("\n".join(failed))

@@ -3,11 +3,15 @@
 
 ``flash_attention_bhsd`` takes the reference kernel's layout: q [BH, Sq, D],
 k/v [BKV, Skv, D], query head bh reading kv head bh // G. On a CUDA tensor
-it launches the hand-written sm_90a kernel in ``csrc/flash_attention.cu``
+it launches a hand-written sm_90a kernel in ``csrc/flash_attention.cu``
 (online softmax, m / l / accumulator in f32, fully masked kv tiles
-skipped; any Sq and Skv; D of 32, 64 or 128); on a CPU tensor it runs the
-plain version ``ref.flash_attention_ref``. There is no fallback between
-the two: any other device, or an input the kernel does not take, raises.
+skipped; any Sq; D of 32, 64 or 128): bfloat16 runs on the tensor cores
+(``flash_kernel_wgmma``: wgmma, TMA loads of K / V, P rounded to bf16
+before P V, GQA rows packed into one tile when G * Sq <= 64) and needs
+Skv >= 1 and 16-byte aligned tensors; float32 runs on the CUDA cores
+(``flash_kernel_simt``, P kept in f32). On a CPU tensor it runs the plain
+version ``ref.flash_attention_ref``. There is no fallback between the
+two: any other device, or an input the kernel does not take, raises.
 
 ``launches`` counts kernel launches (CPU calls do not count), so a run can
 show that it went through the kernel.
@@ -73,6 +77,10 @@ def flash_attention_bhsd(q, k, v, *, causal=True, window=0, scale=None):
         raise ValueError("flash_attention_bhsd: q, k, v must be contiguous on one device")
     if D not in HEAD_DIMS or BH > MAX_HEADS or max(Sq, Skv) * D >= 2**31:
         raise ValueError(f"flash_attention_bhsd: D={D}, BH={BH}, Sq={Sq}, Skv={Skv} out of range")
+    if q.dtype == torch.bfloat16 and q.numel() and (
+            Skv == 0 or any(t.data_ptr() % 16 for t in (q, k, v))):
+        raise ValueError("flash_attention_bhsd: the bf16 kernel needs Skv >= 1 and 16-byte "
+                         "aligned q, k, v")
     out = torch.empty_like(q)
     if out.numel() == 0:
         return out

@@ -202,6 +202,68 @@ def test_flash_attention_kernel_window_matches_plain(device, window, causal):
     assert torch.max(torch.abs(got - want)).item() < FLASH_TOL[torch.float32]
 
 
+# the bf16 kernel's edges (wgmma + TMA): D of 32 and 64, lengths that are
+# not multiples of the 64-row / 64-key tiles, Sq != Skv both ways, and
+# G * Sq on both sides of 64, where the query heads of a kv head are packed
+# into one tile; (B, Sq, Skv, Hq, Hkv, D)
+FLASH_BF16_EDGES = [
+    (2, 128, 128, 4, 2, 32), (1, 100, 100, 4, 2, 32), (2, 128, 128, 4, 2, 64),
+    (1, 77, 77, 2, 2, 64), (1, 129, 129, 2, 1, 128), (1, 65, 200, 4, 2, 128),
+    (1, 200, 65, 4, 2, 128), (1, 7, 300, 8, 2, 64), (1, 300, 7, 8, 2, 64),
+    (1, 16, 16, 4, 1, 128), (1, 13, 13, 5, 1, 128), (2, 8, 8, 8, 1, 64),
+    (2, 9, 9, 8, 1, 64), (1, 64, 64, 1, 1, 128), (1, 65, 65, 1, 1, 128),
+]
+# bf16 rounds each output once: one step is at most 2**-7 of the row's
+# largest value, below 1e-2 of it
+FLASH_BF16_ROW_TOL = 1e-2
+
+
+def _row_rel_err(got, want):
+    err = torch.abs(got.float() - want.float()).amax(-1)
+    return (err / torch.abs(want.float()).amax(-1).clamp_min(1e-30)).max().item()
+
+
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("B,Sq,Skv,Hq,Hkv,D", FLASH_BF16_EDGES)
+def test_flash_attention_bf16_edges_match_plain(device, B, Sq, Skv, Hq, Hkv, D, causal):
+    q, k, v = _attn_inputs(B, Sq, Skv, Hq, Hkv, D, torch.bfloat16, device, seed=Sq + Skv)
+    before = fa.launches
+    got = fa.flash_attention_bhsd(q, k, v, causal=causal)
+    torch.cuda.synchronize()
+    assert fa.launches == before + 1
+    assert got.dtype == torch.bfloat16 and got.shape == q.shape
+    want = flash_attention_ref(q, k, v, causal=causal)
+    assert torch.max(torch.abs(got.float() - want.float())).item() < FLASH_TOL[torch.bfloat16]
+    assert _row_rel_err(got, want) < FLASH_BF16_ROW_TOL
+
+
+@pytest.mark.parametrize("D", [32, 64, 128])
+@pytest.mark.parametrize("window", [32, 64])
+@pytest.mark.parametrize("causal", [True, False])
+def test_flash_attention_bf16_window_matches_plain(device, window, causal, D):
+    q, k, v = _attn_inputs(1, 256, 256, 4, 2, D, torch.bfloat16, device, seed=window + D)
+    got = fa.flash_attention_bhsd(q, k, v, causal=causal, window=window)
+    want = flash_attention_ref(q, k, v, causal=causal, window=window)
+    assert torch.max(torch.abs(got.float() - want.float())).item() < FLASH_TOL[torch.bfloat16]
+    assert _row_rel_err(got, want) < FLASH_BF16_ROW_TOL
+
+
+def test_flash_attention_bf16_refuses_what_the_kernel_does_not_take(device):
+    q, k, v = _attn_inputs(1, 16, 16, 2, 1, 64, torch.bfloat16, device)
+    with pytest.raises(ValueError):  # no keys
+        fa.flash_attention_bhsd(q, k[:, :0].contiguous(), v[:, :0].contiguous())
+
+    def shifted(t):  # contiguous, but 2 bytes off a 16-byte boundary
+        return torch.empty(t.numel() + 1, dtype=t.dtype, device=t.device)[1:].view(t.shape)
+
+    for i in range(3):
+        args = [q, k, v]
+        args[i] = shifted(args[i]).copy_(args[i])
+        assert args[i].is_contiguous() and args[i].data_ptr() % 16
+        with pytest.raises(ValueError):
+            fa.flash_attention_bhsd(*args)
+
+
 def test_flash_attention_bshd_wrapper_on_the_card(device):
     g = torch.Generator(device=device).manual_seed(3)
     q = torch.randn(2, 16, 8, 64, generator=g, device=device)
@@ -251,6 +313,64 @@ def test_swiglu_kernel_matches_plain(device, M, d, F, dtype):
         assert err <= rel * torch.max(torch.abs(want)).item()
     else:
         assert err < (1e-4 if dtype == torch.float32 else 5e-2)
+
+
+# the bf16 kernel at full width over the row counts around its 8-row n-tiles
+# and 64-row tiles, and the serve run's prefill rows (44, 56)
+@pytest.mark.parametrize("M", [1, 8, 9, 44, 56, 65, 128])
+def test_swiglu_bf16_rows_match_plain(device, M):
+    d, F = 4096, 12288
+    g = torch.Generator(device=device).manual_seed(M)
+    x = torch.randn(M, d, generator=g, device=device).to(torch.bfloat16)
+    w = [(torch.randn(s, generator=g, device=device) * s[0] ** -0.5).to(torch.bfloat16)
+         for s in ((d, F), (d, F), (F, d))]
+    want = swiglu_ref(x, *w).float()
+    for _ in range(2):  # the second call finds the workspace zeroed again
+        before = sw.launches
+        got = sw.swiglu_fused(x, *w)
+        torch.cuda.synchronize()
+        assert sw.launches == before + 1
+        assert got.dtype == torch.bfloat16 and got.shape == (M, d)
+        err = torch.max(torch.abs(got.float() - want)).item()
+        assert err <= 2e-2 * torch.max(torch.abs(want)).item()
+
+
+def test_swiglu_bf16_workspace_serves_every_row_count(device):
+    """One workspace per device and stream, grown to the largest M: a call
+    with fewer rows after a larger one, and a larger one after it, both
+    find their part of it zeroed."""
+    d, F = 4096, 12288
+    g = torch.Generator(device=device).manual_seed(3)
+    w = [(torch.randn(s, generator=g, device=device) * s[0] ** -0.5).to(torch.bfloat16)
+         for s in ((d, F), (d, F), (F, d))]
+    for M in (64, 4, 64):
+        x = torch.randn(M, d, generator=g, device=device).to(torch.bfloat16)
+        got = sw.swiglu_fused(x, *w).float()
+        want = swiglu_ref(x, *w).float()
+        torch.cuda.synchronize()
+        err = torch.max(torch.abs(got - want)).item()
+        assert err <= 2e-2 * torch.max(torch.abs(want)).item()
+
+
+def test_swiglu_bf16_refuses_what_the_kernel_does_not_take(device):
+    x = torch.randn(4, 64, device=device).bfloat16()
+    w = [torch.randn(64, 128, device=device).bfloat16(), torch.randn(64, 128, device=device).bfloat16(),
+         torch.randn(128, 64, device=device).bfloat16()]
+    with pytest.raises(ValueError):  # d not a multiple of 8
+        sw.swiglu_fused(x[:, :60].contiguous(), w[0][:60].contiguous(), w[1][:60].contiguous(),
+                        w[2][:, :60].contiguous())
+    with pytest.raises(ValueError):  # F not a multiple of 8
+        sw.swiglu_fused(x, w[0][:, :100].contiguous(), w[1][:, :100].contiguous(),
+                        w[2][:100].contiguous())
+    shifted = torch.empty(x.numel() + 1, dtype=x.dtype, device=device)[1:].view(x.shape).copy_(x)
+    assert shifted.is_contiguous() and shifted.data_ptr() % 16
+    with pytest.raises(ValueError):  # not 16-byte aligned
+        sw.swiglu_fused(shifted, *w)
+    # the f32 kernel takes the same widths (weights x 0.1, as the sweep above)
+    xf = x.float()[:, :60].contiguous()
+    wf = [w[0].float()[:60] * 0.1, w[1].float()[:60] * 0.1, w[2].float()[:, :60].contiguous() * 0.1]
+    got = sw.swiglu_fused(xf, *wf)
+    assert torch.max(torch.abs(got - swiglu_ref(xf, *wf))).item() < 1e-4
 
 
 def test_swiglu_refuses_bad_inputs(device):
