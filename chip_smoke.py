@@ -5,38 +5,50 @@
 
 Run from the repository root. Phases, each printing one JSON line:
 
-1. device    card, torch/CUDA versions, TF32 turned off for matmul and cuDNN
-             (the JAX reference computes in full f32);
+1. device    card, torch/CUDA versions, the TF32 flags as found (PyTorch's
+             defaults: the port's CNN task turns TF32 off in its own scope);
 2. build     every ``src/repro_torch/kernels/csrc/*.cu``, one nvcc each, in
              parallel, into ``build/repro_torch/``; registers, shared memory
              and spill bytes of the bf16 flash_attention and swiglu kernels,
              which must not spill;
-3. kernel    each hand-written kernel against its plain PyTorch version on
-             the card, at the reference test shapes and the main path's
-             shapes, with device time, plain time, one-call library time
-             and the HBM/FLOP bound;
+3. kernel    fedavg_reduce against its plain PyTorch version on the card, at
+             the reference test shapes and as the main path calls it (one
+             grouped launch over the CNN's 8 leaves), with device time,
+             plain time, library time and the HBM/FLOP bound;
 4. quant_kernels
              the three quantize kernels against their plain versions, codes
              and bf16 bits equal (not close), at the reference sweep sizes
-             and the main path's 8 leaf shapes with R = 10 rows, with the
-             same timing fields as ``kernel``;
+             and the main path's 8 leaf shapes with R = 10 rows (int8 as one
+             grouped launch, bf16 per leaf), with the same timing fields as
+             ``kernel``;
 5. main_path the paper's experiment through ``FederatedServer.run``:
              10 clients x 200 examples, batch 32, 4 local steps, 8 rounds,
              fedavg(min_fit=0.1), the quickstart chaos schedule, batched
              engine, DEFAULT and TUNED_EDGE TCP; launch counts reset just
-             before each run and read just after;
+             before each run and read just after: fedavg_reduce once per
+             round;
 6. profile   device time by kernel over one more main-path run;
 7. compressed
              the same config with the int8, bf16 and topk(0.05) compressors:
-             all 8 rounds, the quantize kernels launched once per leaf per
-             round, dense == sparse StatePlane bitwise, compress_plane ==
+             all 8 rounds, quantize_rows launched once per round and
+             downcast_bf16_rows once per leaf per round, dense == sparse
+             StatePlane bitwise, compress_plane ==
              per-client compress/decompress bitwise over 3 rounds, s/round
              and device time by kernel;
 8. engines   the sequential engine on the same config: equal numpy fields,
              final accuracy within 1e-3;
 9. headline  6 s one-way delay: DEFAULT completes 0 rounds, TUNED_EDGE all 4
              (accuracy > 0.3); one stochastic fused_transport run;
-10. lm_kernels
+10. reference_history
+             the 7 engine runs and the int8 / bf16 compressed runs of
+             ``tests/_card_reference.py`` on the card, with PyTorch's TF32
+             defaults, against the reference's committed Histories
+             (``tests/data/card_reference.json``, written on the CPU):
+             numpy fields exactly, accuracy, loss and client metrics within
+             1e-3; then the same runs and a profiled quickstart with the
+             task's TF32 guard bypassed, reported and not checked (what a
+             run without the guard would give);
+11. lm_kernels
              flash_attention and swiglu against their plain versions on the
              card: the reference sweeps, serving lengths, bf16 windows, both
              sides of the GQA packing boundary (G * Sq = 64, 65), the
@@ -46,12 +58,12 @@ Run from the repository root. Phases, each printing one JSON line:
              ``kernel`` and one PyTorch call's time; the share of the bf16
              swiglu's time that its cross-block reduction takes (the
              kernel built again with ``-DSWIGLU_NO_REDUCE``);
-11. serve     ``Server("qwen3-8b", reduced=False)`` on the card, params from a
+12. serve     ``Server("qwen3-8b", reduced=False)`` on the card, params from a
              seeded generator: serve.py:main's 8 requests (batch 4, 12 new
              tokens each); launches asserted per prefill and per decode step;
              prefill ms, decode ms per step, tokens/s, peak memory, and the
              device-idle share of one profiled run (``serve_profile``);
-12. full_width
+13. full_width
              a 2-layer model at Qwen3-8B's full widths with the served
              params: one prefill and three decode steps on the card
              (kernels) and on the CPU (plain versions, fed the card's
@@ -173,9 +185,7 @@ def phase_kernel(torch, main_leaf_sizes):
     cases = [(C, N, dt, "reference") for C, N in ((3, 1000), (10, 4096), (7, 12345))
              for dt in (torch.float32, torch.bfloat16)]
     cases += [(3, N, torch.float32, "padding") for N in (1, 100, 2048, 2049, 12345)]
-    cases += [(10, N, torch.float32, "main_path") for N in main_leaf_sizes]
     max_err = 0.0
-    main = {"us": 0.0, "wall_us": 0.0, "plain_us": 0.0, "library_us": 0.0, "bytes": 0, "flops": 0}
     for C, N, dtype, group in cases:
         x = torch.randn(C, N, generator=gen, device=dev).to(dtype)
         w = torch.rand(C, generator=gen, device=dev) + 0.05
@@ -201,12 +211,41 @@ def phase_kernel(torch, main_leaf_sizes):
             ),
             "bound_us": bound, "bound_by": bound_by,
         }
-        if group == "main_path":
-            for k in ("us", "wall_us", "plain_us", "library_us"):
-                main[k] += row[k]
-            main["bytes"] += work[0]
-            main["flops"] += work[1]
         emit("kernel", **row)
+
+    # the main path: one grouped launch over the CNN's 8 leaves at C = 10
+    xs = [torch.randn(10, N, generator=gen, device=dev) for N in main_leaf_sizes]
+    w = torch.rand(10, generator=gen, device=dev) + 0.05
+    w = w / w.sum()
+    before = fr.launches
+    got = fr.fedavg_reduce_leaves(xs, w)
+    torch.cuda.synchronize()
+    check(fr.launches == before + 1, "fedavg_reduce: grouped call took more than one launch")
+    plain = lambda: torch.cat([fedavg_reduce_ref(x, w) for x in xs])
+    err = float(torch.max(torch.abs(got - plain())))
+    check(err <= tol[torch.float32], f"fedavg_reduce grouped: max err {err}")
+    off, alone_equal = 0, True
+    for x in xs:  # each leaf bitwise the same alone as among the others
+        alone_equal &= torch.equal(got[off:off + x.shape[1]], fr.fedavg_reduce_flat(x, w))
+        off += x.shape[1]
+    check(alone_equal, "fedavg_reduce: a leaf differs alone and among others")
+    max_err = max(max_err, err)
+    works = [fedavg_work(10, N, 4) for N in main_leaf_sizes]
+    main = {"bytes": sum(b for b, _ in works), "flops": sum(f for _, f in works)}
+    bound, bound_by = bound_us(main["bytes"], main["flops"])
+    # calls of several launches are timed 20 at a time, so the host enqueues
+    # them all before the sleep kernel ends and the events see device time
+    main.update(
+        us=device_us(torch, lambda: fr.fedavg_reduce_leaves(xs, w)),
+        wall_us=wall_us(torch, lambda: fr.fedavg_reduce_leaves(xs, w)),
+        plain_us=device_us(torch, plain, iters=20),
+        # PyTorch's matrix-vector product per leaf (yardstick only)
+        library_us=device_us(torch, lambda: [torch.mv(x.t(), w) for x in xs], iters=20),
+        per_leaf_us=device_us(torch, lambda: [fr.fedavg_reduce_flat(x, w) for x in xs], iters=20),
+    )
+    emit("kernel", C=10, N=main_leaf_sizes, dtype="float32", group="main_path",
+         max_abs_err=err, alone_equals_grouped=alone_equal, bound_us=bound, bound_by=bound_by,
+         **main)
     # C = 1 identity and weight-scale invariance through the tree wrapper
     x = torch.randn(1, 3000, generator=gen, device=dev)
     ident = ops.fedavg_reduce({"x": x}, torch.tensor([17.0], device=dev))["x"]
@@ -237,8 +276,9 @@ NO_LIBRARY = ("no single PyTorch call computes these codes: quantize_per_channel
 def phase_quant_kernels(torch, main_leaf_sizes):
     """Each quantize kernel against its plain version: int8 codes and bf16
     bits must be EQUAL. Main-path rows are the 8 CNN leaves at R = 10 (one
-    compressed round), summed; the stochastic kernel, off the main path,
-    is timed on the whole flattened CNN (N = 206,922)."""
+    compressed round): int8 as one grouped call, bf16 per leaf, summed; the
+    stochastic kernel, off the main path, is timed on the whole flattened
+    CNN (N = 206,922)."""
     from repro_torch.kernels import quantize as qz
     from repro_torch.kernels import ref
 
@@ -272,8 +312,7 @@ def phase_quant_kernels(torch, main_leaf_sizes):
     cases = [("quantize_rows", 3, N, "reference") for N in (100, 2048, 2049, 9999)]
     cases += [("downcast_bf16_rows", 2, N, "reference") for N in (128, 2050)]
     cases += [("quantize_stochastic", 1, N, "reference") for N in (100, 4096, 9999)]
-    cases += [(k, 10, N, "main_path") for k in ("quantize_rows", "downcast_bf16_rows")
-              for N in main_leaf_sizes]
+    cases += [("downcast_bf16_rows", 10, N, "main_path") for N in main_leaf_sizes]
     cases += [("quantize_stochastic", 1, sum(main_leaf_sizes), "main_path")]
     fields = ("us", "wall_us", "plain_us", "library_us")
     out = {k: {**{f: 0.0 for f in fields}, "bytes": 0, "ops": 0, "max_abs_err": 0.0,
@@ -306,6 +345,31 @@ def phase_quant_kernels(torch, main_leaf_sizes):
             acc["ops"] += work[1]
         out[name]["max_abs_err"] = max(out[name]["max_abs_err"], err)
         emit("quant_kernels", **row)
+    # the main path's int8: one grouped launch over the 8 leaves at R = 10
+    xs = [torch.randn(10, N, generator=gen, device=dev) * 2.5 for N in main_leaf_sizes]
+    ss = [scales_of(x) for x in xs]
+    kernel = lambda: qz.quantize_rows_leaves(xs, ss)
+    plain = lambda: [ref.quantize_rows_ref(x, s) for x, s in zip(xs, ss)]
+    before = qz.launches["quantize_rows"]
+    got, want = kernel(), plain()
+    torch.cuda.synchronize()
+    acc = out["quantize_rows"]
+    acc["check_launches"] += qz.launches["quantize_rows"] - before
+    check(qz.launches["quantize_rows"] == before + 1, "quantize_rows: grouped call launches")
+    equal = all(torch.equal(g, w_) for g, w_ in zip(got, want))
+    alone = all(torch.equal(g, qz.quantize_rows_flat(x, s)) for g, x, s in zip(got, xs, ss))
+    check(equal and alone, f"quantize_rows grouped: codes equal {equal}, alone == grouped {alone}")
+    works = [QUANT_WORK["quantize_rows"](10, N) for N in main_leaf_sizes]
+    acc["bytes"], acc["ops"] = sum(b for b, _ in works), sum(o for _, o in works)
+    bound, bound_by = bound_us(acc["bytes"], acc["ops"])
+    acc.update(us=device_us(torch, kernel), wall_us=wall_us(torch, kernel),
+               plain_us=device_us(torch, plain, iters=20), library_us=None,  # as in phase_kernel
+               per_leaf_us=device_us(torch, lambda: [qz.quantize_rows_flat(x, s)
+                                                     for x, s in zip(xs, ss)], iters=20))
+    emit("quant_kernels", kernel="quantize_rows", R=10, N=main_leaf_sizes, group="main_path",
+         equal=equal, alone_equals_grouped=alone, max_abs_err=0.0, bound_us=bound,
+         bound_by=bound_by, **{k: acc[k] for k in ("us", "wall_us", "plain_us", "per_leaf_us")})
+
     # an all-zero row hits the scale clamp and quantizes to exact zeros
     x = torch.stack([torch.zeros(300, device=dev), torch.linspace(-1.0, 1.0, 300, device=dev)])
     q = qz.quantize_rows_flat(x, scales_of(x))
@@ -332,9 +396,10 @@ def _trees_equal(torch, a, b) -> bool:
 
 
 def phase_compressed(torch, uncompressed_s_per_round):
-    """The quickstart with each plane compressor: all 8 rounds, the kernels
-    launched once per leaf per round, dense == sparse bitwise, and the
-    plane == the per-client loop bitwise on the card."""
+    """The quickstart with each plane compressor: all 8 rounds, fedavg_reduce
+    and quantize_rows launched once per round, downcast_bf16_rows once per
+    leaf per round, dense == sparse bitwise, and the plane == the
+    per-client loop bitwise on the card."""
     from repro_torch.compress import get_compressor, init_residual_plane
     from repro_torch.utils import tree_stack, tree_unstack
 
@@ -351,9 +416,9 @@ def phase_compressed(torch, uncompressed_s_per_round):
         done = hist.completed_rounds
         check(done == MAIN_ROUNDS, f"{name}: {done} of {MAIN_ROUNDS} rounds completed")
         check(acc is not None and acc == acc, f"{name}: accuracy not finite")
-        check(counts["fedavg_reduce"] == 8 * done, f"{name}: fedavg_reduce launches {counts}")
-        for kern in ("quantize_rows", "downcast_bf16_rows"):
-            want = 8 * done if kern == expect_kernel[name] else 0
+        check(counts["fedavg_reduce"] == done, f"{name}: fedavg_reduce launches {counts}")
+        for kern, per_round in (("quantize_rows", 1), ("downcast_bf16_rows", 8)):
+            want = per_round * done if kern == expect_kernel[name] else 0
             for plane in ("dense", "sparse"):
                 got = hists[plane][2][kern]
                 check(got == want, f"{name} ({plane}): {got} {kern} launches, expected {want}")
@@ -473,7 +538,7 @@ def phase_main_path(torch):
         hist, wall, counts = timed_run(torch, paper_server(torch, tcp_name=tcp_name))
         launches = counts["fedavg_reduce"]
         accs = [m["accuracy"] for m in hist.eval_metrics]
-        check(launches == 8 * hist.completed_rounds,
+        check(launches == hist.completed_rounds,
               f"{tcp_name}: {launches} fedavg_reduce launches for {hist.completed_rounds} rounds")
         check(hist.completed_rounds > 0 and accs[-1] > accs[0],
               f"{tcp_name}: accuracy did not rise: {accs}")
@@ -531,19 +596,86 @@ def phase_headline(torch):
     alive, _, alive_counts = timed_run(torch, server(transport.TUNED_EDGE))
     dead_launches, alive_launches = dead_counts["fedavg_reduce"], alive_counts["fedavg_reduce"]
     check(dead.completed_rounds == 0 and dead_launches == 0, "DEFAULT trained at 6 s delay")
-    check(alive.completed_rounds == 4 and alive_launches == 32, "TUNED_EDGE lost rounds at 6 s")
+    check(alive.completed_rounds == 4 and alive_launches == 4, "TUNED_EDGE lost rounds at 6 s")
     check(alive.final_accuracy() > 0.3, f"TUNED_EDGE accuracy {alive.final_accuracy()}")
     fused, wall, counts = timed_run(
         torch, paper_server(torch, stochastic=True, engine="fused_transport")
     )
     launches = counts["fedavg_reduce"]
     acc = fused.final_accuracy()
-    check(fused.completed_rounds > 0 and launches == 8 * fused.completed_rounds,
+    check(fused.completed_rounds > 0 and launches == fused.completed_rounds,
           f"fused_transport: {launches} launches for {fused.completed_rounds} rounds")
     check(acc is not None and acc == acc, "fused_transport accuracy not finite")
     emit("headline", default_completed=dead.completed_rounds,
          tuned_completed=alive.completed_rounds, tuned_accuracy=alive.final_accuracy(),
          fused_transport=fused.summary(), fused_wall_s=wall)
+
+
+def phase_reference_history(torch):
+    """The port on the card against the reference's committed Histories:
+    the 7 engine runs and the int8 / bf16 compressed runs of
+    ``tests/_card_reference.py``, with PyTorch's TF32 defaults (the task
+    turns TF32 off in its own scope). Numpy fields exactly, accuracy, loss
+    and client metrics within 1e-3; fedavg_reduce once per completed round
+    on the batched engines, quantize_rows once per int8 round. Then the
+    task's guard bypassed: the same runs' gaps and a profiled quickstart,
+    reported, not checked."""
+    import contextlib
+
+    sys.path.insert(0, str(ROOT / "tests"))
+    import _card_reference as card
+    from repro_torch.core import client as client_mod
+
+    flags = {"cudnn": torch.backends.cudnn.allow_tf32,
+             "matmul": torch.backends.cuda.matmul.allow_tf32}
+    records = card.load_records()
+    task = card.port_task("cuda")
+    pkgs = card.port_packages()
+    batched = {name: kw.get("batched", False) for name, kw, _, _ in card.ENGINES}
+
+    def run_all(checked):
+        gaps, launches = {}, {}
+        for name in card.RUNS:
+            torch.cuda.synchronize()
+            reset_launches()
+            hist, clients = card.run(name, task, *pkgs)
+            torch.cuda.synchronize()
+            counts = read_launches()
+            got = card.history_record(hist, clients)
+            gaps[name] = card.history_gaps(records[name], got)
+            launches[name] = {k: counts[k] for k in ("fedavg_reduce", "quantize_rows")}
+            if not checked:
+                continue
+            try:
+                card.assert_records_match(records[name], got)
+            except AssertionError as e:
+                raise PhaseFailed(f"reference_history {name}: {e!r}; gaps {gaps[name]}") from e
+            done = hist.completed_rounds
+            agg = done if batched.get(name, True) else 0
+            int8 = done if name == "compressed_int8" else 0
+            check(launches[name] == {"fedavg_reduce": agg, "quantize_rows": int8},
+                  f"reference_history {name}: launches {launches[name]} for {done} rounds")
+        worst = {k: max(g[k] for g in gaps.values()) for k in next(iter(gaps.values()))}
+        return gaps, launches, worst
+
+    gaps, launches, worst = run_all(checked=True)
+    quickstart = lambda: paper_server(torch).run()
+    busy = {"guard": [], "bypassed": []}
+    guard = client_mod.f32_math
+    unguarded = lambda device: contextlib.nullcontext()
+    try:
+        client_mod.f32_math = unguarded
+        bypassed_gaps, _, bypassed_worst = run_all(checked=False)
+        for mode in ("guard", "bypassed", "bypassed", "guard"):  # in turns
+            client_mod.f32_math = guard if mode == "guard" else unguarded
+            busy[mode].append(device_profile(torch, quickstart)[0])
+    finally:
+        client_mod.f32_math = guard
+    emit("reference_history", runs=len(gaps), tf32_flags=flags, tol=card.HISTORY_TOL,
+         max_gap=worst, gaps=gaps, launches=launches,
+         guard_bypassed={"max_gap": bypassed_worst, "gaps": bypassed_gaps,
+                         "within_tol": all(v <= card.HISTORY_TOL for v in bypassed_worst.values())},
+         quickstart_device_busy_us=busy)
 
 
 # --------------------------------------------------------------------------
@@ -939,8 +1071,11 @@ def phase_full_width(torch, server):
 
 
 FL_DESIGN = {
-    "fedavg_reduce": "grid-stride, one thread per column, weights in shared memory",
-    "quantize_rows": "grid-stride, one thread per element, correctly rounded quotient",
+    "fedavg_reduce": "one launch over a leaf table passed by value; 16-byte loads where a "
+                     "leaf is aligned, clients unrolled 16 deep, weights in shared memory",
+    "quantize_rows": "one launch over a leaf table passed by value; 16 elements per thread "
+                     "(four 16-byte loads, one 16-byte store) where a leaf is aligned, "
+                     "correctly rounded quotient",
     "downcast_bf16_rows": "grid-stride, one thread per element",
     "quantize_stochastic": "grid-stride, one thread per element, correctly rounded quotient",
 }
@@ -1005,9 +1140,6 @@ def main() -> int:
               file=sys.stderr)
         return 2
     sys.path.insert(0, str(ROOT / "src"))
-    # the reference computes in full f32; TF32 would keep ~3 digits
-    torch.backends.cuda.matmul.allow_tf32 = False
-    torch.backends.cudnn.allow_tf32 = False
 
     smi = nvidia_smi()
     emit("device", nvidia_smi=smi, torch=torch.__version__, cuda=torch.version.cuda,
@@ -1048,7 +1180,11 @@ def main() -> int:
                       compressor=get_compressor(name, ratio=0.05))
     phase_engines(torch, runs["DEFAULT"][0])
     phase_headline(torch)
-    lm = phase_lm_kernels(torch)
+    phase_reference_history(torch)
+    from repro_torch.utils import f32_math
+
+    with f32_math("cuda"):  # the f32 plain versions as yardsticks in full f32
+        lm = phase_lm_kernels(torch)
     server, served = phase_serve(torch)
     phase_full_width(torch, server)
 
@@ -1076,6 +1212,7 @@ def main() -> int:
             "library_note": note,
             "us": q["us"], "wall_us": q["wall_us"], "plain_us": q["plain_us"],
             "library_us": lib, "bound_us": bound, "bytes": q["bytes"],
+            **({"per_leaf_ms": q["per_leaf_us"] / 1e3} if "per_leaf_us" in q else {}),
         }
 
     print(json.dumps({"kernels": [{
@@ -1088,15 +1225,18 @@ def main() -> int:
         "launches_per_round": launches // max(hist.completed_rounds, 1),
         "max_abs_err": max_err,
         "max_err": max_err,
-        # one aggregation: the 8 CNN leaves at C = 10, summed
+        # one aggregation: the 8 CNN leaves at C = 10 in one grouped call
         "ms": us["us"] / 1e3, "plain_ms": us["plain_us"] / 1e3,
         "bound_ms": agg_bound_us / 1e3, "bound_by": agg_bound_by,
         "library_ms": us["library_us"] / 1e3,
         "us": us["us"], "wall_us": us["wall_us"], "plain_us": us["plain_us"],
         "library_us": us["library_us"], "bound_us": agg_bound_us,
         "bytes_per_aggregation": us["bytes"],
+        # the same 8 leaves as 8 one-leaf launches of the same kernel
+        "per_leaf_ms": us["per_leaf_us"] / 1e3,
+        "library_note": "torch.mv per leaf (8 calls): no single call reduces a tree",
     },
-        # one compressed round: the 8 CNN leaves at R = 10, summed
+        # one compressed round: the 8 CNN leaves at R = 10 (int8 grouped, bf16 summed)
         quant_row("quantize_rows", compressed["int8"], "src/repro/kernels/quantize.py:83",
                   NO_LIBRARY),
         quant_row("downcast_bf16_rows", compressed["bf16"], "src/repro/kernels/quantize.py:112",

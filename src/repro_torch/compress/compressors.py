@@ -17,8 +17,8 @@ equal at equal inputs.
 
 Row math: top-k is ``torch.topk`` over flattened rows; int8 and bf16 go
 through the ``kernels/quantize.py`` wrappers (the hand-written kernels on
-the card, their plain versions on the CPU). int8 rounding is deterministic
-round-half-up, as in the reference.
+the card, their plain versions on the CPU), int8 with every leaf in one
+call. int8 rounding is deterministic round-half-up, as in the reference.
 
 ``wire_bytes`` is the exact per-leaf upload size the transport bills;
 ``fingerprint`` is the hashable identity of the compression semantics
@@ -98,9 +98,11 @@ def _with_residual(d, r):
     return d.float() + (r.float() if r is not None else 0.0)
 
 
-def _plane_compress_fn(row_fn):
-    """Lift a per-leaf row transform ``row_fn(x2 [R, n]) -> deq2 [R, n]``
-    into the plane compressor.
+def _plane_compress_fn(rows_fn):
+    """Lift a row transform over every leaf,
+    ``rows_fn([x2 [R, n_l] per leaf]) -> [deq2 [R, n_l] per leaf]``, into
+    the plane compressor. Every leaf's x2 is computed before ``rows_fn``
+    runs, so a kernel can take all leaves in one launch.
 
     The reference splits this into three jitted programs so that XLA cannot
     fuse the dequantize multiply into ``x2 - deq2`` as an FMA. Here every
@@ -114,12 +116,11 @@ def _plane_compress_fn(row_fn):
         return tree_map(lambda res: res.index_select(0, rows), residual_plane)
 
     def compress_rows(stacked, residual_rows):
-        def one(d, res_rows):
-            r = d.shape[0]
-            x2 = d.float().reshape(r, -1) + res_rows.reshape(r, -1)
-            return x2, row_fn(x2)
-
-        return _leafwise(stacked, residual_rows, one)
+        x2s = [
+            d.float().reshape(d.shape[0], -1) + res.reshape(d.shape[0], -1)
+            for d, res in zip(tree_leaves(stacked), tree_leaves(residual_rows))
+        ]
+        return tree_unflatten(stacked, x2s), tree_unflatten(stacked, rows_fn(x2s))
 
     def scatter_rows(x2_tree, deq_tree, residual_plane, rows):
         def one(x2, deq2, res):
@@ -187,17 +188,22 @@ def _topk_rows(x2, ratio: float):
     return sparse, idx, kept
 
 
-def _int8_rows(x2):
-    """Symmetric per-row int8: returns (deq2 [R, n], q int8, scale [R]).
+def _int8_rows(x2s):
+    """Symmetric per-row int8 over a list of [R, n_l] blocks, one kernel
+    launch for all of them: returns [(deq2 [R, n_l], q int8, scale [R])].
 
     The scale is max(amax|x_r|, 1e-12) / 127 in f32, divided by a tensor
     filled on the device: on CUDA, PyTorch divides by a Python number as a
     multiply by its reciprocal, which can differ from the quotient in the
-    last bit, and a scalar copied from the host would stall the stream."""
-    amax = torch.clamp(torch.amax(x2.abs(), dim=-1), min=1e-12)
-    scale = amax / torch.full_like(amax, 127.0)
-    q = kernel_ops.quantize_rows(x2, scale)
-    return q.float() * scale[:, None], q, scale
+    last bit, and a scalar copied from the host would stall the stream.
+    ``deq2`` is its own torch op, so no FMA folds it into a later
+    subtraction."""
+    scales = []
+    for x2 in x2s:
+        amax = torch.clamp(torch.amax(x2.abs(), dim=-1), min=1e-12)
+        scales.append(amax / torch.full_like(amax, 127.0))
+    qs = kernel_ops.quantize_rows_leaves(x2s, scales)
+    return [(q.float() * scale[:, None], q, scale) for q, scale in zip(qs, scales)]
 
 
 def _bf16_rows(x2):
@@ -238,7 +244,7 @@ def topk_compressor(ratio: float = 0.01) -> Compressor:
         compress,
         _sparse_decompress,
         _sparse_wire_bytes(ratio),
-        compress_plane=_plane_compress_fn(lambda x2: _topk_rows(x2, ratio)[0]),
+        compress_plane=_plane_compress_fn(lambda x2s: [_topk_rows(x2, ratio)[0] for x2 in x2s]),
         fingerprint=("topk", float(ratio)),
     )
 
@@ -292,15 +298,16 @@ def int8_compressor() -> Compressor:
     deterministic round-half-up, bitwise equal to the reference's codes."""
 
     def compress(delta, residual):
-        def one(d, r):
-            x2 = _with_residual(d, r).reshape(1, -1)
-            deq2, q, scale = _int8_rows(x2)
-            return (
-                {"q": q[0].reshape(d.shape), "scale": scale[0]},
-                (x2 - deq2).reshape(d.shape),
-            )
-
-        return _leafwise(delta, residual, one)
+        ds = tree_leaves(delta)
+        rs = tree_leaves(residual) if residual is not None else [None] * len(ds)
+        x2s = [_with_residual(d, r).reshape(1, -1) for d, r in zip(ds, rs)]
+        rows = _int8_rows(x2s)  # every leaf in one launch, as the plane does
+        return (
+            tree_unflatten(delta, [{"q": q[0].reshape(d.shape), "scale": scale[0]}
+                                   for d, (_, q, scale) in zip(ds, rows)]),
+            tree_unflatten(delta, [(x2 - deq2).reshape(d.shape)
+                                   for d, x2, (deq2, _, _) in zip(ds, x2s, rows)]),
+        )
 
     def decompress(payload):
         return _payload_map(lambda p: p["q"].float() * p["scale"], payload, "q")
@@ -313,7 +320,7 @@ def int8_compressor() -> Compressor:
         compress,
         decompress,
         wire_bytes,
-        compress_plane=_plane_compress_fn(lambda x2: _int8_rows(x2)[0]),
+        compress_plane=_plane_compress_fn(lambda x2s: [deq2 for deq2, _, _ in _int8_rows(x2s)]),
         fingerprint=("int8",),
     )
 
@@ -338,7 +345,7 @@ def bf16_compressor() -> Compressor:
         compress,
         decompress,
         lambda t: 2 * tree_size(t),
-        compress_plane=_plane_compress_fn(lambda x2: _bf16_rows(x2)[0]),
+        compress_plane=_plane_compress_fn(lambda x2s: [_bf16_rows(x2)[0] for x2 in x2s]),
         fingerprint=("bf16",),
     )
 

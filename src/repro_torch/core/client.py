@@ -20,6 +20,7 @@ plans from the same stream.
 
 from __future__ import annotations
 
+import functools
 from dataclasses import dataclass
 from typing import Any, Callable, Dict, List, Optional, Sequence
 
@@ -35,6 +36,7 @@ from repro_torch.optim import (
     sgd,
 )
 from repro_torch.utils import (
+    f32_math,
     resolve_device,
     tree_leaves,
     tree_map,
@@ -261,16 +263,28 @@ def _plane_batched_local_fit(plan_fit, fit_rows):
     return fit_cohort
 
 
+def _in_f32(fn, device: torch.device):
+    """``fn`` run under ``f32_math(device)`` (attributes carried over)."""
+
+    @functools.wraps(fn)
+    def call(*args, **kwargs):
+        with f32_math(device):
+            return fn(*args, **kwargs)
+
+    return call
+
+
 def mnist_cnn_task(lr: float = 0.05, batch_size: int = 32, device=None) -> LocalTask:
     """The paper's workload: MNIST CNN, ~0.83 MB of f32 params per update.
 
     Runs on ``device`` (default CUDA; raises without it). ``init_fn`` takes
-    a ``torch.Generator``."""
+    a ``torch.Generator``. Training and evaluation compute in full f32 on
+    the card, as the reference does (TF32 off in their scope only)."""
     device = resolve_device(device)
     nbytes = 4 * sum(l.numel() for l in tree_leaves(cnn_init(torch.Generator())))
 
     def evaluate(params, data: Dict[str, np.ndarray]):
-        with torch.no_grad():
+        with f32_math(device), torch.no_grad():
             logits = cnn_apply(params, torch.as_tensor(data["images"], device=device))
             labels = torch.as_tensor(data["labels"], device=device).long()
             acc = (torch.argmax(logits, -1) == labels).float().mean()
@@ -279,10 +293,11 @@ def mnist_cnn_task(lr: float = 0.05, batch_size: int = 32, device=None) -> Local
         return {"accuracy": float(acc), "loss": float(nll)}
 
     plan_fit, plan_digest, fit_rows = _sgd_plane_fns(cnn_loss_stacked, lr, batch_size, device)
+    fit_rows = _in_f32(fit_rows, device)
     return LocalTask(
         "mnist_cnn",
         init_fn=lambda generator: cnn_init(generator, device=device),
-        local_fit=_sgd_local_fit(cnn_loss, lr, batch_size, device),
+        local_fit=_in_f32(_sgd_local_fit(cnn_loss, lr, batch_size, device), device),
         evaluate=evaluate,
         update_bytes=nbytes,
         batched_local_fit=_plane_batched_local_fit(plan_fit, fit_rows),

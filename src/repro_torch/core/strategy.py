@@ -66,8 +66,8 @@ def _weighted_mean(deltas, weights):
 
 def _weighted_mean_stacked(stacked, weights):
     """Kernel-backed FedAvg reduction over stacked deltas [C, ...]: on a
-    CUDA device the hand-written ``fedavg_reduce`` kernel, one launch per
-    leaf; on the CPU its plain version."""
+    CUDA device the hand-written ``fedavg_reduce`` kernel, one launch for
+    the whole tree; on the CPU its plain version."""
     device = tree_leaves(stacked)[0].device
     w = torch.as_tensor(np.asarray(weights), dtype=torch.float32, device=device)
     return kernel_ops.fedavg_reduce(stacked, w)

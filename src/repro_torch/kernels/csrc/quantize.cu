@@ -13,12 +13,25 @@
 // 206,922 parameters and 10 rows one int8 pass moves ~10.3 MB, ~3.1 us at
 // 3.35 TB/s.
 //
-// Design: the TPU versions pad each row to a 2048/4096 tile and run one
-// VMEM block per grid step. Here a thread owns one element at a time in a
-// grid-stride loop (neighbouring threads on neighbouring addresses, so f32
-// loads and int8/bf16 stores coalesce), the ragged tail is masked by the
-// loop bound instead of padded, and rows index blockIdx.y with a row stride
-// of N, so no alignment of N is assumed (the CNN has a leaf of N = 10).
+// Design of quantize_rows: the TPU version pads each row to a 4096 tile and
+// runs one VMEM block per grid step, one call per leaf. Here one launch
+// covers every leaf of a tree: at the CNN seven of its eight leaves move
+// under 60 KB between them, and a launch per leaf cost ~2.6-3 us each.
+// - A leaf table (x, scales, q, rows, n_l, first block, access mode) is a
+//   kernel parameter passed by value (__grid_constant__, ~3 KB of the 4 KB
+//   limit): no host-to-device copy, no extra launch. The wrapper splits a
+//   longer list of leaves into several launches.
+// - Blocks are flattened over (leaf, row, column tile of 16 * kThreads); a
+//   block finds its leaf by binary search over the first blocks.
+// - A thread owns 16 neighbouring elements of a row: four 16-byte loads and
+//   one 16-byte int8 store where the leaf allows it (x and q 16-byte aligned,
+//   n_l % 16 == 0, so every row starts aligned); otherwise 16 elements a
+//   block width apart with scalar loads and stores (still coalesced).
+//
+// downcast_bf16_rows and quantize_stochastic: a thread owns one element at
+// a time in a grid-stride loop (neighbouring threads on neighbouring
+// addresses, so f32 loads and int8/bf16 stores coalesce), and the ragged
+// tail is masked by the loop bound instead of padded.
 //
 // The codes are a contract: they must equal the reference's bit for bit.
 // So the quotient is the correctly rounded IEEE one (__fdiv_rn, never a
@@ -42,18 +55,77 @@ __device__ __forceinline__ int8_t clip_to_code(float v) {
   return static_cast<int8_t>(static_cast<int>(v));
 }
 
-// q[r, n] = clip(floor(x[r, n] / scales[r] + 0.5), -127, 127)
-__global__ void quantize_rows_kernel(const float* __restrict__ x,
-                                     const float* __restrict__ scales,
-                                     int8_t* __restrict__ q, long long N) {
-  const long long row = blockIdx.y;
-  const float s = scales[row];
-  const float* xr = x + row * N;
-  int8_t* qr = q + row * N;
-  const long long stride = (long long)gridDim.x * blockDim.x;
-  for (long long n = (long long)blockIdx.x * blockDim.x + threadIdx.x; n < N;
-       n += stride) {
-    qr[n] = clip_to_code(floorf(__fadd_rn(__fdiv_rn(xr[n], s), 0.5f)));
+constexpr int kMaxLeaves = 64;
+constexpr int kPerThread = 16;
+constexpr long long kTileCols = (long long)kThreads * kPerThread;
+
+// kept in step with _RowsLeaf / _RowsTable in kernels/quantize.py
+struct RowsLeaf {
+  const float* x;       // [rows, n] row-major
+  const float* scales;  // [rows]
+  int8_t* q;            // [rows, n] row-major
+  long long n;          // > 0
+  int rows;             // > 0
+  int first_block;      // set by the entry point
+  int vec;              // set by the entry point: 16-byte loads and stores
+  int pad;
+};
+
+struct RowsTable {
+  RowsLeaf leaf[kMaxLeaves];
+  int count;
+};
+
+__device__ __forceinline__ int8_t code_of(float x, float s) {
+  return clip_to_code(floorf(__fadd_rn(__fdiv_rn(x, s), 0.5f)));
+}
+
+__device__ __forceinline__ uint32_t byte_of(int8_t c) { return static_cast<uint8_t>(c); }
+
+// q_l[r, n] = clip(floor(x_l[r, n] / scales_l[r] + 0.5), -127, 127)
+__global__ void __launch_bounds__(kThreads)
+quantize_rows_leaves_kernel(const __grid_constant__ RowsTable table) {
+  const int b = blockIdx.x;
+  int lo = 0, hi = table.count - 1;
+  while (lo < hi) {  // the last leaf whose first block is <= b
+    const int mid = (lo + hi + 1) >> 1;
+    if (table.leaf[mid].first_block <= b) lo = mid; else hi = mid - 1;
+  }
+  const RowsLeaf& leaf = table.leaf[lo];
+  const long long n = leaf.n;
+  const long long tiles = (n + kTileCols - 1) / kTileCols;
+  const long long t = b - leaf.first_block;
+  const long long row = t / tiles;
+  const long long tile0 = (t % tiles) * kTileCols;
+  const float s = leaf.scales[row];
+  const float* xr = leaf.x + row * n;
+  int8_t* qr = leaf.q + row * n;
+
+  if (leaf.vec) {
+    const long long col = tile0 + (long long)threadIdx.x * kPerThread;
+    if (col >= n) return;  // n % 16 == 0: the group is whole or absent
+    const float4* src = reinterpret_cast<const float4*>(xr + col);
+    float4 v[4];
+#pragma unroll
+    for (int i = 0; i < 4; ++i) v[i] = __ldg(src + i);
+    uint32_t word[4];
+#pragma unroll
+    for (int i = 0; i < 4; ++i)  // lowest address in the lowest byte
+      word[i] = byte_of(code_of(v[i].x, s)) | byte_of(code_of(v[i].y, s)) << 8 |
+                byte_of(code_of(v[i].z, s)) << 16 | byte_of(code_of(v[i].w, s)) << 24;
+    *reinterpret_cast<uint4*>(qr + col) = make_uint4(word[0], word[1], word[2], word[3]);
+    return;
+  }
+  float v[kPerThread];
+#pragma unroll
+  for (int j = 0; j < kPerThread; ++j) {
+    const long long col = tile0 + (long long)j * kThreads + threadIdx.x;
+    if (col < n) v[j] = xr[col];
+  }
+#pragma unroll
+  for (int j = 0; j < kPerThread; ++j) {
+    const long long col = tile0 + (long long)j * kThreads + threadIdx.x;
+    if (col < n) qr[col] = code_of(v[j], s);
   }
 }
 
@@ -87,17 +159,28 @@ unsigned int blocks_for(long long n, long long cap) {
   return static_cast<unsigned int>(b < cap ? b : cap);
 }
 
+bool aligned16(const void* p) { return (reinterpret_cast<uintptr_t>(p) & 15u) == 0; }
+
 }  // namespace
 
-// x [R, N] f32 row-major, scales [R] f32 -> q [R, N] int8. R <= 65535.
-extern "C" int quantize_rows(const void* x, const void* scales, void* q, int R,
-                             long long N, void* stream) {
-  // spread ~kMaxBlocks blocks over the rows, at least one per row
-  long long per_row = kMaxBlocks / (R > 0 ? R : 1);
-  dim3 grid(blocks_for(N, per_row > 0 ? per_row : 1), static_cast<unsigned int>(R));
-  quantize_rows_kernel<<<grid, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const float*>(x), static_cast<const float*>(scales),
-      static_cast<int8_t*>(q), N);
+extern "C" int quantize_rows_max_leaves() { return kMaxLeaves; }
+
+// table: host copy of the leaf table (x, scales, q, rows, n filled in;
+// first_block and vec are computed here). Returns a cudaError_t.
+extern "C" int quantize_rows(const void* given, void* stream) {
+  RowsTable table = *static_cast<const RowsTable*>(given);
+  if (table.count < 1 || table.count > kMaxLeaves) return static_cast<int>(cudaErrorInvalidValue);
+  long long blocks = 0;
+  for (int l = 0; l < table.count; ++l) {
+    RowsLeaf& leaf = table.leaf[l];
+    if (leaf.n <= 0 || leaf.rows <= 0) return static_cast<int>(cudaErrorInvalidValue);
+    leaf.first_block = static_cast<int>(blocks);
+    leaf.vec = leaf.n % kPerThread == 0 && aligned16(leaf.x) && aligned16(leaf.q);
+    blocks += leaf.rows * ((leaf.n + kTileCols - 1) / kTileCols);
+    if (blocks >= (1ll << 31)) return static_cast<int>(cudaErrorInvalidValue);
+  }
+  quantize_rows_leaves_kernel<<<static_cast<unsigned int>(blocks), kThreads, 0,
+                                static_cast<cudaStream_t>(stream)>>>(table);
   return static_cast<int>(cudaGetLastError());
 }
 

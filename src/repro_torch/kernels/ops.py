@@ -6,9 +6,12 @@ power-of-two block search have no counterpart here."""
 
 from __future__ import annotations
 
+import math
+
 import torch
 
-from repro_torch.kernels.fedavg_reduce import fedavg_reduce_flat
+from repro_torch.kernels import quantize as _quantize
+from repro_torch.kernels.fedavg_reduce import fedavg_reduce_leaves
 from repro_torch.kernels.flash_attention import flash_attention_bhsd
 from repro_torch.kernels.quantize import (
     dequantize_flat,
@@ -17,7 +20,12 @@ from repro_torch.kernels.quantize import (
     quantize_stochastic_flat,
 )
 from repro_torch.kernels.swiglu import swiglu_fused
-from repro_torch.utils.pytree import flatten_to_vector, tree_map, unflatten_from_vector
+from repro_torch.utils.pytree import (
+    flatten_to_vector,
+    tree_leaves,
+    tree_unflatten,
+    unflatten_from_vector,
+)
 
 
 def fedavg_reduce(stacked_deltas, weights: torch.Tensor):
@@ -25,15 +33,19 @@ def fedavg_reduce(stacked_deltas, weights: torch.Tensor):
 
     stacked_deltas: tree whose leaves have leading client dim C.
     weights: [C]; cast to f32 and normalized in f32 (FedAvg semantics).
-    One kernel launch per leaf; each result is cast to its leaf's dtype."""
+    One kernel launch for the whole tree (per dtype, per ``MAX_LEAVES``
+    leaves); each result is a view of the one f32 output, cast to its
+    leaf's dtype."""
     w = weights.float()
     w = (w / torch.clamp(w.sum(), min=1e-20)).contiguous()
-
-    def one(leaf):
-        flat = leaf.reshape(leaf.shape[0], -1).contiguous()
-        return fedavg_reduce_flat(flat, w).reshape(leaf.shape[1:]).to(leaf.dtype)
-
-    return tree_map(one, stacked_deltas)
+    leaves = tree_leaves(stacked_deltas)
+    out = fedavg_reduce_leaves([l.reshape(l.shape[0], -1).contiguous() for l in leaves], w)
+    views, off = [], 0
+    for l in leaves:
+        n = math.prod(l.shape[1:])
+        views.append(out[off:off + n].reshape(l.shape[1:]).to(l.dtype))
+        off += n
+    return tree_unflatten(stacked_deltas, views)
 
 
 def quantize_tree(tree, generator: torch.Generator):
@@ -56,6 +68,14 @@ def quantize_rows(x: torch.Tensor, scales: torch.Tensor) -> torch.Tensor:
     Deterministic round-half-up: the plane compressors' parity contract
     (stacked == sequential per-client, bitwise) rules out stochastic bits."""
     return quantize_rows_flat(x.float().contiguous(), scales.float().contiguous())
+
+
+def quantize_rows_leaves(xs, scales):
+    """``quantize_rows`` over every leaf of a tree at once: xs [R, n_l] and
+    scales [R] per leaf, in ``tree_leaves`` order -> int8 [R, n_l] per leaf.
+    One kernel launch for all of them (per ``MAX_LEAVES`` leaves)."""
+    return _quantize.quantize_rows_leaves([x.float().contiguous() for x in xs],
+                                          [s.float().contiguous() for s in scales])
 
 
 def downcast_bf16_rows(x: torch.Tensor) -> torch.Tensor:

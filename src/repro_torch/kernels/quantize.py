@@ -1,9 +1,11 @@
 """int8 / bf16 quantization for the compression front-end (the port of
 ``repro/kernels/quantize.py``).
 
-- ``quantize_rows_flat`` / ``downcast_bf16_rows_flat``: row-stacked int8
-  (per-row scales, deterministic round-half-up) and bf16 for the plane
-  compressors, bitwise equal to sequential per-client compression;
+- ``quantize_rows_leaves`` / ``quantize_rows_flat`` /
+  ``downcast_bf16_rows_flat``: row-stacked int8 (per-row scales,
+  deterministic round-half-up; every leaf of a tree in one launch) and bf16
+  for the plane compressors, bitwise equal to sequential per-client
+  compression;
 - ``quantize_stochastic_flat``: per-tensor int8 with stochastic rounding,
   the uniform bits supplied by the caller.
 
@@ -19,7 +21,7 @@ so a run can show that it went through the kernels.
 from __future__ import annotations
 
 import ctypes
-from typing import Callable, Dict
+from typing import Callable, Dict, List, Sequence
 
 import torch
 
@@ -32,14 +34,24 @@ from repro_torch.kernels.ref import (
 
 launches: Dict[str, int] = {"quantize_rows": 0, "downcast_bf16_rows": 0, "quantize_stochastic": 0}
 
-MAX_ROWS = 65535  # rows index the grid's y dimension
+MAX_LEAVES = 64  # csrc/quantize.cu: kMaxLeaves
 _P = ctypes.c_void_p
 _ARGTYPES = {
-    "quantize_rows": [_P, _P, _P, ctypes.c_int, ctypes.c_longlong, _P],
+    "quantize_rows": [_P, _P],
     "downcast_bf16_rows": [_P, _P, ctypes.c_longlong, _P],
     "quantize_stochastic": [_P, _P, _P, _P, ctypes.c_longlong, _P],
 }
 _entries: Dict[str, Callable] = {}
+
+
+class _RowsLeaf(ctypes.Structure):  # csrc/quantize.cu: RowsLeaf
+    _fields_ = [("x", _P), ("scales", _P), ("q", _P), ("n", ctypes.c_longlong),
+                ("rows", ctypes.c_int), ("first_block", ctypes.c_int), ("vec", ctypes.c_int),
+                ("pad", ctypes.c_int)]
+
+
+class _RowsTable(ctypes.Structure):  # csrc/quantize.cu: RowsTable
+    _fields_ = [("leaf", _RowsLeaf * MAX_LEAVES), ("count", ctypes.c_int)]
 
 
 def _launch(name: str, device: torch.device, *args) -> None:
@@ -48,7 +60,10 @@ def _launch(name: str, device: torch.device, *args) -> None:
     refused launch and count the launch otherwise."""
     fn = _entries.get(name)
     if fn is None:
-        fn = getattr(load_library("quantize"), name)
+        lib = load_library("quantize")
+        if lib.quantize_rows_max_leaves() != MAX_LEAVES:
+            raise RuntimeError("quantize: MAX_LEAVES disagrees with csrc/quantize.cu")
+        fn = getattr(lib, name)
         fn.argtypes = _ARGTYPES[name]
         fn.restype = ctypes.c_int
         _entries[name] = fn
@@ -75,23 +90,44 @@ def _on_cuda(name: str, *tensors: torch.Tensor) -> bool:
     return True
 
 
+def quantize_rows_leaves(xs: Sequence[torch.Tensor],
+                         scales: Sequence[torch.Tensor]) -> List[torch.Tensor]:
+    """xs: leaves [R_l, n_l] f32, scales: [R_l] per leaf (per-row quantum) ->
+    int8 [R_l, n_l] per leaf: clip(floor(x / scale_r + 0.5), -127, 127).
+
+    One launch per ``MAX_LEAVES`` leaves with elements; the codes share one
+    int8 buffer, each leaf starting 16-byte aligned."""
+    if len(xs) != len(scales) or any(
+        x.ndim != 2 or s.shape != (x.shape[0],) for x, s in zip(xs, scales)
+    ):
+        raise ValueError(
+            f"quantize_rows: need each x [R, n] with scales [R], got "
+            f"{[tuple(x.shape) for x in xs]} and {[tuple(s.shape) for s in scales]}"
+        )
+    if not xs or not _on_cuda("quantize_rows", *xs, *scales):
+        return [quantize_rows_ref(x, s) for x, s in zip(xs, scales)]
+    offsets, total = [], 0
+    for x in xs:
+        offsets.append(total)
+        total += -(-x.numel() // 16) * 16
+    buf = torch.empty(total, dtype=torch.int8, device=xs[0].device)
+    qs = [buf[o:o + x.numel()].view(x.shape) for o, x in zip(offsets, xs)]
+    work = [(x, s, q) for x, s, q in zip(xs, scales, qs) if q.numel()]
+    for start in range(0, len(work), MAX_LEAVES):
+        chunk = work[start:start + MAX_LEAVES]
+        table = _RowsTable(count=len(chunk))
+        for slot, (x, s, q) in zip(table.leaf, chunk):
+            slot.x, slot.scales, slot.q = x.data_ptr(), s.data_ptr(), q.data_ptr()
+            slot.n, slot.rows = x.shape[1], x.shape[0]
+        _launch("quantize_rows", xs[0].device, ctypes.addressof(table))
+    return qs
+
+
 def quantize_rows_flat(x: torch.Tensor, scales: torch.Tensor) -> torch.Tensor:
     """x [R, N] f32, scales [R] (per-row quantum) -> int8 [R, N]:
-    clip(floor(x / scale_r + 0.5), -127, 127)."""
-    if x.ndim != 2 or scales.shape != (x.shape[0],):
-        raise ValueError(
-            f"quantize_rows_flat: need x [R, N] and scales [R], got "
-            f"{tuple(x.shape)} and {tuple(scales.shape)}"
-        )
-    if not _on_cuda("quantize_rows_flat", x, scales):
-        return quantize_rows_ref(x, scales)
-    R, N = x.shape
-    if R > MAX_ROWS:
-        raise ValueError(f"quantize_rows_flat: R={R} > {MAX_ROWS}")
-    q = torch.empty((R, N), dtype=torch.int8, device=x.device)
-    if q.numel():
-        _launch("quantize_rows", x.device, x.data_ptr(), scales.data_ptr(), q.data_ptr(), R, N)
-    return q
+    clip(floor(x / scale_r + 0.5), -127, 127). A one-leaf table through the
+    same kernel."""
+    return quantize_rows_leaves([x], [scales])[0]
 
 
 def downcast_bf16_rows_flat(x: torch.Tensor) -> torch.Tensor:

@@ -6,9 +6,8 @@ Layouts are the reference's at every public function: images NHWC, conv
 kernels HWIO, params ``{conv1,conv2,fc1,fc2}/{w,b}``, so params and deltas
 cross between the packages with no transposes. Gradients come from plain
 autograd; only the max-pool carries its own backward, to keep the
-reference's tie rule. The reference computes in full f32: on the card, set
-``torch.backends.cudnn.allow_tf32 = False`` (cuDNN defaults to TF32) to
-match it, as ``chip_smoke.py`` does.
+reference's tie rule. The reference computes in full f32; the task in
+``core/client.py`` runs the CNN under ``utils.f32_math`` on the card.
 """
 
 from __future__ import annotations

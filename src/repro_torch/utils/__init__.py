@@ -1,4 +1,4 @@
-from repro_torch.utils.device import resolve_device
+from repro_torch.utils.device import f32_math, resolve_device
 from repro_torch.utils.pytree import (
     flatten_to_vector,
     tree_add,
@@ -15,6 +15,7 @@ from repro_torch.utils.pytree import (
 )
 
 __all__ = [
+    "f32_math",
     "resolve_device",
     "tree_map",
     "tree_leaves",

@@ -2,7 +2,8 @@
 
 from __future__ import annotations
 
-from typing import Optional, Union
+import contextlib
+from typing import Iterator, Optional, Union
 
 import torch
 
@@ -20,3 +21,21 @@ def resolve_device(device: Optional[Union[str, torch.device]] = None) -> torch.d
             )
         return torch.device("cuda")
     return torch.device(device)
+
+
+@contextlib.contextmanager
+def f32_math(device: Union[str, torch.device]) -> Iterator[None]:
+    """Full-f32 library math inside the block on a CUDA ``device``: TF32 off
+    for cuDNN convolutions and cuBLAS matmuls (PyTorch turns it on for
+    cuDNN by default, which keeps ~3 digits where the reference computes in
+    f32). Both flags are restored on exit, also after an exception. On the
+    CPU this does nothing."""
+    if torch.device(device).type != "cuda":
+        yield
+        return
+    saved = (torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32)
+    torch.backends.cudnn.allow_tf32 = torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        yield
+    finally:
+        torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32 = saved

@@ -64,27 +64,3 @@ def assert_same(a, b, path="out"):
         assert np.isnan(b), path
     else:
         assert a == b and type(a) is type(b), (path, a, b)
-
-
-
-HISTORY_TOL = 1e-3
-
-
-def assert_histories_match(r_hist, p_hist, tol: float = HISTORY_TOL):
-    """Reference and port History: every numpy-computed field (clock,
-    counts, reconnects, ids, cause, bytes) exactly, client metrics and
-    eval accuracy/loss within ``tol``."""
-    assert (r_hist.status, r_hist.cause) == (p_hist.status, p_hist.cause)
-    assert len(r_hist.rounds) == len(p_hist.rounds)
-    for r_rec, p_rec in zip(r_hist.rounds, p_hist.rounds):
-        r_d, p_d = dataclasses.asdict(r_rec), dataclasses.asdict(p_rec)
-        r_m, p_m = r_d.pop("metrics"), p_d.pop("metrics")
-        assert r_d == p_d
-        assert sorted(r_m) == sorted(p_m)
-        for k in r_m:
-            assert abs(r_m[k] - p_m[k]) <= tol, k
-    assert len(r_hist.eval_metrics) == len(p_hist.eval_metrics)
-    for r_e, p_e in zip(r_hist.eval_metrics, p_hist.eval_metrics):
-        assert (r_e["round"], r_e["t"]) == (p_e["round"], p_e["t"])
-        assert abs(r_e["accuracy"] - p_e["accuracy"]) <= tol
-        assert abs(r_e["loss"] - p_e["loss"]) <= tol

@@ -91,3 +91,30 @@ def test_fit_rows_pads_to_bucket_and_gathers_anchors():
         one, _, m = P_TASK.fit_rows([anchors[a]], [rows[r]], 2, [0.0], False)
         assert max_abs_diff(tree_unstack(one)[0], tree_unstack(plane)[r]) <= 1e-6
         assert abs(m[0]["loss"] - metrics[r]["loss"]) <= 1e-6
+
+
+def test_f32_math_turns_tf32_off_on_cuda_only_and_restores():
+    """The guard the CNN task runs under: on a CUDA device TF32 is off for
+    cuDNN and cuBLAS inside the block and both flags come back after it,
+    also after an exception; on the CPU nothing changes. (The flags are
+    process-wide settings, so this needs no card.)"""
+    import torch
+
+    from repro_torch.utils import f32_math
+
+    flags = lambda: (torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32)
+    saved = flags()
+    try:
+        for start in ((True, False), (True, True), (False, True)):
+            torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32 = start
+            with f32_math("cpu"):
+                assert flags() == start
+            with f32_math(torch.device("cuda")):
+                assert flags() == (False, False)
+            assert flags() == start
+            with pytest.raises(KeyError):
+                with f32_math("cuda:0"):
+                    raise KeyError("inside")
+            assert flags() == start
+    finally:
+        torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32 = saved

@@ -197,6 +197,48 @@ def test_plane_compressor_bitwise_matches_sequential(name):
         assert all(not plane_res[k][1].any() for k in plane_res)  # untouched row
 
 
+def test_int8_on_the_cnn_tree_groups_every_leaf():
+    """int8 on the CNN's 8 leaves, where one grouped call quantizes every
+    leaf: the per-client codes and scales equal the reference's per leaf,
+    and the plane equals the per-client loop bitwise over 3 rounds. CPU
+    calls count no launch."""
+    from repro_torch.kernels import quantize as p_q
+
+    params = ref_params_np(0)
+    rng = np.random.default_rng(5)
+    deltas = [{layer: {k: (rng.standard_normal(v.shape) * 1e-2).astype(np.float32)
+                       for k, v in leaves.items()} for layer, leaves in params.items()}
+              for _ in range(3)]
+    as_torch = [{l: _torch(d) for l, d in delta.items()} for delta in deltas]
+    r_payload, _ = r_comp.int8_compressor().compress(
+        {l: _jax(d) for l, d in deltas[0].items()}, None)
+    before = dict(p_q.launches)
+    comp = p_comp.int8_compressor()
+    p_payload, _ = comp.compress(as_torch[0], None)
+    for layer in params:
+        for k in params[layer]:
+            assert np.array_equal(to_np(p_payload[layer][k]["q"]), to_np(r_payload[layer][k]["q"]))
+            assert np.float32(p_payload[layer][k]["scale"]) == np.float32(r_payload[layer][k]["scale"])
+    slots = [3, 0, 1]
+    seq_res = [None] * 4
+    plane_res = p_comp.init_residual_plane(as_torch[0], 4)
+    for rnd in range(3):
+        seq_out = []
+        for j, slot in enumerate(slots):
+            payload, seq_res[slot] = comp.compress(as_torch[j], seq_res[slot])
+            seq_out.append(comp.decompress(payload))
+        plane_out, plane_res = comp.compress_plane(tree_stack(as_torch), plane_res, slots)
+        for j, row in enumerate(tree_unstack(plane_out)):
+            for layer in row:
+                for k in row[layer]:
+                    assert torch.equal(seq_out[j][layer][k], row[layer][k]), (rnd, j, layer, k)
+        for slot in slots:
+            for layer in plane_res:
+                for k in plane_res[layer]:
+                    assert torch.equal(seq_res[slot][layer][k], plane_res[layer][k][slot])
+    assert p_q.launches == before
+
+
 def _server(compressor, *, rounds=2, batched=True):
     clients = [p_core.EdgeClient(i, dataset=s) for i, s in enumerate(SHARDS)]
     return p_core.FederatedServer(

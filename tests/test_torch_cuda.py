@@ -32,9 +32,12 @@ TOL = {torch.float32: 1e-5, torch.bfloat16: 3e-2}
 def device():
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device")
+    saved = (torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32)
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
-    return torch.device("cuda")
+    yield torch.device("cuda")
+    # other files (test_torch_cuda_history.py) run with PyTorch's defaults
+    torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32 = saved
 
 
 def _xw(C, N, dtype, device, seed=0):
@@ -79,6 +82,109 @@ def test_fedavg_reduce_refuses_bad_inputs(device):
         fr.fedavg_reduce_flat(x.half(), w)
     with pytest.raises(ValueError):
         fr.fedavg_reduce_flat(x, w[:3])
+
+
+# ---------------------------------------------------------------------------
+# one launch over a table of leaves
+# ---------------------------------------------------------------------------
+
+CNN_LEAVES = [16, 144, 32, 4608, 128, 200704, 10, 1280]
+RAGGED_LEAVES = [1, 3, 10, 2049, 12345, 200704]
+
+
+def _unaligned(C, N, device, seed=0):
+    """[C, N] f32, contiguous, 4-byte but not 16-byte aligned (an offset
+    view of a larger buffer)."""
+    g = torch.Generator(device=device).manual_seed(seed)
+    x = (torch.randn(C * N + 1, generator=g, device=device) * 2.5)[1:].view(C, N)
+    assert x.data_ptr() % 16 == 4
+    return x
+
+
+def _grouped_fedavg_matches(xs, w, launches):
+    before = fr.launches
+    out = fr.fedavg_reduce_leaves(xs, w)
+    torch.cuda.synchronize()
+    assert fr.launches == before + launches
+    assert out.dtype == torch.float32 and out.shape == (sum(x.shape[1] for x in xs),)
+    off = 0
+    for x in xs:
+        n = x.shape[1]
+        got = out[off:off + n]
+        if n:
+            assert torch.max(torch.abs(got - fedavg_reduce_ref(x, w))).item() <= TOL[x.dtype]
+        # the same leaf alone through a one-leaf table: bitwise equal
+        assert torch.equal(got, fr.fedavg_reduce_flat(x, w))
+        off += n
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("sizes", [CNN_LEAVES, RAGGED_LEAVES], ids=["cnn", "ragged"])
+def test_fedavg_reduce_leaves_matches_plain(device, sizes, dtype):
+    xs = [_xw(10, n, dtype, device, seed=i)[0] for i, n in enumerate(sizes)]
+    _grouped_fedavg_matches(xs, _xw(10, 1, torch.float32, device, seed=99)[1], 1)
+
+
+def test_fedavg_reduce_leaves_unaligned_zero_size_and_mixed_dtypes(device):
+    """A 4-byte-aligned leaf takes the scalar loads; zero-size leaves take
+    no blocks; f32 and bf16 leaves go in one launch per dtype."""
+    w = _xw(7, 1, torch.float32, device, seed=5)[1]
+    xs = [_unaligned(7, 4096, device), _xw(7, 0, torch.float32, device)[0],
+          _xw(7, 2048, torch.bfloat16, device, seed=1)[0], _unaligned(7, 12345, device, seed=2),
+          _xw(7, 0, torch.bfloat16, device)[0], _xw(7, 999, torch.bfloat16, device, seed=3)[0],
+          _xw(7, 64, torch.float32, device, seed=4)[0]]
+    _grouped_fedavg_matches(xs, w, 2)
+    before = fr.launches
+    assert fr.fedavg_reduce_leaves([_xw(7, 0, torch.float32, device)[0]], w).shape == (0,)
+    assert fr.launches == before
+
+
+def test_fedavg_reduce_leaves_splits_a_long_table(device):
+    n_leaves = fr.MAX_LEAVES * 2 + 3
+    xs = [_xw(4, 1 + 37 * i, torch.float32, device, seed=i)[0] for i in range(n_leaves)]
+    _grouped_fedavg_matches(xs, _xw(4, 1, torch.float32, device, seed=7)[1], 3)
+
+
+def test_ops_fedavg_reduce_is_one_launch_per_tree(device):
+    tree = {"a": {"w": _xw(10, 4608, torch.float32, device)[0].view(10, 3, 3, 16, 32),
+                  "b": _xw(10, 32, torch.float32, device, seed=1)[0]},
+            "c": _xw(10, 10, torch.float32, device, seed=2)[0]}
+    w = torch.rand(10, device=device) + 0.1
+    before = fr.launches
+    out = ops.fedavg_reduce(tree, w)
+    torch.cuda.synchronize()
+    assert fr.launches == before + 1
+    wn = w / w.sum()
+    for got, x in ((out["a"]["w"], tree["a"]["w"]), (out["a"]["b"], tree["a"]["b"]),
+                   (out["c"], tree["c"])):
+        assert got.shape == x.shape[1:]
+        want = fedavg_reduce_ref(x.reshape(10, -1), wn).reshape(x.shape[1:])
+        assert torch.max(torch.abs(got - want)).item() <= 1e-5
+
+
+def _grouped_codes_equal(xs, launches):
+    scales = [_scales(x) if x.numel() else torch.ones(x.shape[0], device=x.device) for x in xs]
+    before = qz.launches["quantize_rows"]
+    got = qz.quantize_rows_leaves(xs, scales)
+    torch.cuda.synchronize()
+    assert qz.launches["quantize_rows"] == before + launches
+    for x, s, q in zip(xs, scales, got):
+        assert q.dtype == torch.int8 and q.shape == x.shape
+        assert torch.equal(q, quantize_rows_ref(x, s))
+        assert torch.equal(q, qz.quantize_rows_flat(x, s))  # alone == among others
+
+
+@pytest.mark.parametrize("sizes", [CNN_LEAVES, RAGGED_LEAVES], ids=["cnn", "ragged"])
+def test_quantize_rows_leaves_codes_equal_plain(device, sizes):
+    _grouped_codes_equal([_rows(10, n, device, seed=i) for i, n in enumerate(sizes)], 1)
+
+
+def test_quantize_rows_leaves_unaligned_zero_size_and_long_table(device):
+    xs = [_unaligned(3, 4096, device), _rows(3, 0, device), _rows(3, 2048, device, seed=1),
+          _unaligned(5, 1000, device, seed=2), _rows(1, 17, device, seed=3)]
+    _grouped_codes_equal(xs, 1)
+    xs = [_rows(2, 1 + 53 * i, device, seed=i) for i in range(qz.MAX_LEAVES + 5)]
+    _grouped_codes_equal(xs, 2)
 
 
 # the main path's CNN leaf sizes (conv1.b .. fc2.w) and the reference sweeps

@@ -1,0 +1,34 @@
+"""The port's FL History on the card against the reference's, written on
+the CPU and committed (``tests/data/card_reference.json``; see
+``tests/_card_reference.py``): the 7 engine runs and the int8 / bf16
+compressed runs, started from the reference's params. Numpy-computed
+fields exactly; accuracy, loss and client metrics within ``HISTORY_TOL``.
+
+The runs keep PyTorch's TF32 defaults: the port itself must compute the
+CNN in f32. Marked ``cuda``; skips without a CUDA device. Imports neither
+jax nor repro, so it runs where only the port is installed:
+
+    PYTHONPATH=src python -m pytest --noconftest -m cuda tests/test_torch_cuda_history.py
+"""
+
+import pytest
+import torch
+
+import _card_reference as card
+
+pytestmark = pytest.mark.cuda
+
+
+@pytest.fixture(scope="module")
+def task():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    return card.port_task("cuda")
+
+
+@pytest.mark.parametrize("name", card.RUNS)
+def test_port_on_cuda_matches_fixture(task, name):
+    assert torch.backends.cudnn.allow_tf32, "runs with PyTorch's default TF32 flags"
+    hist, clients = card.run(name, task, *card.port_packages())
+    assert hist.completed_rounds > 0
+    card.assert_records_match(card.load_records()[name], card.history_record(hist, clients))

@@ -9,7 +9,8 @@ import pytest
 
 ROOT = Path(__file__).resolve().parents[1]
 PORT = ROOT / "src" / "repro_torch"
-FILES = sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py"]
+FILES = (sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py"]
+         + sorted((ROOT / "tests").glob("test_torch_cuda*.py")))
 SKIP_DIRS = {".git", "build", "__pycache__"}
 
 
@@ -34,6 +35,22 @@ def test_no_jax_or_reference_imports(path):
             args = [a.value for a in node.args if isinstance(a, ast.Constant) and isinstance(a.value, str)]
             bad += [a for a in args if _forbidden(a)]
     assert not bad, f"{path.relative_to(ROOT)} imports {bad}"
+
+
+def test_card_reference_imports_jax_only_inside_main():
+    """``tests/_card_reference.py`` is imported on the card, which has no
+    jax: only its ``main()`` (which writes the fixture) may import it."""
+    path = ROOT / "tests" / "_card_reference.py"
+    tree = ast.parse(path.read_text(), filename=str(path))
+    outside = [n for n in tree.body if not (isinstance(n, ast.FunctionDef) and n.name == "main")]
+    bad = [a.name for node in outside for n in ast.walk(node) if isinstance(n, ast.Import)
+           for a in n.names if _forbidden(a.name)]
+    bad += [n.module for node in outside for n in ast.walk(node)
+            if isinstance(n, ast.ImportFrom) and n.level == 0 and n.module and _forbidden(n.module)]
+    assert not bad, bad
+    inside = [n for n in ast.walk(next(n for n in tree.body if getattr(n, "name", "") == "main"))
+              if isinstance(n, ast.Import) and any(_forbidden(a.name) for a in n.names)]
+    assert inside, "main() writes the fixture with the reference"
 
 
 def test_forbidden_names_are_caught():

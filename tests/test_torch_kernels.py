@@ -109,3 +109,38 @@ def test_wrapper_refuses_devices_without_a_kernel():
     x = torch.empty(2, 8, device="meta")
     with pytest.raises(ValueError, match="unsupported device"):
         p_fr.fedavg_reduce_flat(x, torch.empty(2, device="meta"))
+
+
+@pytest.mark.parametrize("C", [1, 10])
+def test_fedavg_reduce_mixed_tree_matches_pallas_interpret(C):
+    """A tree of leaves of 1, 10, 2049 and 12345 elements and a bf16 leaf
+    (one launch per dtype on the card) against the reference kernel."""
+    rng = np.random.default_rng(C)
+    shapes = {"a": (1,), "b": (10,), "c": (2049,), "d": (3, 4115), "half": (2049,)}
+    tree_np = {k: rng.standard_normal((C,) + s).astype(np.float32) for k, s in shapes.items()}
+    dt = {k: "bfloat16" if k == "half" else "float32" for k in shapes}
+    pairs = {k: _pair(v, dt[k]) for k, v in tree_np.items()}
+    w = rng.random(C).astype(np.float32) + 0.05
+    got = p_ops.fedavg_reduce({k: p for k, (_, p) in pairs.items()}, torch.from_numpy(w))
+    want = r_ops.fedavg_reduce({k: r for k, (r, _) in pairs.items()}, jnp.asarray(w),
+                               interpret=True)
+    for k in shapes:
+        assert got[k].shape == shapes[k] and got[k].dtype == getattr(torch, dt[k])
+        assert np.max(np.abs(_f32(got[k]) - _f32(want[k]))) <= TOL[dt[k]], k
+
+
+def test_fedavg_reduce_leaves_is_the_concatenation_of_leaves():
+    """The grouped wrapper's output: leaf l at the offset of the leaves
+    before it, each equal to the one-leaf call; zero-size leaves allowed."""
+    rng = np.random.default_rng(4)
+    w = torch.from_numpy(rng.random(3).astype(np.float32))
+    xs = [torch.from_numpy(_x(3, n, seed=n)) for n in (5, 0, 4096, 1)]
+    xs.append(torch.from_numpy(_x(3, 7, seed=9)).to(torch.bfloat16))
+    before = p_fr.launches
+    out = p_fr.fedavg_reduce_leaves(xs, w)
+    assert p_fr.launches == before  # CPU calls do not count
+    assert out.dtype == torch.float32 and out.shape == (sum(x.shape[1] for x in xs),)
+    off = 0
+    for x in xs:
+        assert torch.equal(out[off:off + x.shape[1]], p_fr.fedavg_reduce_flat(x, w))
+        off += x.shape[1]

@@ -144,10 +144,29 @@ def test_quantize_stochastic_unbiased():
     assert abs(float(torch.mean(accum / 5)) - 0.3) < 2e-3
 
 
+@pytest.mark.parametrize("R", [1, 10])
+def test_grouped_quantize_rows_codes_equal_reference_per_leaf(R):
+    """All leaves of a tree (the CNN's 8 leaf sizes and ragged ones) in one
+    grouped call: each leaf's codes equal the reference's per-leaf codes,
+    jnp oracle and Pallas interpret, bitwise."""
+    sizes = [16, 144, 32, 4608, 128, 10, 1280, 1, 3, 2049, 12345]
+    xs = [_rows(R, n, seed=i) for i, n in enumerate(sizes)]
+    ss = [_scales(x) for x in xs]
+    got = p_ops.quantize_rows_leaves([torch.from_numpy(x) for x in xs],
+                                     [torch.from_numpy(s) for s in ss])
+    assert len(got) == len(sizes)
+    for x, s, q in zip(xs, ss, got):
+        oracle = np.asarray(r_ref.quantize_rows_ref(jnp.asarray(x), jnp.asarray(s)))
+        pallas = np.asarray(r_ops.quantize_rows(jnp.asarray(x), jnp.asarray(s), interpret=True))
+        assert q.dtype == torch.int8 and q.shape == x.shape
+        assert np.array_equal(q.numpy(), oracle) and np.array_equal(q.numpy(), pallas)
+
+
 def test_cpu_calls_do_not_count_as_launches():
     before = dict(p_q.launches)
     x = torch.ones(2, 8)
     p_q.quantize_rows_flat(x, torch.ones(2))
+    p_q.quantize_rows_leaves([x, torch.ones(3, 5)], [torch.ones(2), torch.ones(3)])
     p_q.downcast_bf16_rows_flat(x)
     p_q.quantize_stochastic_flat(x[0], torch.zeros(8), 1.0)
     assert p_q.launches == before
@@ -166,6 +185,8 @@ def test_wrappers_refuse_devices_without_a_kernel(call):
 def test_wrappers_refuse_bad_shapes():
     with pytest.raises(ValueError):
         p_q.quantize_rows_flat(torch.ones(2, 8), torch.ones(3))
+    with pytest.raises(ValueError):
+        p_q.quantize_rows_leaves([torch.ones(2, 8)], [torch.ones(2), torch.ones(2)])
     with pytest.raises(ValueError):
         p_q.downcast_bf16_rows_flat(torch.ones(8))
     with pytest.raises(ValueError):

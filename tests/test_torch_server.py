@@ -5,7 +5,8 @@ Also the paper's system claims, run on the port."""
 
 import pytest
 
-from _torch_parity import assert_histories_match, ref_params_np, with_params
+from _card_reference import ENGINES, _run, assert_histories_match
+from _torch_parity import ref_params_np, with_params
 import repro.chaos as r_chaos
 import repro.core as r_core
 import repro.data as r_data
@@ -18,60 +19,13 @@ import repro_torch.transport as p_tr
 R_TASK = r_core.mnist_cnn_task()
 P_TASK = with_params(p_core.mnist_cnn_task(device="cpu"), ref_params_np(0))
 
-# (name, ServerConfig overrides, chaos kind, tcp name)
-ENGINES = [
-    ("sequential_analytic", dict(batched=False), "quickstart", "DEFAULT"),
-    ("batched_analytic", dict(batched=True), "quickstart", "DEFAULT"),
-    ("batched_analytic_split", dict(batched=True, rng_streams="split"), "restart", "TUNED_EDGE"),
-    ("sequential_stochastic", dict(batched=False, stochastic=True), "quickstart", "TUNED_EDGE"),
-    ("batched_stochastic", dict(batched=True, stochastic=True), "quickstart", "DEFAULT"),
-    ("fused_transport", dict(batched=True, stochastic=True, engine="fused_transport"),
-     "quickstart", "DEFAULT"),
-    ("batched_retry_zero_rtt",
-     dict(batched=True, stochastic=True, transport_profile="zero_rtt", quorum_close_fraction=0.8),
-     "restart", "DEFAULT"),
-]
-
-
-def _chaos(pkg, tr, kind):
-    sched = pkg.ChaosSchedule(tr.LAB)
-    sched.add(
-        pkg.netem(1.5, 10_000.0, delay=0.4, loss=0.05),
-        pkg.client_failure_schedule(6, 0.3, t_start=2.0, seed=3),
-    )
-    if kind == "restart":  # lands inside round 2
-        sched.add(pkg.server_restart(8.0, downtime=5.0))
-    return sched
-
-
-def _run(core, data, tr, chaos_pkg, task, name, overrides, chaos_kind, tcp_name):
-    shards = data.make_federated_mnist(6, 64, seed=0)
-    clients = [core.EdgeClient(i, dataset=s) for i, s in enumerate(shards)]
-    kw = dict(rounds=3, local_steps=2, seed=0, **overrides)
-    if name == "batched_retry_zero_rtt":
-        kw["retry"] = tr.RetryPolicy(max_retries=2, jitter=0.3, resume=True)
-    server = core.FederatedServer(
-        task,
-        clients,
-        core.fedavg(min_fit=0.3),
-        tcp=getattr(tr, tcp_name),
-        chaos=_chaos(chaos_pkg, tr, chaos_kind),
-        config=core.ServerConfig(**kw),
-        eval_data=data.synthetic_mnist(2000, seed=77),
-    )
-    return server.run(), clients
-
 
 @pytest.mark.parametrize("name,overrides,chaos_kind,tcp_name", ENGINES, ids=[e[0] for e in ENGINES])
 def test_history_matches_reference(name, overrides, chaos_kind, tcp_name):
     r_hist, r_clients = _run(r_core, r_data, r_tr, r_chaos, R_TASK, name, overrides, chaos_kind, tcp_name)
     p_hist, p_clients = _run(p_core, p_data, p_tr, p_chaos, P_TASK, name, overrides, chaos_kind, tcp_name)
     assert p_hist.completed_rounds > 0
-    assert_histories_match(r_hist, p_hist)
-    for rc, pc in zip(r_clients, p_clients):
-        assert (rc.connected, rc.rounds_participated, rc.bytes_sent) == (
-            pc.connected, pc.rounds_participated, pc.bytes_sent
-        )
+    assert_histories_match(r_hist, r_clients, p_hist, p_clients)
 
 
 def _port_server(tcp, link=p_tr.LAB, rounds=4, chaos=None, min_fit=0.5, batched=False):
