@@ -18,9 +18,13 @@ Run from the repository root. Phases, each printing one JSON line:
 4. quant_kernels
              the three quantize kernels against their plain versions, codes
              and bf16 bits equal (not close), at the reference sweep sizes
-             and the main path's 8 leaf shapes with R = 10 rows (int8 as one
-             grouped launch, bf16 per leaf), with the same timing fields as
-             ``kernel``;
+             and the main path's 8 leaf shapes with R = 10 rows (int8 and
+             bf16 each as one grouped launch), with the same timing fields
+             as ``kernel``, the launch floor (a 16-element launch) and, for
+             bf16, one ``x.to(torch.bfloat16)`` over the same elements as a
+             single [10, 206922] tensor; then each kernel once more at a size
+             past the 50 MB L2 (R = 10, N = 4,194,304; stochastic
+             N = 33,554,432), time against its HBM bound;
 5. main_path the paper's experiment through ``FederatedServer.run``:
              10 clients x 200 examples, batch 32, 4 local steps, 8 rounds,
              fedavg(min_fit=0.1), the quickstart chaos schedule, batched
@@ -30,8 +34,8 @@ Run from the repository root. Phases, each printing one JSON line:
 6. profile   device time by kernel over one more main-path run;
 7. compressed
              the same config with the int8, bf16 and topk(0.05) compressors:
-             all 8 rounds, quantize_rows launched once per round and
-             downcast_bf16_rows once per leaf per round, dense == sparse
+             all 8 rounds, quantize_rows launched once per int8 round and
+             downcast_bf16_rows once per bf16 round, dense == sparse
              StatePlane bitwise, compress_plane ==
              per-client compress/decompress bitwise over 3 rounds, s/round
              and device time by kernel;
@@ -273,12 +277,19 @@ NO_LIBRARY = ("no single PyTorch call computes these codes: quantize_per_channel
               "rounds half to even and carries a zero point")
 
 
+# the past-L2 rows: (R, N) per kernel, each call moving 210-302 MB, so no
+# launch finds its inputs in the 50 MB L2 left by the one before
+PAST_L2 = {"quantize_rows": (10, 4_194_304), "downcast_bf16_rows": (10, 4_194_304),
+           "quantize_stochastic": (1, 33_554_432)}
+
+
 def phase_quant_kernels(torch, main_leaf_sizes):
     """Each quantize kernel against its plain version: int8 codes and bf16
     bits must be EQUAL. Main-path rows are the 8 CNN leaves at R = 10 (one
-    compressed round): int8 as one grouped call, bf16 per leaf, summed; the
-    stochastic kernel, off the main path, is timed on the whole flattened
-    CNN (N = 206,922)."""
+    compressed round), int8 and bf16 each as one grouped call, beside the
+    same leaves as 8 one-leaf calls; the stochastic kernel, off the main
+    path, is timed on the whole flattened CNN (N = 206,922). Each kernel is
+    timed once more past L2 (``PAST_L2``) against its HBM bound."""
     from repro_torch.kernels import quantize as qz
     from repro_torch.kernels import ref
 
@@ -292,83 +303,108 @@ def phase_quant_kernels(torch, main_leaf_sizes):
     def rows_case(R, N):
         x = torch.randn(R, N, generator=gen, device=dev) * 2.5
         s = scales_of(x)
-        return (lambda: qz.quantize_rows_flat(x, s), lambda: ref.quantize_rows_ref(x, s),
-                None)
+        return lambda: qz.quantize_rows_flat(x, s), lambda: ref.quantize_rows_ref(x, s)
 
     def bf16_case(R, N):
         x = torch.randn(R, N, generator=gen, device=dev)
-        return (lambda: qz.downcast_bf16_rows_flat(x), lambda: ref.downcast_bf16_rows_ref(x),
-                lambda: x.to(torch.bfloat16))
+        return lambda: qz.downcast_bf16_rows_flat(x), lambda: ref.downcast_bf16_rows_ref(x)
 
     def stochastic_case(R, N):
         x = torch.randn(N, generator=gen, device=dev) * 3.0
         u = torch.rand(N, generator=gen, device=dev)
         scale = torch.clamp(x.abs().max(), min=1e-12) / c127
         return (lambda: qz.quantize_stochastic_flat(x, u, scale),
-                lambda: ref.quantize_stochastic_ref(x, u, scale), None)
+                lambda: ref.quantize_stochastic_ref(x, u, scale))
+
+    def same(got, want):
+        if got.dtype == torch.bfloat16:
+            return torch.equal(got.view(torch.int16), want.view(torch.int16))
+        return torch.equal(got, want)
+
+    # the least time of any launch timed this way: a 16-element downcast
+    tiny = torch.randn(1, 16, generator=gen, device=dev)
+    floor_us = device_us(torch, lambda: qz.downcast_bf16_rows_flat(tiny))
 
     makers = {"quantize_rows": rows_case, "downcast_bf16_rows": bf16_case,
               "quantize_stochastic": stochastic_case}
     cases = [("quantize_rows", 3, N, "reference") for N in (100, 2048, 2049, 9999)]
     cases += [("downcast_bf16_rows", 2, N, "reference") for N in (128, 2050)]
-    cases += [("quantize_stochastic", 1, N, "reference") for N in (100, 4096, 9999)]
-    cases += [("downcast_bf16_rows", 10, N, "main_path") for N in main_leaf_sizes]
+    cases += [("quantize_stochastic", 1, N, "reference") for N in (1, 3, 5, 100, 4096, 4111, 9999)]
     cases += [("quantize_stochastic", 1, sum(main_leaf_sizes), "main_path")]
-    fields = ("us", "wall_us", "plain_us", "library_us")
-    out = {k: {**{f: 0.0 for f in fields}, "bytes": 0, "ops": 0, "max_abs_err": 0.0,
-               "check_launches": 0} for k in makers}
+    cases += [(name, R, N, "past_l2") for name, (R, N) in PAST_L2.items()]
+    out = {k: {"bytes": 0, "ops": 0, "max_abs_err": 0.0, "check_launches": 0,
+               "launch_floor_us": floor_us} for k in makers}
     for name, R, N, group in cases:
-        kernel, plain, library = makers[name](R, N)
+        kernel, plain = makers[name](R, N)
         before = qz.launches[name]
         got, want = kernel(), plain()
         torch.cuda.synchronize()
         out[name]["check_launches"] += qz.launches[name] - before
         check(got.dtype == want.dtype and got.shape == want.shape, f"{name} {R}x{N} output")
-        if got.dtype == torch.bfloat16:
-            equal = torch.equal(got.view(torch.int16), want.view(torch.int16))
-        else:
-            equal = torch.equal(got, want)
+        equal = same(got, want)
         err = float(torch.max(torch.abs(got.float() - want.float())))
         check(equal, f"{name} {R}x{N}: kernel != plain version (max err {err})")
-        row = {"kernel": name, "R": R, "N": N, "group": group, "equal": equal, "max_abs_err": err}
-        if group == "main_path":
-            work = QUANT_WORK[name](R, N)
-            bound, bound_by = bound_us(*work)
-            row.update(us=device_us(torch, kernel), wall_us=wall_us(torch, kernel),
-                       plain_us=device_us(torch, plain),
-                       library_us=device_us(torch, library) if library else None,
-                       bound_us=bound, bound_by=bound_by)
-            acc = out[name]
-            for f in fields:
-                acc[f] = None if row[f] is None else acc[f] + row[f]
-            acc["bytes"] += work[0]
-            acc["ops"] += work[1]
         out[name]["max_abs_err"] = max(out[name]["max_abs_err"], err)
+        row = {"kernel": name, "R": R, "N": N, "group": group, "equal": equal, "max_abs_err": err}
+        if group != "reference":
+            bytes_, ops = QUANT_WORK[name](R, N)
+            bound, bound_by = bound_us(bytes_, ops)
+            us = device_us(torch, kernel)
+            row.update(us=us, bound_us=bound, bound_by=bound_by, bytes=bytes_,
+                       share_of_bound=bound / us)
+        if group == "main_path":  # the stochastic kernel on the flattened CNN
+            row.update(wall_us=wall_us(torch, kernel), plain_us=device_us(torch, plain),
+                       library_us=None, launch_floor_us=floor_us)
+            out[name].update(bytes=row["bytes"], ops=ops,
+                             **{k: row[k] for k in ("us", "wall_us", "plain_us", "library_us")})
+        if group == "past_l2":
+            row["within_2x_of_bound"] = row["us"] <= 2.0 * bound
+            out[name]["past_l2"] = {k: row[k] for k in ("R", "N", "us", "bound_us", "bytes",
+                                                        "share_of_bound", "within_2x_of_bound")}
         emit("quant_kernels", **row)
-    # the main path's int8: one grouped launch over the 8 leaves at R = 10
+
+    def grouped(name, kernel, plain, alone, library=None, library_flat=None):
+        """One main-path round: the 8 leaves in one grouped call (one
+        launch), each leaf equal to the plain version and to itself alone;
+        timed beside the same leaves as 8 one-leaf calls."""
+        before = qz.launches[name]
+        got, want = kernel(), plain()
+        torch.cuda.synchronize()
+        acc = out[name]
+        acc["check_launches"] += qz.launches[name] - before
+        check(qz.launches[name] == before + 1, f"{name}: grouped call launches")
+        equal = all(same(g, w_) for g, w_ in zip(got, want))
+        alone_equal = all(same(g, a()) for g, a in zip(got, alone))
+        check(equal and alone_equal,
+              f"{name} grouped: equal {equal}, alone == grouped {alone_equal}")
+        works = [QUANT_WORK[name](10, N) for N in main_leaf_sizes]
+        acc["bytes"], acc["ops"] = sum(b for b, _ in works), sum(o for _, o in works)
+        bound, bound_by = bound_us(acc["bytes"], acc["ops"])
+        # calls of several launches are timed 20 at a time (see phase_kernel)
+        acc.update(us=device_us(torch, kernel), wall_us=wall_us(torch, kernel),
+                   plain_us=device_us(torch, plain, iters=20),
+                   per_leaf_us=device_us(torch, lambda: [a() for a in alone], iters=20),
+                   library_us=None if library is None else device_us(torch, library, iters=20),
+                   library_flat_us=None if library_flat is None else device_us(torch, library_flat))
+        emit("quant_kernels", kernel=name, R=10, N=main_leaf_sizes, group="main_path",
+             equal=equal, alone_equals_grouped=alone_equal, max_abs_err=0.0, bound_us=bound,
+             bound_by=bound_by, share_of_bound=bound / acc["us"], launch_floor_us=floor_us,
+             **{k: acc[k] for k in ("us", "wall_us", "plain_us", "per_leaf_us", "library_us",
+                                    "library_flat_us")})
+
+    # the main path's int8 and bf16: one grouped launch over the 8 leaves at R = 10
     xs = [torch.randn(10, N, generator=gen, device=dev) * 2.5 for N in main_leaf_sizes]
     ss = [scales_of(x) for x in xs]
-    kernel = lambda: qz.quantize_rows_leaves(xs, ss)
-    plain = lambda: [ref.quantize_rows_ref(x, s) for x, s in zip(xs, ss)]
-    before = qz.launches["quantize_rows"]
-    got, want = kernel(), plain()
-    torch.cuda.synchronize()
-    acc = out["quantize_rows"]
-    acc["check_launches"] += qz.launches["quantize_rows"] - before
-    check(qz.launches["quantize_rows"] == before + 1, "quantize_rows: grouped call launches")
-    equal = all(torch.equal(g, w_) for g, w_ in zip(got, want))
-    alone = all(torch.equal(g, qz.quantize_rows_flat(x, s)) for g, x, s in zip(got, xs, ss))
-    check(equal and alone, f"quantize_rows grouped: codes equal {equal}, alone == grouped {alone}")
-    works = [QUANT_WORK["quantize_rows"](10, N) for N in main_leaf_sizes]
-    acc["bytes"], acc["ops"] = sum(b for b, _ in works), sum(o for _, o in works)
-    bound, bound_by = bound_us(acc["bytes"], acc["ops"])
-    acc.update(us=device_us(torch, kernel), wall_us=wall_us(torch, kernel),
-               plain_us=device_us(torch, plain, iters=20), library_us=None,  # as in phase_kernel
-               per_leaf_us=device_us(torch, lambda: [qz.quantize_rows_flat(x, s)
-                                                     for x, s in zip(xs, ss)], iters=20))
-    emit("quant_kernels", kernel="quantize_rows", R=10, N=main_leaf_sizes, group="main_path",
-         equal=equal, alone_equals_grouped=alone, max_abs_err=0.0, bound_us=bound,
-         bound_by=bound_by, **{k: acc[k] for k in ("us", "wall_us", "plain_us", "per_leaf_us")})
+    grouped("quantize_rows", lambda: qz.quantize_rows_leaves(xs, ss),
+            lambda: [ref.quantize_rows_ref(x, s) for x, s in zip(xs, ss)],
+            [lambda x=x, s=s: qz.quantize_rows_flat(x, s) for x, s in zip(xs, ss)])
+    xs = [torch.randn(10, N, generator=gen, device=dev) for N in main_leaf_sizes]
+    flat = torch.cat(xs, dim=1)  # the same elements as one [10, 206922] tensor
+    grouped("downcast_bf16_rows", lambda: qz.downcast_bf16_rows_leaves(xs),
+            lambda: [ref.downcast_bf16_rows_ref(x) for x in xs],
+            [lambda x=x: qz.downcast_bf16_rows_flat(x) for x in xs],
+            library=lambda: [x.to(torch.bfloat16) for x in xs],
+            library_flat=lambda: flat.to(torch.bfloat16))
 
     # an all-zero row hits the scale clamp and quantizes to exact zeros
     x = torch.stack([torch.zeros(300, device=dev), torch.linspace(-1.0, 1.0, 300, device=dev)])
@@ -397,9 +433,9 @@ def _trees_equal(torch, a, b) -> bool:
 
 def phase_compressed(torch, uncompressed_s_per_round):
     """The quickstart with each plane compressor: all 8 rounds, fedavg_reduce
-    and quantize_rows launched once per round, downcast_bf16_rows once per
-    leaf per round, dense == sparse bitwise, and the plane == the
-    per-client loop bitwise on the card."""
+    launched once per round, quantize_rows once per int8 round and
+    downcast_bf16_rows once per bf16 round, dense == sparse bitwise, and the
+    plane == the per-client loop bitwise on the card."""
     from repro_torch.compress import get_compressor, init_residual_plane
     from repro_torch.utils import tree_stack, tree_unstack
 
@@ -417,7 +453,7 @@ def phase_compressed(torch, uncompressed_s_per_round):
         check(done == MAIN_ROUNDS, f"{name}: {done} of {MAIN_ROUNDS} rounds completed")
         check(acc is not None and acc == acc, f"{name}: accuracy not finite")
         check(counts["fedavg_reduce"] == done, f"{name}: fedavg_reduce launches {counts}")
-        for kern, per_round in (("quantize_rows", 1), ("downcast_bf16_rows", 8)):
+        for kern, per_round in (("quantize_rows", 1), ("downcast_bf16_rows", 1)):
             want = per_round * done if kern == expect_kernel[name] else 0
             for plane in ("dense", "sparse"):
                 got = hists[plane][2][kern]
@@ -643,7 +679,8 @@ def phase_reference_history(torch):
             counts = read_launches()
             got = card.history_record(hist, clients)
             gaps[name] = card.history_gaps(records[name], got)
-            launches[name] = {k: counts[k] for k in ("fedavg_reduce", "quantize_rows")}
+            launches[name] = {k: counts[k] for k in ("fedavg_reduce", "quantize_rows",
+                                                     "downcast_bf16_rows")}
             if not checked:
                 continue
             try:
@@ -653,7 +690,9 @@ def phase_reference_history(torch):
             done = hist.completed_rounds
             agg = done if batched.get(name, True) else 0
             int8 = done if name == "compressed_int8" else 0
-            check(launches[name] == {"fedavg_reduce": agg, "quantize_rows": int8},
+            bf16 = done if name == "compressed_bf16" else 0
+            check(launches[name] == {"fedavg_reduce": agg, "quantize_rows": int8,
+                                     "downcast_bf16_rows": bf16},
                   f"reference_history {name}: launches {launches[name]} for {done} rounds")
         worst = {k: max(g[k] for g in gaps.values()) for k in next(iter(gaps.values()))}
         return gaps, launches, worst
@@ -1076,8 +1115,13 @@ FL_DESIGN = {
     "quantize_rows": "one launch over a leaf table passed by value; 16 elements per thread "
                      "(four 16-byte loads, one 16-byte store) where a leaf is aligned, "
                      "correctly rounded quotient",
-    "downcast_bf16_rows": "grid-stride, one thread per element",
-    "quantize_stochastic": "grid-stride, one thread per element, correctly rounded quotient",
+    "downcast_bf16_rows": "one launch over a leaf table passed by value, each leaf one flat "
+                          "row; four float4 loads a block width apart and 8-byte bf16 stores "
+                          "per thread where a leaf is aligned, else scalar; __float2bfloat16_rn",
+    "quantize_stochastic": "one tile per block, no grid-stride loop; one float4 of x and of u "
+                           "and one 4-byte store of codes per thread, a masked scalar tail, "
+                           "scalar for an unaligned array, the scale once per block, "
+                           "correctly rounded quotient",
 }
 
 
@@ -1199,8 +1243,10 @@ def main() -> int:
         else:
             n = run["launches"][name]
             per_round = n // max(run["completed_rounds"], 1)
-        lib = q["library_us"]
-        return {
+        lib, l2 = q["library_us"], q["past_l2"]
+        if q.get("library_flat_us") is not None:  # one call over the same elements
+            lib = q["library_flat_us"]
+        row = {
             "name": name, "route": "cuda",
             "source": "src/repro_torch/kernels/csrc/quantize.cu", "replaces": replaces,
             "design": FL_DESIGN[name],
@@ -1212,8 +1258,16 @@ def main() -> int:
             "library_note": note,
             "us": q["us"], "wall_us": q["wall_us"], "plain_us": q["plain_us"],
             "library_us": lib, "bound_us": bound, "bytes": q["bytes"],
-            **({"per_leaf_ms": q["per_leaf_us"] / 1e3} if "per_leaf_us" in q else {}),
+            "launch_floor_ms": q["launch_floor_us"] / 1e3,
+            "past_l2_ms": l2["us"] / 1e3, "past_l2_bound_ms": l2["bound_us"] / 1e3,
+            "past_l2_share_of_bound": l2["share_of_bound"],
+            "past_l2_within_2x": l2["within_2x_of_bound"], "past_l2_shape": [l2["R"], l2["N"]],
         }
+        if "per_leaf_us" in q:  # the same leaves as 8 one-leaf launches of the kernel
+            row["per_leaf_ms"] = q["per_leaf_us"] / 1e3
+        if q.get("library_flat_us") is not None:
+            row["library_per_leaf_ms"] = q["library_us"] / 1e3
+        return row
 
     print(json.dumps({"kernels": [{
         "name": "fedavg_reduce",
@@ -1240,7 +1294,8 @@ def main() -> int:
         quant_row("quantize_rows", compressed["int8"], "src/repro/kernels/quantize.py:83",
                   NO_LIBRARY),
         quant_row("downcast_bf16_rows", compressed["bf16"], "src/repro/kernels/quantize.py:112",
-                  "x.to(torch.bfloat16)"),
+                  "one x.to(torch.bfloat16) over the same elements as a single [10, 206922] "
+                  "tensor (library_per_leaf_ms: one call per leaf, 8 calls)"),
         # the whole flattened CNN (N = 206,922), as ops.quantize_tree feeds it
         quant_row("quantize_stochastic", None, "src/repro/kernels/quantize.py:44", NO_LIBRARY),
         *lm_rows(lm, served),

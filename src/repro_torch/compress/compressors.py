@@ -17,7 +17,7 @@ equal at equal inputs.
 
 Row math: top-k is ``torch.topk`` over flattened rows; int8 and bf16 go
 through the ``kernels/quantize.py`` wrappers (the hand-written kernels on
-the card, their plain versions on the CPU), int8 with every leaf in one
+the card, their plain versions on the CPU), each with every leaf in one
 call. int8 rounding is deterministic round-half-up, as in the reference.
 
 ``wire_bytes`` is the exact per-leaf upload size the transport bills;
@@ -206,10 +206,26 @@ def _int8_rows(x2s):
     return [(q.float() * scale[:, None], q, scale) for q, scale in zip(qs, scales)]
 
 
-def _bf16_rows(x2):
-    """bf16 downcast per row: returns (deq2 [R, n] f32, b bf16)."""
-    b = kernel_ops.downcast_bf16_rows(x2)
-    return b.float(), b
+def _bf16_rows(x2s):
+    """bf16 downcast over a list of [R, n_l] blocks, one kernel launch for
+    all of them: returns [(deq2 [R, n_l] f32, b bf16)]."""
+    return [(b.float(), b) for b in kernel_ops.downcast_bf16_rows_leaves(x2s)]
+
+
+def _grouped_compress(delta, residual, rows_fn, payload_of):
+    """Sequential compress (R = 1) through a grouped row primitive: every
+    leaf's x2 first, then one ``rows_fn(x2s) -> [(deq2, ...)]`` call over
+    all of them (one launch, as the plane does); ``payload_of(d, row)``
+    builds a leaf's payload from its ``rows_fn`` entry."""
+    ds = tree_leaves(delta)
+    rs = tree_leaves(residual) if residual is not None else [None] * len(ds)
+    x2s = [_with_residual(d, r).reshape(1, -1) for d, r in zip(ds, rs)]
+    rows = rows_fn(x2s)
+    return (
+        tree_unflatten(delta, [payload_of(d, row) for d, row in zip(ds, rows)]),
+        tree_unflatten(delta, [(x2 - row[0]).reshape(d.shape)
+                               for d, x2, row in zip(ds, x2s, rows)]),
+    )
 
 
 # ---------------------------------------------------------------------------
@@ -298,15 +314,9 @@ def int8_compressor() -> Compressor:
     deterministic round-half-up, bitwise equal to the reference's codes."""
 
     def compress(delta, residual):
-        ds = tree_leaves(delta)
-        rs = tree_leaves(residual) if residual is not None else [None] * len(ds)
-        x2s = [_with_residual(d, r).reshape(1, -1) for d, r in zip(ds, rs)]
-        rows = _int8_rows(x2s)  # every leaf in one launch, as the plane does
-        return (
-            tree_unflatten(delta, [{"q": q[0].reshape(d.shape), "scale": scale[0]}
-                                   for d, (_, q, scale) in zip(ds, rows)]),
-            tree_unflatten(delta, [(x2 - deq2).reshape(d.shape)
-                                   for d, x2, (deq2, _, _) in zip(ds, x2s, rows)]),
+        return _grouped_compress(
+            delta, residual, _int8_rows,
+            lambda d, row: {"q": row[1][0].reshape(d.shape), "scale": row[2][0]},
         )
 
     def decompress(payload):
@@ -330,12 +340,8 @@ def bf16_compressor() -> Compressor:
     soaking up the dropped mantissa bits."""
 
     def compress(delta, residual):
-        def one(d, r):
-            x2 = _with_residual(d, r).reshape(1, -1)
-            deq2, b = _bf16_rows(x2)
-            return {"bf16": b[0].reshape(d.shape)}, (x2 - deq2).reshape(d.shape)
-
-        return _leafwise(delta, residual, one)
+        return _grouped_compress(delta, residual, _bf16_rows,
+                                 lambda d, row: {"bf16": row[1][0].reshape(d.shape)})
 
     def decompress(payload):
         return _payload_map(lambda p: p["bf16"].float(), payload, "bf16")
@@ -345,7 +351,7 @@ def bf16_compressor() -> Compressor:
         compress,
         decompress,
         lambda t: 2 * tree_size(t),
-        compress_plane=_plane_compress_fn(lambda x2s: [_bf16_rows(x2)[0] for x2 in x2s]),
+        compress_plane=_plane_compress_fn(lambda x2s: [deq2 for deq2, _ in _bf16_rows(x2s)]),
         fingerprint=("bf16",),
     )
 

@@ -83,6 +83,13 @@ def downcast_bf16_rows(x: torch.Tensor) -> torch.Tensor:
     return downcast_bf16_rows_flat(x.float().contiguous())
 
 
+def downcast_bf16_rows_leaves(xs):
+    """``downcast_bf16_rows`` over every leaf of a tree at once: xs [R, n_l]
+    per leaf, in ``tree_leaves`` order -> bf16 [R, n_l] per leaf. One kernel
+    launch for all of them (per ``MAX_LEAVES`` leaves)."""
+    return _quantize.downcast_bf16_rows_leaves([x.float().contiguous() for x in xs])
+
+
 def dequantize_tree(payload, template):
     _, meta = flatten_to_vector(template)
     return unflatten_from_vector(dequantize_flat(payload["q"], payload["scale"]), meta)

@@ -1,11 +1,11 @@
 """int8 / bf16 quantization for the compression front-end (the port of
 ``repro/kernels/quantize.py``).
 
-- ``quantize_rows_leaves`` / ``quantize_rows_flat`` /
-  ``downcast_bf16_rows_flat``: row-stacked int8 (per-row scales,
-  deterministic round-half-up; every leaf of a tree in one launch) and bf16
-  for the plane compressors, bitwise equal to sequential per-client
-  compression;
+- ``quantize_rows_leaves`` / ``quantize_rows_flat`` and
+  ``downcast_bf16_rows_leaves`` / ``downcast_bf16_rows_flat``: row-stacked
+  int8 (per-row scales, deterministic round-half-up) and bf16 for the plane
+  compressors, every leaf of a tree in one launch, bitwise equal to
+  sequential per-client compression;
 - ``quantize_stochastic_flat``: per-tensor int8 with stochastic rounding,
   the uniform bits supplied by the caller.
 
@@ -38,7 +38,7 @@ MAX_LEAVES = 64  # csrc/quantize.cu: kMaxLeaves
 _P = ctypes.c_void_p
 _ARGTYPES = {
     "quantize_rows": [_P, _P],
-    "downcast_bf16_rows": [_P, _P, ctypes.c_longlong, _P],
+    "downcast_bf16_rows": [_P, _P],
     "quantize_stochastic": [_P, _P, _P, _P, ctypes.c_longlong, _P],
 }
 _entries: Dict[str, Callable] = {}
@@ -52,6 +52,15 @@ class _RowsLeaf(ctypes.Structure):  # csrc/quantize.cu: RowsLeaf
 
 class _RowsTable(ctypes.Structure):  # csrc/quantize.cu: RowsTable
     _fields_ = [("leaf", _RowsLeaf * MAX_LEAVES), ("count", ctypes.c_int)]
+
+
+class _CastLeaf(ctypes.Structure):  # csrc/quantize.cu: CastLeaf
+    _fields_ = [("x", _P), ("out", _P), ("n", ctypes.c_longlong), ("first_block", ctypes.c_int),
+                ("vec", ctypes.c_int)]
+
+
+class _CastTable(ctypes.Structure):  # csrc/quantize.cu: CastTable
+    _fields_ = [("leaf", _CastLeaf * MAX_LEAVES), ("count", ctypes.c_int)]
 
 
 def _launch(name: str, device: torch.device, *args) -> None:
@@ -106,12 +115,7 @@ def quantize_rows_leaves(xs: Sequence[torch.Tensor],
         )
     if not xs or not _on_cuda("quantize_rows", *xs, *scales):
         return [quantize_rows_ref(x, s) for x, s in zip(xs, scales)]
-    offsets, total = [], 0
-    for x in xs:
-        offsets.append(total)
-        total += -(-x.numel() // 16) * 16
-    buf = torch.empty(total, dtype=torch.int8, device=xs[0].device)
-    qs = [buf[o:o + x.numel()].view(x.shape) for o, x in zip(offsets, xs)]
+    qs = _packed_outputs(xs, torch.int8)
     work = [(x, s, q) for x, s, q in zip(xs, scales, qs) if q.numel()]
     for start in range(0, len(work), MAX_LEAVES):
         chunk = work[start:start + MAX_LEAVES]
@@ -123,6 +127,18 @@ def quantize_rows_leaves(xs: Sequence[torch.Tensor],
     return qs
 
 
+def _packed_outputs(xs: Sequence[torch.Tensor], dtype: torch.dtype) -> List[torch.Tensor]:
+    """One output buffer of ``dtype`` for all leaves, returned as a view per
+    leaf shaped like it, each starting 16-byte aligned."""
+    step = 16 // torch.empty((), dtype=dtype).element_size()
+    offsets, total = [], 0
+    for x in xs:
+        offsets.append(total)
+        total += -(-x.numel() // step) * step
+    buf = torch.empty(total, dtype=dtype, device=xs[0].device)
+    return [buf[o:o + x.numel()].view(x.shape) for o, x in zip(offsets, xs)]
+
+
 def quantize_rows_flat(x: torch.Tensor, scales: torch.Tensor) -> torch.Tensor:
     """x [R, N] f32, scales [R] (per-row quantum) -> int8 [R, N]:
     clip(floor(x / scale_r + 0.5), -127, 127). A one-leaf table through the
@@ -130,16 +146,35 @@ def quantize_rows_flat(x: torch.Tensor, scales: torch.Tensor) -> torch.Tensor:
     return quantize_rows_leaves([x], [scales])[0]
 
 
+def downcast_bf16_rows_leaves(xs: Sequence[torch.Tensor]) -> List[torch.Tensor]:
+    """xs: leaves [R_l, n_l] f32 -> bf16 [R_l, n_l] per leaf (round to
+    nearest even).
+
+    One launch per ``MAX_LEAVES`` leaves with elements; the values share
+    one bf16 buffer, each leaf starting 16-byte aligned."""
+    if any(x.ndim != 2 for x in xs):
+        raise ValueError(
+            f"downcast_bf16_rows: need each x [R, n], got {[tuple(x.shape) for x in xs]}"
+        )
+    if not xs or not _on_cuda("downcast_bf16_rows", *xs):
+        return [downcast_bf16_rows_ref(x) for x in xs]
+    outs = _packed_outputs(xs, torch.bfloat16)
+    work = [(x, o) for x, o in zip(xs, outs) if o.numel()]
+    for start in range(0, len(work), MAX_LEAVES):
+        chunk = work[start:start + MAX_LEAVES]
+        table = _CastTable(count=len(chunk))
+        for slot, (x, o) in zip(table.leaf, chunk):
+            slot.x, slot.out, slot.n = x.data_ptr(), o.data_ptr(), x.numel()
+        _launch("downcast_bf16_rows", xs[0].device, ctypes.addressof(table))
+    return outs
+
+
 def downcast_bf16_rows_flat(x: torch.Tensor) -> torch.Tensor:
-    """x [R, N] f32 -> bf16 [R, N] (round to nearest even)."""
+    """x [R, N] f32 -> bf16 [R, N] (round to nearest even). A one-leaf
+    table through the same kernel."""
     if x.ndim != 2:
         raise ValueError(f"downcast_bf16_rows_flat: need x [R, N], got {tuple(x.shape)}")
-    if not _on_cuda("downcast_bf16_rows_flat", x):
-        return downcast_bf16_rows_ref(x)
-    out = torch.empty(x.shape, dtype=torch.bfloat16, device=x.device)
-    if out.numel():
-        _launch("downcast_bf16_rows", x.device, x.data_ptr(), out.data_ptr(), x.numel())
-    return out
+    return downcast_bf16_rows_leaves([x])[0]
 
 
 def quantize_stochastic_flat(x: torch.Tensor, uniform: torch.Tensor, scale) -> torch.Tensor:

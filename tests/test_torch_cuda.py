@@ -9,6 +9,7 @@ where only the port is installed:
 import pytest
 import torch
 
+from repro_torch.compress import get_compressor
 from repro_torch.kernels import fedavg_reduce as fr
 from repro_torch.kernels import flash_attention as fa
 from repro_torch.kernels import ops
@@ -185,6 +186,68 @@ def test_quantize_rows_leaves_unaligned_zero_size_and_long_table(device):
     _grouped_codes_equal(xs, 1)
     xs = [_rows(2, 1 + 53 * i, device, seed=i) for i in range(qz.MAX_LEAVES + 5)]
     _grouped_codes_equal(xs, 2)
+
+
+def _grouped_bits_equal(xs, launches):
+    before = qz.launches["downcast_bf16_rows"]
+    got = qz.downcast_bf16_rows_leaves(xs)
+    torch.cuda.synchronize()
+    assert qz.launches["downcast_bf16_rows"] == before + launches
+    for x, b in zip(xs, got):
+        assert b.dtype == torch.bfloat16 and b.shape == x.shape
+        assert torch.equal(b.view(torch.int16), downcast_bf16_rows_ref(x).view(torch.int16))
+        alone = qz.downcast_bf16_rows_flat(x)  # alone == among others
+        assert torch.equal(b.view(torch.int16), alone.view(torch.int16))
+
+
+@pytest.mark.parametrize("sizes", [CNN_LEAVES, RAGGED_LEAVES], ids=["cnn", "ragged"])
+def test_downcast_bf16_rows_leaves_bits_equal_plain(device, sizes):
+    _grouped_bits_equal([_rows(10, n, device, seed=i) for i, n in enumerate(sizes)], 1)
+
+
+def test_downcast_bf16_rows_leaves_unaligned_zero_size_and_long_table(device):
+    xs = [_unaligned(3, 4096, device), _rows(3, 0, device), _rows(3, 2048, device, seed=1),
+          _unaligned(5, 1000, device, seed=2), _rows(1, 17, device, seed=3),
+          _unaligned(10, 10, device, seed=4)]
+    _grouped_bits_equal(xs, 1)
+    xs = [_rows(2, 1 + 53 * i, device, seed=i) for i in range(qz.MAX_LEAVES + 1)]
+    _grouped_bits_equal(xs, 2)
+    before = qz.launches["downcast_bf16_rows"]
+    assert qz.downcast_bf16_rows_leaves([_rows(4, 0, device)])[0].shape == (4, 0)
+    assert qz.launches["downcast_bf16_rows"] == before
+
+
+def test_bf16_compressor_is_one_launch_per_call(device):
+    tree = {"a": {"w": _rows(1, 4608, device).view(3, 3, 16, 32), "b": _rows(1, 32, device)[0]},
+            "c": _rows(1, 10, device, seed=2)[0]}
+    comp = get_compressor("bf16")
+    before = qz.launches["downcast_bf16_rows"]
+    payload, res = comp.compress(tree, None)
+    torch.cuda.synchronize()
+    assert qz.launches["downcast_bf16_rows"] == before + 1
+    for path in (("a", "w"), ("a", "b"), ("c",)):
+        x, p, r = tree, payload, res
+        for k in path:
+            x, p, r = x[k], p[k], r[k]
+        want = downcast_bf16_rows_ref(x.reshape(1, -1)).reshape(x.shape)
+        assert torch.equal(p["bf16"].view(torch.int16), want.view(torch.int16))
+        assert torch.equal(r, x - want.float())
+
+
+@pytest.mark.parametrize("offset", [False, True], ids=["aligned", "offset"])
+@pytest.mark.parametrize("N", [1, 3, 4, 5, 4111, 206922])
+def test_quantize_stochastic_kernel_ragged_and_unaligned(device, N, offset):
+    g = torch.Generator(device=device).manual_seed(N)
+    x = (torch.randn(N + 1, generator=g, device=device) * 3.0)[int(offset):][:N]
+    u = torch.rand(N + 1, generator=g, device=device)[int(offset):][:N]
+    assert (x.data_ptr() % 16 == 0) != offset
+    scale = torch.clamp(x.abs().max(), min=1e-12) / torch.tensor(127.0, device=device)
+    before = qz.launches["quantize_stochastic"]
+    got = qz.quantize_stochastic_flat(x, u, scale)
+    torch.cuda.synchronize()
+    assert qz.launches["quantize_stochastic"] == before + 1
+    assert got.dtype == torch.int8 and got.shape == (N,)
+    assert torch.equal(got, quantize_stochastic_ref(x, u, scale))
 
 
 # the main path's CNN leaf sizes (conv1.b .. fc2.w) and the reference sweeps
