@@ -14,7 +14,8 @@ Run from the repository root. Phases, each printing one JSON line:
 3. kernel    fedavg_reduce against its plain PyTorch version on the card, at
              the reference test shapes and as the main path calls it (one
              grouped launch over the CNN's 8 leaves), with device time,
-             plain time, library time and the HBM/FLOP bound;
+             plain time, library time and the HBM/FLOP bound; once more past
+             the 50 MB L2 ([10, 4,194,304] f32) against its HBM bound;
 4. quant_kernels
              the three quantize kernels against their plain versions, codes
              and bf16 bits equal (not close), at the reference sweep sizes
@@ -52,7 +53,26 @@ Run from the repository root. Phases, each printing one JSON line:
              1e-3; then the same runs and a profiled quickstart with the
              task's TF32 guard bypassed, reported and not checked (what a
              run without the guard would give);
-11. lm_kernels
+11. grid_rows one row's delta and metrics at dispatch widths 1, 3, 12, 24 and
+             64 and at the first, middle and last position, with and without
+             the prox term: the same bits (the plane runs every dispatch as
+             fixed-width row chunks); the same with each dispatch as one call
+             of its own width, and the chunks' cost at 64 rows, reported;
+12. grid      the full fig3 grid (10 delays x DEFAULT / TUNED_EDGE, 20 points, 8
+             rounds) through ``run_fl_grid`` against 20 per-point batched runs:
+             every History and the final params bitwise, timed in turns
+             (grid, per-point, per-point, grid), ``GridStats``, fedavg_reduce
+             once per aggregating point-round; then the compressed grid
+             (int8, bf16, topk 0.05; dense and sparse plane) against its
+             per-point twins, quantize_rows / downcast_bf16_rows once per
+             computed compression (``grid_compressed``);
+13. paper_sweeps
+             fig3, fig4, fig5 and tuned_vs_default through
+             ``repro_torch.experiments`` at full width on the card, table3,
+             figs 6-8 and the adaptive daemon, each with its reference
+             threshold asserts; each sweep's rows and wall time; then
+             ``grid_phases``, the seconds of phases 11-13;
+14. lm_kernels
              flash_attention and swiglu against their plain versions on the
              card: the reference sweeps, serving lengths, bf16 windows, both
              sides of the GQA packing boundary (G * Sq = 64, 65), the
@@ -62,12 +82,12 @@ Run from the repository root. Phases, each printing one JSON line:
              ``kernel`` and one PyTorch call's time; the share of the bf16
              swiglu's time that its cross-block reduction takes (the
              kernel built again with ``-DSWIGLU_NO_REDUCE``);
-12. serve     ``Server("qwen3-8b", reduced=False)`` on the card, params from a
+15. serve     ``Server("qwen3-8b", reduced=False)`` on the card, params from a
              seeded generator: serve.py:main's 8 requests (batch 4, 12 new
              tokens each); launches asserted per prefill and per decode step;
              prefill ms, decode ms per step, tokens/s, peak memory, and the
              device-idle share of one profiled run (``serve_profile``);
-13. full_width
+16. full_width
              a 2-layer model at Qwen3-8B's full widths with the served
              params: one prefill and three decode steps on the card
              (kernels) and on the CPU (plain versions, fed the card's
@@ -250,6 +270,25 @@ def phase_kernel(torch, main_leaf_sizes):
     emit("kernel", C=10, N=main_leaf_sizes, dtype="float32", group="main_path",
          max_abs_err=err, alone_equals_grouped=alone_equal, bound_us=bound, bound_by=bound_by,
          **main)
+    # past the 50 MB L2: one call moving 185 MB, so no launch finds its
+    # inputs in the cache left by the one before; time against its HBM bound
+    C, N = FEDAVG_PAST_L2
+    x = torch.randn(C, N, generator=gen, device=dev)
+    w = torch.rand(C, generator=gen, device=dev) + 0.05
+    w = w / w.sum()
+    got = fr.fedavg_reduce_flat(x, w)
+    l2_err = float(torch.max(torch.abs(got - fedavg_reduce_ref(x, w))))
+    check(l2_err <= tol[torch.float32], f"fedavg_reduce {C}x{N}: max err {l2_err}")
+    max_err = max(max_err, l2_err)
+    l2_bytes, l2_flops = fedavg_work(C, N, 4)
+    l2_bound, l2_bound_by = bound_us(l2_bytes, l2_flops)
+    l2_us = device_us(torch, lambda: fr.fedavg_reduce_flat(x, w))
+    main["past_l2"] = {"C": C, "N": N, "us": l2_us, "bound_us": l2_bound, "bytes": l2_bytes,
+                       "share_of_bound": l2_bound / l2_us,
+                       "within_2x_of_bound": l2_us <= 2.0 * l2_bound}
+    emit("kernel", C=C, N=N, dtype="float32", group="past_l2", max_abs_err=l2_err,
+         bound_by=l2_bound_by, **{k: v for k, v in main["past_l2"].items() if k not in ("C", "N")})
+    del x, got
     # C = 1 identity and weight-scale invariance through the tree wrapper
     x = torch.randn(1, 3000, generator=gen, device=dev)
     ident = ops.fedavg_reduce({"x": x}, torch.tensor([17.0], device=dev))["x"]
@@ -276,6 +315,9 @@ QUANT_WORK = {
 NO_LIBRARY = ("no single PyTorch call computes these codes: quantize_per_channel "
               "rounds half to even and carries a zero point")
 
+
+# fedavg_reduce past L2: [C, N] f32, one call moving 185 MB
+FEDAVG_PAST_L2 = (10, 4_194_304)
 
 # the past-L2 rows: (R, N) per kernel, each call moving 210-302 MB, so no
 # launch finds its inputs in the 50 MB L2 left by the one before
@@ -718,6 +760,263 @@ def phase_reference_history(torch):
 
 
 # --------------------------------------------------------------------------
+# the grid engine and the paper's sweeps
+# --------------------------------------------------------------------------
+
+GRID_ROW_WIDTHS = (1, 3, 12, 24, 64)
+GRID_COMPRESSORS = ("int8", "bf16", "topk:0.05")
+
+
+def _same_bits(torch, a, b) -> bool:
+    """Equal bits: dataclasses, dicts, sequences, tensors, floats (nan equal
+    to nan) and other scalars."""
+    import dataclasses
+    import math
+
+    if dataclasses.is_dataclass(a):
+        return type(a) is type(b) and all(
+            _same_bits(torch, getattr(a, f.name), getattr(b, f.name))
+            for f in dataclasses.fields(a))
+    if isinstance(a, dict):
+        return a.keys() == b.keys() and all(_same_bits(torch, a[k], b[k]) for k in a)
+    if isinstance(a, (list, tuple)):
+        return len(a) == len(b) and all(_same_bits(torch, x, y) for x, y in zip(a, b))
+    if isinstance(a, torch.Tensor):
+        return isinstance(b, torch.Tensor) and torch.equal(a, b)
+    if isinstance(a, float) and math.isnan(a):
+        return isinstance(b, float) and math.isnan(b)
+    return type(a) is type(b) and a == b
+
+
+def _plain(x):
+    """Rows as JSON: nan as null, tuples as lists."""
+    if isinstance(x, float) and x != x:
+        return None
+    if isinstance(x, dict):
+        return {k: _plain(v) for k, v in x.items()}
+    if isinstance(x, (list, tuple)):
+        return [_plain(v) for v in x]
+    return x
+
+
+def phase_grid_rows(torch):
+    """Row independence on the card: one row's delta and metrics at dispatch
+    widths 1, 3, 12, 24 and 64, at the first, middle and last position,
+    beside rows from another anchor, with and without the prox term, must
+    be the same bits (the plane runs every dispatch as chunks of
+    ``_ROW_CHUNK`` rows). The same comparison with each dispatch run as one
+    call of its own width (the port before the chunks) is reported, not
+    checked; so is the chunks' cost at 64 rows, timed in turns."""
+    import numpy as np
+
+    from repro_torch.core import EdgeClient, bucket_rows, mnist_cnn_task
+    from repro_torch.core import client as client_mod
+    from repro_torch.data import make_federated_mnist
+    from repro_torch.utils import tree_leaves
+
+    task = mnist_cnn_task()
+    clients = [EdgeClient(i, dataset=s)
+               for i, s in enumerate(make_federated_mnist(10, 200, seed=0))]
+    rows = list(zip(clients, task.plan_fit(clients, 4, np.random.default_rng(3))))
+    anchors = [task.init_fn(torch.Generator().manual_seed(s)) for s in (0, 1)]
+    target, chunk = rows[3], client_mod._ROW_CHUNK
+
+    def fit(rs, aidx, mu, one_call):
+        client_mod._ROW_CHUNK = bucket_rows(len(rs)) if one_call else chunk
+        try:
+            return task.fit_rows(anchors, rs, 4, [mu] * len(rs), mu > 0, anchor_idx=aidx)
+        finally:
+            client_mod._ROW_CHUNK = chunk
+
+    equal = {"chunked": {}, "one_call": {}}
+    variants = {"chunked": {}, "one_call": {}}  # distinct bits of the row over its placements
+    for mu in (0.0, 0.01):
+        for mode in equal:
+            want, _, want_m = fit([target], [1], mu, mode == "one_call")
+            seen = set()
+            for w in GRID_ROW_WIDTHS:
+                for pos in sorted({0, w // 2, w - 1}):
+                    rs = [rows[(k * 7) % len(rows)] for k in range(w)]
+                    aidx = [k % 2 for k in range(w)]
+                    rs[pos], aidx[pos] = target, 1
+                    plane, _, mets = fit(rs, aidx, mu, mode == "one_call")
+                    same = mets[pos] == want_m[0] and all(
+                        torch.equal(a[pos], b[0])
+                        for a, b in zip(tree_leaves(plane), tree_leaves(want)))
+                    equal[mode][f"mu={mu} width={w} pos={pos}"] = same
+                    seen.add(b"".join(a[pos].cpu().numpy().tobytes()
+                                      for a in tree_leaves(plane)))
+            variants[mode][f"mu={mu}"] = len(seen)
+    bad = [k for k, v in equal["chunked"].items() if not v]
+    check(not bad, f"grid_rows: a row's bits move with its dispatch: {bad}")
+
+    rs = [rows[k % len(rows)] for k in range(64)]
+    aidx = [0] * 64
+    wall = {"chunked": [], "one_call": []}
+    for mode in ("chunked", "one_call", "one_call", "chunked"):  # in turns
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fit(rs, aidx, 0.0, mode == "one_call")
+        torch.cuda.synchronize()
+        wall[mode].append(time.perf_counter() - t0)
+    emit("grid_rows", row_chunk=chunk, widths=GRID_ROW_WIDTHS, chunked_all_equal=True,
+         one_call_all_equal=all(equal["one_call"].values()),
+         one_call_unequal=[k for k, v in equal["one_call"].items() if not v],
+         distinct_bit_patterns=variants, fit_rows_64_wall_s=wall)
+
+
+def _grid_run(torch, task, points, eval_data):
+    """``run_fl_grid`` with every kernel's launch count set to 0 just before
+    and read just after: (result, wall s, launches by kernel)."""
+    from repro_torch.core import run_fl_grid
+
+    torch.cuda.synchronize()
+    reset_launches()
+    t0 = time.perf_counter()
+    res = run_fl_grid(task, points, eval_data=eval_data)
+    torch.cuda.synchronize()
+    return res, time.perf_counter() - t0, read_launches()
+
+
+def _per_point_runs(torch, task, points, eval_data):
+    """Each point through its own batched ``FederatedServer.run``: (servers,
+    wall s)."""
+    from repro_torch.core import FederatedServer
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    servers = []
+    for p in points:
+        srv = FederatedServer(task, p.clients, p.strategy, tcp=p.tcp, chaos=p.chaos,
+                              config=p.config, compressor=p.compressor, eval_data=eval_data)
+        srv.run()
+        servers.append(srv)
+    torch.cuda.synchronize()
+    return servers, time.perf_counter() - t0
+
+
+def _check_grid_equals_per_point(torch, what, grid_servers, servers):
+    for i, (g, s) in enumerate(zip(grid_servers, servers)):
+        check(_same_bits(torch, g.history, s.history), f"{what}: point {i} History differs")
+        check(_same_bits(torch, g.global_params, s.global_params),
+              f"{what}: point {i} final params differ")
+
+
+def phase_grid(torch):
+    """The full fig3 grid (10 delays x DEFAULT / TUNED_EDGE, 20 points, 8
+    rounds, full width) through ``run_fl_grid`` against 20 per-point
+    batched runs: every History and the final params bitwise, timed as an
+    A/B in turns (grid, per-point, per-point, grid); fedavg_reduce launched
+    once per aggregating point-round. Then the compressed grid (int8, bf16,
+    topk 0.05; dense and sparse state plane) against its per-point twins,
+    with quantize_rows (int8) and downcast_bf16_rows (bf16) launched once
+    per computed compression (``GridStats.compress_computed``)."""
+    import dataclasses
+
+    from repro_torch.experiments import common, fig3_latency
+
+    task, eval_data = common._shared_task("cuda"), common._shared_eval_data()
+    _, kwargs = fig3_latency.sweep_points()
+    make = lambda **extra: [common._make_point(**kw, **extra) for kw in kwargs]  # noqa: E731
+    grids, per_point = [], []
+    for engine in ("grid", "per_point", "per_point", "grid"):  # in turns
+        if engine == "grid":
+            grids.append(_grid_run(torch, task, make(), eval_data))
+        else:
+            per_point.append(_per_point_runs(torch, task, make(), eval_data))
+    for res, _, counts in grids:
+        _check_grid_equals_per_point(torch, "grid", res.servers, per_point[0][0])
+        aggregating = sum(h.completed_rounds for h in res.histories)
+        check(counts["fedavg_reduce"] == aggregating,
+              f"grid: {counts['fedavg_reduce']} fedavg_reduce launches for {aggregating} "
+              "aggregating point-rounds")
+    res, _, counts = grids[0]
+    n = len(kwargs)
+    out = {"points": n, "rounds": common.ROUNDS, "stats": dataclasses.asdict(res.stats),
+           "grid_wall_s": [w for _, w, _ in grids], "per_point_wall_s": [w for _, w in per_point],
+           "grid_s_per_point": [w / n for _, w, _ in grids],
+           "per_point_s_per_point": [w / n for _, w in per_point],
+           "fit_rows_unique_share": res.stats.fit_rows_unique / res.stats.fit_rows_total,
+           "launches": {k: counts[k] for k in ("fedavg_reduce", "quantize_rows",
+                                               "downcast_bf16_rows")},
+           "aggregating_point_rounds": sum(h.completed_rounds for h in res.histories),
+           "grid_equals_per_point": True}
+    emit("grid", **out)
+
+    compressed = {}
+    for spec in GRID_COMPRESSORS:
+        name = spec.partition(":")[0]
+        for plane in ("dense", "sparse"):
+            res, wall, counts = _grid_run(
+                torch, task, make(compressor=spec, state_plane=plane), eval_data)
+            servers, pp_wall = _per_point_runs(
+                torch, task, make(compressor=spec, state_plane=plane), eval_data)
+            _check_grid_equals_per_point(torch, f"grid {spec} {plane}", res.servers, servers)
+            s = res.stats
+            want = {"fedavg_reduce": sum(h.completed_rounds for h in res.histories),
+                    "quantize_rows": s.compress_computed if name == "int8" else 0,
+                    "downcast_bf16_rows": s.compress_computed if name == "bf16" else 0}
+            got = {k: counts[k] for k in want}
+            check(got == want, f"grid {spec} {plane}: launches {got}, expected {want}")
+            compressed[f"{spec} {plane}"] = {
+                "grid_wall_s": wall, "per_point_wall_s": pp_wall,
+                "grid_s_per_point": wall / n, "per_point_s_per_point": pp_wall / n,
+                "stats": dataclasses.asdict(s), "launches": got}
+    emit("grid_compressed", points=n, equal_to_per_point=True, runs=compressed)
+    out["compressed"] = compressed
+    return out
+
+
+def phase_paper_sweeps(torch):
+    """The paper's sweeps through ``repro_torch.experiments`` at full width on
+    the card, each with its reference thresholds (``assert`` in each
+    ``main``): fig3, fig4, fig5 and tuned_vs_default through the grid
+    engine (fedavg_reduce launched in each), table3, figs 6-8 and the
+    adaptive daemon."""
+    import contextlib
+    import io
+
+    from repro_torch.experiments import (
+        adaptive_daemon,
+        fig3_latency,
+        fig4_loss,
+        fig5_client_failure,
+        fig678_tcp_params,
+        table3_boundaries,
+        tuned_vs_default,
+    )
+
+    check(__debug__, "paper_sweeps: the sweeps' thresholds are asserts, and python -O drops them")
+    sweeps = [
+        ("fig3_latency", lambda: fig3_latency.main(device="cuda"), True),
+        ("fig4_loss", lambda: fig4_loss.main(device="cuda"), True),
+        ("fig5_client_failure", lambda: fig5_client_failure.main(device="cuda"), True),
+        ("tuned_vs_default", lambda: tuned_vs_default.main(device="cuda"), True),
+        ("table3_boundaries", table3_boundaries.main, False),
+        ("fig678_tcp_params", fig678_tcp_params.main, False),
+        ("adaptive_daemon", adaptive_daemon.main, False),
+    ]
+    for name, run, on_card in sweeps:
+        csv = io.StringIO()
+        torch.cuda.synchronize()
+        reset_launches()
+        t0 = time.perf_counter()
+        try:
+            with contextlib.redirect_stdout(csv):
+                rows = run()
+        except AssertionError as e:
+            raise PhaseFailed(f"paper_sweeps {name}: a threshold failed: {e!r}\n"
+                              f"{csv.getvalue()}") from e
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = read_launches()["fedavg_reduce"]
+        check(launches > 0 or not on_card, f"paper_sweeps {name}: no fedavg_reduce launch")
+        emit("paper_sweeps", sweep=name, wall_s=wall, asserts_hold=True,
+             fedavg_reduce_launches=launches, rows=_plain(rows),
+             csv_lines=len(csv.getvalue().splitlines()))
+
+
+# --------------------------------------------------------------------------
 # the LM serving path: flash_attention and swiglu, the Qwen3-8B server
 # --------------------------------------------------------------------------
 
@@ -1012,6 +1311,7 @@ def phase_serve(torch):
         v.clear()
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
+    allocated_before = torch.cuda.memory_allocated()  # held by the server and earlier phases
     reset_launches()
     t0 = time.perf_counter()
     done = server.run(example_requests(cfg.vocab_size))
@@ -1049,7 +1349,7 @@ def phase_serve(torch):
          unsynced_tokens_per_s=n_tok / plain_wall,
          prefills=n_pre, decode_steps=n_dec, prefill_ms=prefill_ms,
          decode_ms_per_step=statistics.mean(decode_ms), decode_ms_median=statistics.median(decode_ms),
-         peak_memory_bytes=peak, launches={k: launches[k] for k in ("flash_attention", "swiglu")},
+         peak_memory_bytes=peak, allocated_before_run_bytes=allocated_before, launches={k: launches[k] for k in ("flash_attention", "swiglu")},
          prompt_lengths=[len(r.prompt) for r in done], first_tokens=[r.generated[:4] for r in done])
     emit("serve_profile", device_busy_us=busy, unsynced_wall_s=plain_wall,
          device_idle_share=1.0 - busy / (plain_wall * 1e6), **by_name, top=top)
@@ -1225,6 +1525,11 @@ def main() -> int:
     phase_engines(torch, runs["DEFAULT"][0])
     phase_headline(torch)
     phase_reference_history(torch)
+    t_grid = time.perf_counter()
+    phase_grid_rows(torch)
+    grid = phase_grid(torch)
+    phase_paper_sweeps(torch)
+    emit("grid_phases", seconds=time.perf_counter() - t_grid)
     from repro_torch.utils import f32_math
 
     with f32_math("cuda"):  # the f32 plain versions as yardsticks in full f32
@@ -1235,7 +1540,7 @@ def main() -> int:
     us = main_kernel
     agg_bound_us, agg_bound_by = bound_us(us["bytes"], us["flops"])
 
-    def quant_row(name, run, replaces, note):
+    def quant_row(name, run, replaces, note, grid_run=None):
         q = quant[name]
         bound, bound_by = bound_us(q["bytes"], q["ops"])
         if run is None:  # off the main path: the quant_kernels phase's checking launches
@@ -1267,6 +1572,9 @@ def main() -> int:
             row["per_leaf_ms"] = q["per_leaf_us"] / 1e3
         if q.get("library_flat_us") is not None:
             row["library_per_leaf_ms"] = q["library_us"] / 1e3
+        if grid_run is not None:  # the compressed fig3 grid, dense plane
+            row["grid_launches"] = grid_run["launches"][name]
+            row["grid_compress_computed"] = grid_run["stats"]["compress_computed"]
         return row
 
     print(json.dumps({"kernels": [{
@@ -1289,13 +1597,22 @@ def main() -> int:
         # the same 8 leaves as 8 one-leaf launches of the same kernel
         "per_leaf_ms": us["per_leaf_us"] / 1e3,
         "library_note": "torch.mv per leaf (8 calls): no single call reduces a tree",
+        "past_l2_ms": us["past_l2"]["us"] / 1e3,
+        "past_l2_bound_ms": us["past_l2"]["bound_us"] / 1e3,
+        "past_l2_share_of_bound": us["past_l2"]["share_of_bound"],
+        "past_l2_within_2x": us["past_l2"]["within_2x_of_bound"],
+        "past_l2_shape": [us["past_l2"]["C"], us["past_l2"]["N"]],
+        # the fig3 grid (20 points, 8 rounds): one launch per aggregating point-round
+        "grid_launches": grid["launches"]["fedavg_reduce"],
+        "grid_aggregating_point_rounds": grid["aggregating_point_rounds"],
     },
         # one compressed round: the 8 CNN leaves at R = 10 (int8 grouped, bf16 summed)
         quant_row("quantize_rows", compressed["int8"], "src/repro/kernels/quantize.py:83",
-                  NO_LIBRARY),
+                  NO_LIBRARY, grid["compressed"]["int8 dense"]),
         quant_row("downcast_bf16_rows", compressed["bf16"], "src/repro/kernels/quantize.py:112",
                   "one x.to(torch.bfloat16) over the same elements as a single [10, 206922] "
-                  "tensor (library_per_leaf_ms: one call per leaf, 8 calls)"),
+                  "tensor (library_per_leaf_ms: one call per leaf, 8 calls)",
+                  grid["compressed"]["bf16 dense"]),
         # the whole flattened CNN (N = 206,922), as ops.quantize_tree feeds it
         quant_row("quantize_stochastic", None, "src/repro/kernels/quantize.py:44", NO_LIBRARY),
         *lm_rows(lm, served),

@@ -1,7 +1,9 @@
-"""Transport-aware federated learning: the synchronous round engine, its
-strategies and the edge-client model."""
+"""Transport-aware federated learning: the synchronous round engine, the
+scenario-parallel grid engine, their strategies and the edge-client
+model."""
 
 from repro_torch.core.client import EdgeClient, LocalTask, bucket_rows, mnist_cnn_task
+from repro_torch.core.grid import GridPoint, GridResult, GridStats, run_fl_grid
 from repro_torch.core.server import (
     FederatedServer,
     FitJob,
@@ -21,6 +23,10 @@ __all__ = [
     "mnist_cnn_task",
     "FederatedServer",
     "FitJob",
+    "GridPoint",
+    "GridResult",
+    "GridStats",
+    "run_fl_grid",
     "PendingRound",
     "derive_rng",
     "ServerConfig",

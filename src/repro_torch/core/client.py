@@ -8,8 +8,9 @@ transport connection state. ``LocalTask`` abstracts the payload.
 The cohort hot path is the *plane* formulation: local SGD for a set of
 (anchor params, client, batch plan) rows runs as one stacked tensor program
 with a leading row axis. Rows are independent — every cross-row operation
-is batch-mapped, never reduced — so a row's result does not depend on how
-rows are grouped. Local steps are a Python loop; the reference's
+is batch-mapped, never reduced, and every dispatch runs as fixed-width row
+chunks (``_ROW_CHUNK``) — so a row's result does not depend on how rows are
+grouped. Local steps are a Python loop; the reference's
 unroll-versus-chunk split is an artefact of its ``jit`` and has no
 counterpart here.
 
@@ -98,6 +99,17 @@ def bucket_rows(n: int) -> int:
     return -(-n // 64) * 64
 
 
+# Every library call of the plane program runs on exactly this many rows.
+# A batched GEMM or a reduction may pick another algorithm, and so another
+# summation order, for another batch count: on the CPU a batch of one takes
+# a different GEMM path than a batch of two. So a dispatch of any width runs
+# as whole chunks of _ROW_CHUNK rows (the last padded with its own first
+# row), and a row's delta is the same bits at every dispatch width and
+# position. 12 is the per-point engine's bucket for the paper's 10 clients,
+# so its dispatches stay one chunk.
+_ROW_CHUNK = 12
+
+
 def _prox_term(params, anchor, dims):
     """sum over leaves (sorted-key order) of ||p - a||^2, reduced over dims."""
     return sum(
@@ -116,14 +128,12 @@ def _plane_sgd_runner(cohort_loss_fn, lr: float):
     gradient in its slice (rows share no parameters). Anchors arrive as a
     stack of UNIQUE params trees [U, ...] plus a per-row gather index [R];
     ``mu`` is a per-row prox coefficient. Clipping is per row; the momentum
-    update is leaf-wise and vectorizes over the row axis unchanged."""
+    update is leaf-wise and vectorizes over the row axis unchanged. The rows
+    run as chunks of ``_ROW_CHUNK`` (see there)."""
     opt = sgd(lr, momentum=0.9)
 
-    def run_rows(uanchor, aidx, batches, mu, use_prox):
-        # uanchor leaves [U, ...]; aidx [R]; batches leaves [R, steps, ...]
-        r, steps = tree_leaves(batches)[0].shape[:2]
-        run_rows.dispatch_widths.append(int(r))
-        run_rows.anchor_widths.append(int(tree_leaves(uanchor)[0].shape[0]))
+    def run_chunk(uanchor, aidx, batches, mu, use_prox):
+        steps = tree_leaves(batches)[0].shape[1]
         anchor = tree_map(lambda l: l.index_select(0, aidx), uanchor)
         stacked = anchor
         opt_state = opt.init(stacked)
@@ -141,6 +151,27 @@ def _plane_sgd_runner(cohort_loss_fn, lr: float):
             stacked = apply_updates(stacked, updates)
         delta = tree_sub(stacked, anchor)
         return delta, {k: v.detach() for k, v in metrics.items()}
+
+    def run_rows(uanchor, aidx, batches, mu, use_prox):
+        # uanchor leaves [U, ...]; aidx [R]; batches leaves [R, steps, ...]
+        r = tree_leaves(batches)[0].shape[0]
+        run_rows.dispatch_widths.append(int(r))
+        run_rows.anchor_widths.append(int(tree_leaves(uanchor)[0].shape[0]))
+        rows = torch.arange(r, device=aidx.device)
+        deltas, metrics = [], []
+        for s in range(0, r, _ROW_CHUNK):
+            sel = rows[s:s + _ROW_CHUNK]
+            n = sel.shape[0]
+            sel = torch.cat([sel, sel[:1].expand(_ROW_CHUNK - n)])  # pad: the chunk's first row
+            delta, mets = run_chunk(
+                uanchor, aidx[sel], tree_map(lambda l: l[sel], batches), mu[sel], use_prox
+            )
+            deltas.append(tree_map(lambda l: l[:n], delta))
+            metrics.append({k: v[:n] for k, v in mets.items()})
+        return (
+            tree_map(lambda *ls: torch.cat(ls, dim=0), *deltas),
+            {k: torch.cat([m[k] for m in metrics]) for k in metrics[0]},
+        )
 
     run_rows.dispatch_widths = []
     run_rows.anchor_widths = []

@@ -230,9 +230,19 @@ class ServerConfig:
             )
 
 
-# stream tags for the split-rng discipline (spawn_key components)
+# stream tags for the split-rng discipline (spawn_key components).
+# _GRID_STREAM seeds the grid engine's SHARED fused-transport stream — a
+# distinct tag so it never collides bitwise with any point's private
+# transport stream (points and grids commonly share seed 0).
 _COHORT_STREAM = 1
 _TRANSPORT_STREAM = 2
+_GRID_STREAM = 3
+# The grid's fused host pass for RELIABILITY points (zero_rtt profile or
+# resume= retry): their stage masks consume the shared numpy stream in a
+# different order, so they get their own tag — pure-TCP restart-from-zero
+# points keep consuming _GRID_STREAM exactly as before the reliability
+# layer existed.
+_GRID_ZR_STREAM = 4
 
 
 def derive_rng(seed: int, stream: int, rnd: int) -> np.random.Generator:
@@ -638,12 +648,22 @@ class FederatedServer:
         maps them to physical buffer rows."""
         return [c.client_id for c in clients]
 
-    def finish_round(self, job: FitJob, stacked, deltas, weights, per_metrics) -> None:
+    def finish_round(
+        self, job: FitJob, stacked, deltas, weights, per_metrics,
+        precompressed: bool = False, fault_checked: bool = False,
+    ) -> None:
         """Fault checks, compression, bookkeeping, aggregation, clock
         advance, eval. A quarantined round is rejected before compression,
         so the residuals never ingest a non-finite delta. Byte accounting
         credits ``job.payload_bytes``, the compressed upload size. Consumes
-        no RNG."""
+        no RNG.
+
+        The grid engine hands in two keywords. ``fault_checked=True``: it
+        already ran the crash and quarantine checks, which must come before
+        its shared compression pass. ``precompressed=True``: it already ran
+        the plane compression (possibly shared across sweep points with
+        equal compression provenance), so ``stacked`` holds decompressed
+        deltas and this server's residual plane is already advanced."""
         cfg = self.config
         rnd = job.rnd
         record = job.record
@@ -651,22 +671,23 @@ class FederatedServer:
         # fault domain, checked before any state mutates: a server crash
         # inside the round span loses the round outright; a non-finite
         # loss/delta rejects it
-        crash = self.chaos.server_restart_in(record.t_start, record.t_start + round_time)
-        if crash is not None:
-            self._abort_round_server_restart(record, crash)
-            return
-        if cfg.quarantine:
-            cause = self._divergence_cause(stacked, deltas, per_metrics)
-            if cause is not None:
-                self._quarantine_round(job, cause)
+        if not fault_checked:
+            crash = self.chaos.server_restart_in(record.t_start, record.t_start + round_time)
+            if crash is not None:
+                self._abort_round_server_restart(record, crash)
                 return
+            if cfg.quarantine:
+                cause = self._divergence_cause(stacked, deltas, per_metrics)
+                if cause is not None:
+                    self._quarantine_round(job, cause)
+                    return
 
         # compression: the plane path keeps the cohort stacked (the
         # delivering rows' residuals are gathered from the StatePlane,
         # compressed and scattered back, bitwise equal to the per-client
         # loop); compressors without a plane twin (randk) and unstacked
         # deltas take the per-client loop
-        if self.compressor.name != "none":
+        if self.compressor.name != "none" and not precompressed:
             plane_fn = self.compressor.compress_plane
             if stacked is not None and plane_fn is not None:
                 plane = self._ensure_residual_plane()

@@ -7,10 +7,23 @@ import dataclasses
 
 import jax
 import numpy as np
+import pytest
 import torch
 
 from repro.models.cnn import cnn_init as ref_cnn_init
 from repro_torch.convert import params_from_numpy
+
+
+@pytest.fixture(scope="module")
+def one_torch_thread():
+    """One intra-op thread for a module's torch work, restored after it.
+    The suite runs several pytest-xdist workers on the same cores; torch's
+    default of one thread per core in each of them oversubscribes the cores
+    and slows every worker's CNN training many times over."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
 
 
 def ref_params_np(seed: int = 0):

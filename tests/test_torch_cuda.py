@@ -552,3 +552,88 @@ def test_swiglu_refuses_bad_inputs(device):
         sw.swiglu_fused(x, w[0].t().contiguous().t(), w[1], w[2])  # not contiguous
     with pytest.raises(ValueError):
         sw.swiglu_fused(x, w[0], w[1], w[2].cpu())
+
+
+# ---------------------------------------------------------------------------
+# the grid engine on the card: row independence and grid == per-point
+# ---------------------------------------------------------------------------
+
+
+def _cnn_rows(device, n_clients=10, examples=200, steps=4):
+    import numpy as np
+
+    from repro_torch.core import EdgeClient, mnist_cnn_task
+    from repro_torch.data import make_federated_mnist
+
+    task = mnist_cnn_task(device=device)
+    shards = make_federated_mnist(n_clients, examples, seed=0)
+    clients = [EdgeClient(i, dataset=s) for i, s in enumerate(shards)]
+    plans = task.plan_fit(clients, steps, np.random.default_rng(3))
+    return task, list(zip(clients, plans))
+
+
+@pytest.mark.parametrize("mu", [0.0, 0.01])
+@pytest.mark.parametrize("width", [1, 3, 12, 24, 64])
+def test_plane_rows_width_and_position_independent_on_the_card(device, width, mu):
+    """A row's delta and metrics are the same bits at every dispatch width
+    and position (cuBLAS batched GEMMs and the per-row reductions of the
+    clip and prox term see one chunk shape whatever the width)."""
+    from repro_torch.utils import tree_leaves
+
+    task, rows = _cnn_rows(device)
+    anchors = [task.init_fn(torch.Generator().manual_seed(s)) for s in (0, 1)]
+    target = rows[3]
+    want, _, want_m = task.fit_rows(anchors, [target], 4, [mu], mu > 0, anchor_idx=[1])
+    for pos in sorted({0, width // 2, width - 1}):
+        rs = [rows[(k * 7) % len(rows)] for k in range(width)]
+        aidx = [k % 2 for k in range(width)]
+        rs[pos], aidx[pos] = target, 1
+        plane, _, mets = task.fit_rows(anchors, rs, 4, [mu] * width, mu > 0, anchor_idx=aidx)
+        for a, b in zip(tree_leaves(plane), tree_leaves(want)):
+            assert torch.equal(a[pos], b[0]), (width, pos)
+        assert mets[pos] == want_m[0]
+
+
+@pytest.mark.parametrize("compressor", [None, "int8", "bf16", "topk:0.05"])
+def test_grid_matches_per_point_on_the_card(device, compressor):
+    """A small latency grid (coalescing, a dead point, both TCP stacks):
+    every History field and the final params equal per-point batched runs
+    on the card, bitwise."""
+    from repro_torch.chaos import ChaosSchedule
+    from repro_torch.compress import get_compressor
+    from repro_torch.core import (
+        EdgeClient, FederatedServer, GridPoint, ServerConfig, fedavg, run_fl_grid,
+    )
+    from repro_torch.data import make_federated_mnist, synthetic_mnist
+    from repro_torch.transport import DEFAULT, LAB, TUNED_EDGE
+    from repro_torch.utils import tree_leaves
+
+    task, _ = _cnn_rows(device, 6, 64, 2)
+    shards = make_federated_mnist(6, 64, seed=0)
+    eval_data = synthetic_mnist(300, seed=77)
+    comp = None
+    if compressor is not None:
+        name, _, arg = compressor.partition(":")
+        comp = get_compressor(name, **({"ratio": float(arg)} if arg else {}))
+    specs = [(DEFAULT, 0.0), (TUNED_EDGE, 0.3), (DEFAULT, 8.0), (TUNED_EDGE, 8.0)]
+
+    def point(tcp, delay):
+        return GridPoint(
+            [EdgeClient(i, dataset=s) for i, s in enumerate(shards)], fedavg(min_fit=0.5), tcp,
+            ChaosSchedule(LAB.replace(delay=delay)),
+            ServerConfig(rounds=3, local_steps=2, seed=0, batched=True), compressor=comp,
+        )
+
+    res = run_fl_grid(task, [point(*s) for s in specs], eval_data=eval_data)
+    assert res.stats.fit_rows_unique < res.stats.fit_rows_total
+    for spec, grid_srv in zip(specs, res.servers):
+        p = point(*spec)
+        srv = FederatedServer(task, p.clients, p.strategy, tcp=p.tcp, chaos=p.chaos,
+                              config=p.config, compressor=comp, eval_data=eval_data)
+        srv.run()
+        assert grid_srv.history.rounds == srv.history.rounds
+        assert grid_srv.history.eval_metrics == srv.history.eval_metrics
+        assert (grid_srv.history.status, grid_srv.history.cause) == (
+            srv.history.status, srv.history.cause)
+        for a, b in zip(tree_leaves(grid_srv.global_params), tree_leaves(srv.global_params)):
+            assert torch.equal(a, b)

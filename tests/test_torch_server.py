@@ -14,6 +14,7 @@ import repro.transport as r_tr
 import repro_torch.chaos as p_chaos
 import repro_torch.core as p_core
 import repro_torch.data as p_data
+import repro_torch.experiments.common as p_experiments
 import repro_torch.transport as p_tr
 
 R_TASK = r_core.mnist_cnn_task()
@@ -80,8 +81,13 @@ def _bare_server(strategy=None):
             chaos=p_chaos.ChaosSchedule(p_tr.LAB), config=p_core.ServerConfig(),
         ), 12),
         (lambda: _bare_server().run(checkpoint_dir="unused"), 10),
+        (lambda: p_core.run_fl_grid(P_TASK, [], checkpoint_dir="unused"), 10),
+        (lambda: p_experiments.run_fl_grid_experiments(
+            [dict(async_mode=True)], device="cpu"), 11),
+        (lambda: p_experiments._make_point(population=1000), 12),
     ],
-    ids=["async", "device_backend", "server_opt", "population", "checkpoint"],
+    ids=["async", "device_backend", "server_opt", "population", "checkpoint",
+         "grid_checkpoint", "grid_async_point", "experiments_population"],
 )
 def test_configs_outside_the_slice_raise(build, item):
     with pytest.raises(NotImplementedError, match=rf"ROADMAP Queue 1, item {item}\)"):
