@@ -45,14 +45,15 @@ Run from the repository root. Phases, each printing one JSON line:
 9. headline  6 s one-way delay: DEFAULT completes 0 rounds, TUNED_EDGE all 4
              (accuracy > 0.3); one stochastic fused_transport run;
 10. reference_history
-             the 7 engine runs and the int8 / bf16 compressed runs of
-             ``tests/_card_reference.py`` on the card, with PyTorch's TF32
+             the 7 engine runs, the int8 / bf16 compressed runs and the two
+             async runs of ``tests/_card_reference.py`` on the card, with PyTorch's TF32
              defaults, against the reference's committed Histories
              (``tests/data/card_reference.json``, written on the CPU):
              numpy fields exactly, accuracy, loss and client metrics within
              1e-3; then the same runs and a profiled quickstart with the
-             task's TF32 guard bypassed, reported and not checked (what a
-             run without the guard would give);
+             task's guard (TF32 off, deterministic cuDNN) bypassed,
+             reported and not checked (what a run without the guard would
+             give);
 11. grid_rows one row's delta and metrics at dispatch widths 1, 3, 12, 24 and
              64 and at the first, middle and last position, with and without
              the prox term: the same bits (the plane runs every dispatch as
@@ -72,7 +73,34 @@ Run from the repository root. Phases, each printing one JSON line:
              figs 6-8 and the adaptive daemon, each with its reference
              threshold asserts; each sweep's rows and wall time; then
              ``grid_phases``, the seconds of phases 11-13;
-14. lm_kernels
+14. fault_domain
+             kill-and-resume on the card: the quickstart killed after round
+             4 of 8 and resumed on a fresh server, uncompressed and with
+             int8 / bf16 on the dense and the sparse plane, and sparse
+             checkpoints resumed into dense runs, bitwise equal to the
+             uninterrupted run, launches once per completed round of the
+             resumed half, save and restore ms; the fig3 grid killed after
+             round 4 and resumed, bitwise, equal ``GridStats``; the
+             reference's committed round-2 checkpoint
+             (``tests/data/card_reference_ckpt/``) finished on the card
+             against the committed History; ``resilience_bench``
+             (kill-and-resume per transport mode, a poisoned point
+             quarantined alone); a ``server_restart`` losing its round;
+15. async     ``async_bench``: degenerate async == sync bitwise (sequential
+             and batched, fedavg_reduce once per flush), the latency-cliff
+             and dropout sections with their gates; an async fig3-shaped
+             grid == its 20 per-point runs bitwise, fedavg_reduce launches
+             == buffer flushes; the async quickstart killed and resumed,
+             bitwise;
+16. population
+             ``population_bench``: the dense == sparse and Population ==
+             list parity gate, and the scale section (1,000,000 and 100,000
+             clients, cohort 32, 3 rounds): plane occupancy,
+             ``torch.cuda.max_memory_allocated``, the tracemalloc host peak
+             against the 1 GB budget (tracemalloc does not see torch's CPU
+             allocator), clients materialized; then ``reliability_phases``,
+             the seconds of phases 14-16 against their 90 s budget;
+17. lm_kernels
              flash_attention and swiglu against their plain versions on the
              card: the reference sweeps, serving lengths, bf16 windows, both
              sides of the GQA packing boundary (G * Sq = 64, 65), the
@@ -82,12 +110,12 @@ Run from the repository root. Phases, each printing one JSON line:
              ``kernel`` and one PyTorch call's time; the share of the bf16
              swiglu's time that its cross-block reduction takes (the
              kernel built again with ``-DSWIGLU_NO_REDUCE``);
-15. serve     ``Server("qwen3-8b", reduced=False)`` on the card, params from a
+18. serve     ``Server("qwen3-8b", reduced=False)`` on the card, params from a
              seeded generator: serve.py:main's 8 requests (batch 4, 12 new
              tokens each); launches asserted per prefill and per decode step;
              prefill ms, decode ms per step, tokens/s, peak memory, and the
              device-idle share of one profiled run (``serve_profile``);
-16. full_width
+19. full_width
              a 2-layer model at Qwen3-8B's full widths with the served
              params: one prefill and three decode steps on the card
              (kernels) and on the CPU (plain versions, fed the card's
@@ -691,11 +719,12 @@ def phase_headline(torch):
 
 def phase_reference_history(torch):
     """The port on the card against the reference's committed Histories:
-    the 7 engine runs and the int8 / bf16 compressed runs of
-    ``tests/_card_reference.py``, with PyTorch's TF32 defaults (the task
-    turns TF32 off in its own scope). Numpy fields exactly, accuracy, loss
-    and client metrics within 1e-3; fedavg_reduce once per completed round
-    on the batched engines, quantize_rows once per int8 round. Then the
+    the 7 engine runs, the int8 / bf16 compressed runs and the two async
+    runs of ``tests/_card_reference.py``, with PyTorch's TF32 defaults (the
+    task turns TF32 off in its own scope). Numpy fields exactly, accuracy,
+    loss and client metrics within 1e-3; fedavg_reduce once per completed
+    round on the batched engines (once per buffer flush on the async runs),
+    quantize_rows once per int8 round. Then the
     task's guard bypassed: the same runs' gaps and a profiled quickstart,
     reported, not checked."""
     import contextlib
@@ -731,6 +760,8 @@ def phase_reference_history(torch):
                 raise PhaseFailed(f"reference_history {name}: {e!r}; gaps {gaps[name]}") from e
             done = hist.completed_rounds
             agg = done if batched.get(name, True) else 0
+            if name in card.ASYNC:  # batched: one launch per buffer flush
+                agg = sum(1 for r in hist.rounds if "async_flush_size" in r.metrics)
             int8 = done if name == "compressed_int8" else 0
             bf16 = done if name == "compressed_bf16" else 0
             check(launches[name] == {"fedavg_reduce": agg, "quantize_rows": int8,
@@ -1014,6 +1045,314 @@ def phase_paper_sweeps(torch):
         emit("paper_sweeps", sweep=name, wall_s=wall, asserts_hold=True,
              fedavg_reduce_launches=launches, rows=_plain(rows),
              csv_lines=len(csv.getvalue().splitlines()))
+
+
+# --------------------------------------------------------------------------
+# the reliability techniques: the fault domain, the async engine, the lazy
+# population
+# --------------------------------------------------------------------------
+
+RELIABILITY_BUDGET_S = 90.0  # the three phases together
+KILL_AT = 4  # rounds run before the kill, of MAIN_ROUNDS
+
+
+def counted(torch, fn):
+    """``fn()`` with every kernel's launch count set to 0 just before and
+    read just after: (result, wall s, launches by kernel)."""
+    torch.cuda.synchronize()
+    reset_launches()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, time.perf_counter() - t0, read_launches()
+
+
+def _same_server_state(torch, a, b) -> bool:
+    """History, clients, clock, staleness clock and final params: equal bits."""
+    return (_same_bits(torch, a.history, b.history)
+            and _same_bits(torch, a.global_params, b.global_params)
+            and a.sim_time == b.sim_time and a.model_version == b.model_version
+            and [(c.connected, c.rounds_participated, c.bytes_sent) for c in a.clients]
+            == [(c.connected, c.rounds_participated, c.bytes_sent) for c in b.clients])
+
+
+def _median_ms(torch, fn, reps=5) -> float:
+    samples = []
+    for _ in range(reps):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        samples.append((time.perf_counter() - t0) * 1e3)
+    return statistics.median(samples)
+
+
+def _kill_and_resume(torch, make, tmp, name):
+    """``make()`` run uninterrupted, then killed after round ``KILL_AT`` and
+    resumed on a fresh server from the same ``checkpoint_dir`` (one
+    checkpoint per round). Checks the resumed run equal to the uninterrupted
+    one, bitwise. Returns (resumed server, launches of the resumed segment,
+    that segment's completed rounds / flushes / wall s, the directory)."""
+    ref = make()
+    ref.run()
+    d = str(Path(tmp) / name)
+    killed = make()
+    killed.run(checkpoint_dir=d, stop_after_round=KILL_AT)
+    check(len(killed.history.rounds) == KILL_AT,
+          f"{name}: the killed run has {len(killed.history.rounds)} rounds, not {KILL_AT}")
+    res = make()
+    _, wall, counts = counted(torch, lambda: res.run(checkpoint_dir=d))
+    check(_same_server_state(torch, ref, res), f"{name}: resumed run != uninterrupted run")
+    segment = res.history.rounds[KILL_AT:]
+    return res, counts, {"completed": sum(0 if r.failed_round else 1 for r in segment),
+                         "flushes": res.model_version - killed.model_version,
+                         "wall_s": wall, "dir": d}
+
+
+def _checkpoint_ms(torch, srv, make, d):
+    """Median ms of one save of ``srv``'s boundary state (every array off the
+    card, the npz written and fsync'd) and of one restore onto a fresh
+    server (read, and back onto the card), and the checkpoint's bytes."""
+    from repro_torch.checkpoint import CheckpointManager
+
+    mgr = CheckpointManager(d + "_timed", keep=1)
+    steps = iter(range(1000, 2000))
+    save = _median_ms(torch, lambda: srv._save_checkpoint(mgr, next(steps)))
+    fresh = iter([make() for _ in range(5)])  # built outside the timed restores
+    restore = _median_ms(torch, lambda: next(fresh)._restore_checkpoint(mgr))
+    nbytes = sum(p.stat().st_size for p in Path(mgr._step_dir(mgr.latest_step())).iterdir())
+    return {"save_ms": save, "restore_ms": restore, "checkpoint_bytes": nbytes}
+
+
+def phase_fault_domain(torch, tmp):
+    """Kill-and-resume on the card. The quickstart (8 rounds, killed after
+    4) uncompressed and with int8 / bf16 on the dense and the sparse plane,
+    and a sparse checkpoint resumed into a dense run: bitwise equal to the
+    uninterrupted run, fedavg_reduce (and quantize_rows /
+    downcast_bf16_rows) once per completed round of the resumed segment,
+    save and restore ms. The fig3 grid killed after round 4 and resumed:
+    equal to the uninterrupted grid, equal GridStats. The reference's
+    committed round-2 checkpoint finished on the card against the committed
+    History. ``resilience_bench`` (kill-and-resume per transport mode, a
+    poisoned point quarantined alone). A ``server_restart`` loses its
+    round."""
+    import contextlib
+    import dataclasses
+    import io
+
+    from repro_torch.chaos import server_restart
+    from repro_torch.compress import get_compressor
+    from repro_torch.core import run_fl_grid
+    from repro_torch.experiments import common, fig3_latency, resilience_bench
+
+    t0 = time.perf_counter()
+    point = {}
+    for comp in (None, "int8", "bf16"):
+        for plane in (("dense",) if comp is None else ("dense", "sparse")):
+            name = f"{comp or 'none'}_{plane}"
+            make = lambda c=comp, p=plane: paper_server(  # noqa: E731
+                torch, compressor=None if c is None else get_compressor(c), state_plane=p)
+            srv, counts, seg = _kill_and_resume(torch, make, tmp, name)
+            want = {"fedavg_reduce": seg["completed"],
+                    "quantize_rows": seg["completed"] if comp == "int8" else 0,
+                    "downcast_bf16_rows": seg["completed"] if comp == "bf16" else 0}
+            got = {k: counts[k] for k in want}
+            check(got == want, f"fault_domain {name}: resumed launches {got}, expected {want}")
+            point[name] = {"resumed_launches": got, "resumed_wall_s": seg["wall_s"],
+                           **_checkpoint_ms(torch, srv, make, seg["dir"])}
+    for comp in ("int8", "bf16"):  # a sparse checkpoint resumed into a dense run
+        d = str(Path(tmp) / f"cross_{comp}")
+        ref = paper_server(torch, compressor=get_compressor(comp), state_plane="dense")
+        ref.run()
+        paper_server(torch, compressor=get_compressor(comp), state_plane="sparse").run(
+            checkpoint_dir=d, stop_after_round=KILL_AT)
+        res = paper_server(torch, compressor=get_compressor(comp), state_plane="dense")
+        res.run(checkpoint_dir=d)
+        check(_same_server_state(torch, ref, res), f"fault_domain {comp}: sparse -> dense resume")
+        point[f"{comp}_sparse_to_dense"] = {"equal": True}
+
+    # the fig3 grid (20 points, 8 rounds) killed after round 4 and resumed
+    task, eval_data = common._shared_task("cuda"), common._shared_eval_data()
+    _, kwargs = fig3_latency.sweep_points()
+    make = lambda: [common._make_point(**kw) for kw in kwargs]  # noqa: E731
+    d = str(Path(tmp) / "grid")
+    ref, ref_wall, _ = counted(torch, lambda: run_fl_grid(task, make(), eval_data=eval_data))
+    part = run_fl_grid(task, make(), eval_data=eval_data, checkpoint_dir=d,
+                       stop_after_round=KILL_AT)
+    res, res_wall, counts = counted(
+        torch, lambda: run_fl_grid(task, make(), eval_data=eval_data, checkpoint_dir=d))
+    for i, (a, b) in enumerate(zip(ref.servers, res.servers)):
+        check(_same_server_state(torch, a, b), f"fault_domain grid: point {i} differs")
+    ckpt_fields = ("checkpoints_saved", "resumed_round")
+    a, b = dataclasses.asdict(ref.stats), dataclasses.asdict(res.stats)
+    check({k: v for k, v in a.items() if k not in ckpt_fields}
+          == {k: v for k, v in b.items() if k not in ckpt_fields},
+          f"fault_domain grid: GridStats {b} vs {a}")
+    check(res.stats.resumed_round == KILL_AT and part.stats.checkpoints_saved == KILL_AT,
+          f"fault_domain grid: {res.stats}")
+    resumed_rounds = sum(0 if r.failed_round else 1
+                         for h in res.histories for r in h.rounds[KILL_AT:])
+    check(counts["fedavg_reduce"] == resumed_rounds,
+          f"fault_domain grid: {counts['fedavg_reduce']} launches for {resumed_rounds} "
+          "aggregating point-rounds after the resume")
+    grid = {"points": len(kwargs), "stats": b, "uninterrupted_wall_s": ref_wall,
+            "resumed_wall_s": res_wall, "resumed_launches": counts["fedavg_reduce"],
+            "resumed_aggregating_point_rounds": resumed_rounds}
+
+    # the reference's committed round-2 checkpoint, finished on the card
+    sys.path.insert(0, str(ROOT / "tests"))
+    import _card_reference as card
+
+    (hist, clients), _, counts = counted(torch, lambda: card.resume(
+        card.port_task("cuda"), Path(tmp) / "reference_ckpt", *card.port_packages()))
+    got = card.history_record(hist, clients)
+    try:
+        card.assert_records_match(card.load_records()[card.CHECKPOINT_RUN], got)
+    except AssertionError as e:
+        raise PhaseFailed(f"fault_domain: the reference checkpoint's run: {e!r}") from e
+    check(counts["fedavg_reduce"] == 1, f"fault_domain: reference checkpoint launches {counts}")
+    reference = {"run": card.CHECKPOINT_RUN, "rounds_resumed": 1,
+                 "gaps": card.history_gaps(card.load_records()[card.CHECKPOINT_RUN], got)}
+
+    # resilience_bench: kill-and-resume per transport mode, quarantine
+    with contextlib.redirect_stdout(io.StringIO()):
+        bench = resilience_bench.run_bench(device="cuda")
+    check(bench["parity"], f"fault_domain: resilience_bench gates: {bench}")
+
+    # a server_restart inside round 1 loses that round and nothing else
+    probe = paper_server(torch)
+    probe.run(stop_after_round=2)
+    t_crash = probe.history.rounds[1].t_start + 0.01
+    srv = paper_server(torch)
+    srv.chaos.add(server_restart(t_crash, downtime=5.0))
+    hist, _, counts = counted(torch, srv.run)
+    causes = [r.cause for r in hist.rounds]
+    check(causes.count("server_restart") == 1 and causes[1] == "server_restart"
+          and hist.rounds[1].t_end == t_crash + 5.0,
+          f"fault_domain: server_restart causes {causes}")
+    check(counts["fedavg_reduce"] == hist.completed_rounds,
+          f"fault_domain: {counts['fedavg_reduce']} launches for {hist.completed_rounds} rounds")
+    seconds = time.perf_counter() - t0
+    emit("fault_domain", seconds=seconds, kill_at_round=KILL_AT, rounds=MAIN_ROUNDS,
+         point=point, grid=grid, reference_checkpoint=reference, resilience_bench=bench,
+         server_restart={"causes": causes, "completed_rounds": hist.completed_rounds})
+    return {"seconds": seconds, "point": point, "grid": grid}
+
+
+def phase_async(torch, tmp):
+    """The async engine on the card: degenerate async == sync bitwise
+    (``async_bench``'s sequential pair, and a batched pair with
+    fedavg_reduce once per flush); ``async_bench``'s latency-cliff and
+    dropout sections with their gates, and the cliff's async point with
+    fedavg_reduce once per flush; an async fig3-shaped grid (20 points,
+    buffer of 3) equal to its per-point runs bitwise, launches equal to the
+    flushes; the async quickstart killed after tick 4 and resumed, bitwise."""
+    import contextlib
+    import dataclasses
+    import io
+
+    from repro_torch.chaos import ChaosSchedule
+    from repro_torch.core import EdgeClient, FederatedServer, ServerConfig, fedavg, run_fl_grid
+    from repro_torch.data import make_federated_mnist
+    from repro_torch.experiments import async_bench, common, fig3_latency
+    from repro_torch.transport import DEFAULT, LAB
+
+    t0 = time.perf_counter()
+    degenerate = async_bench.degenerate_section(device="cuda")
+    check(degenerate["parity"], f"async: degenerate sequential pair {degenerate}")
+
+    def one_client(async_mode):
+        return FederatedServer(
+            common._shared_task("cuda"),
+            [EdgeClient(0, dataset=make_federated_mnist(1, 64, seed=0)[0])], fedavg(),
+            tcp=DEFAULT, chaos=ChaosSchedule(LAB),
+            config=ServerConfig(rounds=3, local_steps=2, seed=0, batched=True,
+                                async_mode=async_mode, async_buffer_k=1),
+            eval_data=common._shared_eval_data())
+
+    sync = one_client(False)
+    sync.run()
+    asy = one_client(True)
+    _, _, counts = counted(torch, asy.run)
+    check(counts["fedavg_reduce"] == asy.model_version == 3,
+          f"async: degenerate batched: {counts['fedavg_reduce']} launches, "
+          f"{asy.model_version} flushes")
+    check(_same_bits(torch, sync.global_params, asy.global_params)
+          and sync.sim_time == asy.sim_time
+          and sync.history.eval_metrics == asy.history.eval_metrics
+          and [r.t_end for r in sync.history.rounds] == [r.t_end for r in asy.history.rounds],
+          "async: degenerate batched async != sync (params, clock, eval trace)")
+
+    csv = io.StringIO()
+    with contextlib.redirect_stdout(csv):
+        cliff = async_bench.latency_cliff_section(device="cuda")
+        dropout = async_bench.dropout_section(device="cuda")
+    check(cliff["parity"], f"async: latency cliff gates {cliff}")
+    check(dropout["parity"], f"async: dropout gates {dropout}")
+    half = common.N_CLIENTS // 2
+    slow = LAB.replace(delay=async_bench.CLIFF_DELAY, name="slow")
+    (srv, hist), _, counts = counted(torch, lambda: async_bench._run_point(dict(
+        min_fit=0.6, rounds=cliff["rounds"], max_consecutive_failures=3, async_mode=True,
+        async_buffer_k=3, client_links=[None] * half + [slow] * half), "cuda"))
+    check(counts["fedavg_reduce"] == srv.model_version > 0,
+          f"async: cliff point {counts['fedavg_reduce']} launches, {srv.model_version} flushes")
+    cliff_point = {"flushes": srv.model_version, "launches": counts["fedavg_reduce"],
+                   "summary": hist.summary()}
+
+    # an async fig3-shaped grid against its per-point runs
+    task, eval_data = common._shared_task("cuda"), common._shared_eval_data()
+    _, kwargs = fig3_latency.sweep_points()
+    make = lambda: [common._make_point(**kw, async_mode=True, async_buffer_k=3)  # noqa: E731
+                    for kw in kwargs]
+    res, grid_wall, counts = counted(torch, lambda: run_fl_grid(task, make(),
+                                                                eval_data=eval_data))
+    servers, pp_wall = _per_point_runs(torch, task, make(), eval_data)
+    for i, (g, s) in enumerate(zip(res.servers, servers)):
+        check(_same_server_state(torch, g, s), f"async grid: point {i} != its per-point run")
+    flushes = sum(s.model_version for s in res.servers)
+    check(counts["fedavg_reduce"] == flushes == res.stats.async_flushes > 0,
+          f"async grid: {counts['fedavg_reduce']} launches, {flushes} flushes, "
+          f"{res.stats.async_flushes} async_flushes")
+    grid = {"points": len(kwargs), "stats": dataclasses.asdict(res.stats), "grid_wall_s": grid_wall,
+            "per_point_wall_s": pp_wall, "launches": counts["fedavg_reduce"], "flushes": flushes}
+
+    # the async quickstart killed after tick 4 and resumed
+    _, counts, seg = _kill_and_resume(
+        torch, lambda: paper_server(torch, async_mode=True, async_buffer_k=3), tmp, "async")
+    check(counts["fedavg_reduce"] == seg["flushes"],
+          f"async resume: {counts['fedavg_reduce']} launches for {seg['flushes']} flushes")
+    seconds = time.perf_counter() - t0
+    emit("async", seconds=seconds, degenerate=degenerate, degenerate_batched_launches=3,
+         latency_cliff=cliff, dropout=dropout, cliff_point=cliff_point, grid=grid,
+         resume={"launches": counts["fedavg_reduce"], "flushes": seg["flushes"],
+                 "wall_s": seg["wall_s"]},
+         csv_lines=csv.getvalue().splitlines())
+    return {"seconds": seconds, "grid": grid, "cliff_point": cliff_point}
+
+
+def phase_population(torch):
+    """``population_bench`` on the card: the parity gate (dense == sparse
+    for every engine x plane compressor, the lazy Population == the list)
+    and the scale section (1,000,000 clients and 100,000, cohort 32, topk
+    on the sparse plane, 3 rounds), its gates, the plane's occupancy,
+    ``torch.cuda.max_memory_allocated`` and the tracemalloc host peak
+    against the 1 GB budget; fedavg_reduce once per round."""
+    from repro_torch.experiments import population_bench
+
+    t0 = time.perf_counter()
+    parity = population_bench.run_parity_gate(device="cuda")
+    check(parity["all_bitwise"], f"population: parity cells {parity['cells']}")
+    scale, _, counts = counted(torch, lambda: population_bench.run_scale(device="cuda"))
+    check(scale["all_gates"], f"population: scale gates {scale['gates']}")
+    rounds = 1 + scale["small"]["completed_rounds"] + scale["big"]["completed_rounds"]
+    check(counts["fedavg_reduce"] == rounds,
+          f"population: {counts['fedavg_reduce']} launches for {rounds} rounds")
+    seconds = time.perf_counter() - t0
+    emit("population", seconds=seconds, parity=parity, scale=scale,
+         host_budget_bytes=population_bench.MEM_BUDGET_BYTES,
+         host_peak_note="tracemalloc sees numpy and Python objects, not torch's CPU allocator",
+         launches=counts["fedavg_reduce"])
+    return {"seconds": seconds, "launches": counts["fedavg_reduce"], "rounds": rounds}
 
 
 # --------------------------------------------------------------------------
@@ -1530,6 +1869,17 @@ def main() -> int:
     grid = phase_grid(torch)
     phase_paper_sweeps(torch)
     emit("grid_phases", seconds=time.perf_counter() - t_grid)
+    import tempfile
+
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_ckpt_") as tmp:
+        fault = phase_fault_domain(torch, tmp)
+        asyn = phase_async(torch, tmp)
+    population = phase_population(torch)
+    reliability_s = fault["seconds"] + asyn["seconds"] + population["seconds"]
+    emit("reliability_phases", seconds=reliability_s, budget_s=RELIABILITY_BUDGET_S,
+         within_budget=reliability_s <= RELIABILITY_BUDGET_S,
+         by_phase={"fault_domain": fault["seconds"], "async": asyn["seconds"],
+                   "population": population["seconds"]})
     from repro_torch.utils import f32_math
 
     with f32_math("cuda"):  # the f32 plain versions as yardsticks in full f32
@@ -1605,6 +1955,19 @@ def main() -> int:
         # the fig3 grid (20 points, 8 rounds): one launch per aggregating point-round
         "grid_launches": grid["launches"]["fedavg_reduce"],
         "grid_aggregating_point_rounds": grid["aggregating_point_rounds"],
+        # the reliability paths: once per completed round of a resumed run,
+        # once per async buffer flush
+        "resumed_point_launches": fault["point"]["none_dense"]["resumed_launches"][
+            "fedavg_reduce"],
+        "resumed_grid_launches": fault["grid"]["resumed_launches"],
+        "resumed_grid_aggregating_point_rounds": fault["grid"][
+            "resumed_aggregating_point_rounds"],
+        "async_grid_launches": asyn["grid"]["launches"],
+        "async_grid_flushes": asyn["grid"]["flushes"],
+        "async_cliff_launches": asyn["cliff_point"]["launches"],
+        "async_cliff_flushes": asyn["cliff_point"]["flushes"],
+        "population_launches": population["launches"],
+        "population_rounds": population["rounds"],
     },
         # one compressed round: the 8 CNN leaves at R = 10 (int8 grouped, bf16 summed)
         quant_row("quantize_rows", compressed["int8"], "src/repro/kernels/quantize.py:83",

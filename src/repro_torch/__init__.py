@@ -1,5 +1,6 @@
-"""PyTorch/CUDA port of ``repro``: the synchronous and compressed FL rounds
-on the MNIST CNN, and serving the dense GQA LM (Qwen3-8B).
+"""PyTorch/CUDA port of ``repro``: the synchronous, compressed and async FL
+rounds on the MNIST CNN with the grid engine, checkpoints and lazy client
+populations, and serving the dense GQA LM (Qwen3-8B).
 
 The package mirrors ``repro``'s module layout and public names so every
 module has a namesake in the JAX reference to be checked against. It

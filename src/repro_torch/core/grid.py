@@ -42,13 +42,18 @@ Anchor transfer is O(unique anchors), not O(rows): each dispatch stacks
 the distinct anchor trees its rows reference, and rows gather their
 anchor on the device (``fit_rows(anchor_idx=...)``).
 
-Not in this slice, each raising ``NotImplementedError`` naming its ROADMAP
-item: ``checkpoint_dir`` (item 10), async points (item 11; ``ServerConfig``
-refuses them) and the device transport backend (item 13; likewise).
+Async points join the same plane: each dispatched row gets a provenance
+token that rides the event queue, and a point's params key advances when a
+buffer flush applies its events (``_async_prov_hook``). ``checkpoint_dir``
+makes a sweep crash-consistent with the per-point checkpoint protocol of
+``FederatedServer`` plus the provenance keys. The device transport backend
+raises ``NotImplementedError`` (ROADMAP Queue 1, item 13; ``ServerConfig``
+refuses it).
 """
 
 from __future__ import annotations
 
+import dataclasses
 import itertools
 from dataclasses import dataclass
 from typing import Any, Dict, List, Optional, Sequence, Tuple
@@ -57,6 +62,7 @@ import numpy as np
 import torch
 
 from repro_torch.chaos import ChaosSchedule
+from repro_torch.checkpoint.store import CheckpointManager, load_tree
 from repro_torch.core.client import EdgeClient, LocalTask
 from repro_torch.core.server import (
     _GRID_STREAM,
@@ -65,6 +71,7 @@ from repro_torch.core.server import (
     History,
     PendingRound,
     ServerConfig,
+    _jsonable,
     derive_rng,
 )
 from repro_torch.core.strategy import Strategy
@@ -94,7 +101,8 @@ class GridPoint:
 @dataclass
 class GridStats:
     """Plane/coalescing telemetry for one grid run (every field of the
-    reference's; the ones of parts not ported stay 0)."""
+    reference's; ``transport_device_dispatches`` stays 0 until the device
+    transport plane is ported)."""
 
     rounds: int = 0  # lockstep rounds with at least one plane row
     fit_rows_total: int = 0  # rows requested across all points
@@ -243,6 +251,16 @@ def _plane_transport(
     return res
 
 
+def _check_checkpointable(servers: List[FederatedServer]) -> None:
+    # stateful compressors are fine as long as they expose state accessors
+    # (randk's rotating counter); the per-point check decides
+    for i, srv in enumerate(servers):
+        try:
+            srv._check_checkpointable()
+        except ValueError as e:
+            raise ValueError(f"point {i}: {e}") from None
+
+
 def run_fl_grid(
     task: LocalTask,
     points: Sequence[GridPoint],
@@ -253,6 +271,9 @@ def run_fl_grid(
     transport: str = "per_point",
     transport_seed: int = 0,
     checkpoint_dir: Optional[str] = None,
+    checkpoint_every: int = 1,
+    checkpoint_keep: int = 3,
+    stop_after_round: Optional[int] = None,
 ) -> GridResult:
     """Run every sweep point of a characterization grid in lockstep.
 
@@ -274,14 +295,19 @@ def run_fl_grid(
       draw-for-draw. Selection streams are unaffected either way.
 
     Ineligible points fall back to "per_point" transparently in both
-    hoisted modes. ``checkpoint_dir`` (crash-consistent resume) is not
-    ported yet."""
+    hoisted modes.
+
+    **Crash consistency.** ``checkpoint_dir`` makes the sweep resumable:
+    every ``checkpoint_every`` rounds the engine persists each point's
+    round-boundary state (``FederatedServer.checkpoint_arrays`` /
+    ``checkpoint_meta``, async queue and buffer included) plus the
+    provenance keys and ``GridStats``, and a re-invocation with the same
+    directory resumes at the first unfinished round, bitwise equal to the
+    uninterrupted run. A checkpoint written by a different grid raises.
+    ``stop_after_round=k`` exits cleanly once round k has completed (and
+    checkpointed)."""
     if transport not in ("per_point", "parity", "fused"):
         raise ValueError(f"unknown transport mode {transport!r}")
-    if checkpoint_dir is not None:
-        raise NotImplementedError(
-            "run_fl_grid(checkpoint_dir=...) is not ported yet (ROADMAP Queue 1, item 10)"
-        )
     stats = GridStats()
     nonce = itertools.count()
     interned: Dict[Any, int] = {}
@@ -333,6 +359,40 @@ def run_fl_grid(
         params_keys.append(intern(("init", id(task), p.config.seed)))
         res_keys.append(intern(("res0", servers[-1].compressor.fingerprint)))
 
+    def _async_prov_hook(i: int):
+        """Advance point i's params provenance at buffer-flush time.
+
+        ``finish_round`` calls it right after ``_async_tick`` and before the
+        memoized eval. No flush: the key stands. A flush whose events all
+        carry provenance tokens digests to ("agg-async", prior key,
+        aggregation identity, the (token, staleness, weight) events, alpha,
+        round), so twin async points keep bitwise-equal params and share
+        eval."""
+
+        def hook(srv: FederatedServer, rnd: int) -> None:
+            fl = srv._last_flush
+            if fl is None:
+                return
+            stats.async_flushes += 1
+            if fl["opaque"]:
+                params_keys[i] = intern(("opaque", next(nonce)))
+            else:
+                params_keys[i] = intern((
+                    "agg-async",
+                    params_keys[i],
+                    srv.strategy.agg_fingerprint,
+                    fl["events"],
+                    float(srv.config.staleness_alpha),
+                    rnd,
+                    bool(srv.config.batched),
+                ))
+
+        return hook
+
+    for i, srv in enumerate(servers):
+        if srv.config.async_mode:
+            srv._async_prov_hook = _async_prov_hook(i)
+
     plane_ok = (
         task.plan_fit is not None
         and task.fit_rows is not None
@@ -358,7 +418,15 @@ def run_fl_grid(
             if hoist and _hoistable(srv):
                 pr = srv.select_cohort(rnd)
                 if pr is not None:
-                    waiting.append((i, pr))
+                    if len(pr.cohort) == 0:
+                        # async drain-only tick: nothing to sample; the tick
+                        # still drains its event queue through finish_round
+                        z = np.zeros(0)
+                        job = srv.finish_transport(pr, np.zeros(0, bool), z, z, z)
+                        if job is not None:
+                            jobs.append((i, job))
+                    else:
+                        waiting.append((i, pr))
                 continue
             job = srv.begin_round(rnd)
             if job is not None:
@@ -390,13 +458,18 @@ def run_fl_grid(
             pending.append((i, job, plans))
         if not pending:
             return
-        stats.rounds += 1
+        stats.rounds += 1 if any(p[1].clients for p in pending) else 0
 
         # --- row table: coalesce identical rows across points ---------------
         # groups keyed by the plane program's static axes (steps, use_prox)
         groups: Dict[tuple, dict] = {}
         placements = []  # (point_idx, job, group_key, row idxs, row keys)
         for i, job, plans in pending:
+            if not job.clients:
+                # async drain-only tick (or a tick whose every flow failed):
+                # no rows to place, the post phase still runs it
+                placements.append((i, job, None, [], []))
+                continue
             mu = float(job.prox_mu)
             gkey = (job.steps, mu > 0)
             g = groups.setdefault(
@@ -472,27 +545,45 @@ def run_fl_grid(
         comp_memo: Dict[tuple, Any] = {}
         for i, job, gkey, idxs, row_keys in placements:
             srv = servers[i]
-            stacked, weights, per_metrics = _gather_rows(
-                groups[gkey]["planes"], max_plane_rows, idxs
-            )
+            if idxs:
+                stacked, weights, per_metrics = _gather_rows(
+                    groups[gkey]["planes"], max_plane_rows, idxs
+                )
+            else:  # async drain-only tick: no rows were placed
+                stacked, weights, per_metrics = None, [], []
             # fault domain first, BEFORE the shared compression pass can
             # mutate this point's residual plane or provenance: a server
             # crash inside the round span loses the round (params and
             # residuals stay at the round boundary — params_keys/res_keys
             # unchanged); a quarantine trigger retires only this row of
-            # the sweep, leaving every other point's dispatch untouched
-            round_time = min(max(job.arrivals), srv.config.round_deadline)
-            crash = srv.chaos.server_restart_in(
-                job.record.t_start, job.record.t_start + round_time
-            )
-            if crash is not None:
-                srv._abort_round_server_restart(job.record, crash)
-                continue
-            if srv.config.quarantine:
-                cause = srv._divergence_cause(stacked, None, per_metrics)
-                if cause is not None:
-                    srv._quarantine_round(job, cause)
+            # the sweep, leaving every other point's dispatch untouched.
+            # Async ticks use the deadline-horizon crash window, and the
+            # async abort also voids the event queue and buffer.
+            if srv.config.async_mode:
+                crash = srv.chaos.server_restart_in(
+                    job.record.t_start, job.record.t_start + srv.config.round_deadline
+                )
+                if crash is not None:
+                    srv._abort_tick_server_restart(job.record, crash)
                     continue
+                if srv.config.quarantine and job.clients:
+                    cause = srv._divergence_cause(stacked, None, per_metrics)
+                    if cause is not None:
+                        srv._quarantine_round(job, cause)
+                        continue
+            else:
+                round_time = min(max(job.arrivals), srv.config.round_deadline)
+                crash = srv.chaos.server_restart_in(
+                    job.record.t_start, job.record.t_start + round_time
+                )
+                if crash is not None:
+                    srv._abort_round_server_restart(job.record, crash)
+                    continue
+                if srv.config.quarantine:
+                    cause = srv._divergence_cause(stacked, None, per_metrics)
+                    if cause is not None:
+                        srv._quarantine_round(job, cause)
+                        continue
             comp = srv.compressor
             # a compressor is provenance-shareable when its transform is a
             # deterministic function of (delta, residual) — fingerprinted
@@ -504,7 +595,7 @@ def run_fl_grid(
             precompressed = False
             if sharable:
                 comp_term = None
-                if comp.name != "none":
+                if comp.name != "none" and job.clients:
                     # residual-digest term: the decompressed deltas (and
                     # the post-round residual plane) are determined by
                     # (compressor, prior residual provenance, the rows'
@@ -537,26 +628,136 @@ def run_fl_grid(
                     res_keys[i] = intern(
                         ("res", res_keys[i], comp.fingerprint, tuple(row_keys), slots)
                     )
-                params_keys[i] = intern((
-                    "agg",
-                    params_keys[i],
-                    srv.strategy.agg_fingerprint,
-                    tuple(row_keys),
-                    tuple(weights),
-                    rnd,
-                    bool(srv.config.batched),
-                    comp_term,
-                ))
+                if srv.config.async_mode:
+                    # async provenance is event-granular: each dispatched
+                    # row gets a token identifying its delta bitwise (row
+                    # content, compression applied at dispatch); the params
+                    # key advances only when a flush applies them
+                    srv._plane_row_keys = tuple(
+                        intern(("prov", rk, comp_term)) for rk in row_keys
+                    )
+                else:
+                    params_keys[i] = intern((
+                        "agg",
+                        params_keys[i],
+                        srv.strategy.agg_fingerprint,
+                        tuple(row_keys),
+                        tuple(weights),
+                        rnd,
+                        bool(srv.config.batched),
+                        comp_term,
+                    ))
             else:
-                params_keys[i] = intern(("opaque", next(nonce)))
+                if srv.config.async_mode:
+                    srv._plane_row_keys = None  # events carry opaque prov
+                else:
+                    params_keys[i] = intern(("opaque", next(nonce)))
                 res_keys[i] = intern(("opaque", next(nonce)))
             srv.finish_round(
                 job, stacked, None, weights, per_metrics,
                 precompressed=precompressed, fault_checked=True,
             )
 
-    for rnd in range(max_rounds):
+    # --- crash consistency: round-boundary checkpoint save/restore --------
+    fingerprint = {
+        "n_points": len(points),
+        "seeds": [int(p.config.seed) for p in points],
+        "rounds": [int(p.config.rounds) for p in points],
+        "names": [p.name for p in points],
+        "transport": transport,
+        "transport_seed": int(transport_seed),
+        "coalesce": bool(coalesce),
+        # async knobs change what the queue/buffer state MEANS
+        "async": [[bool(p.config.async_mode), int(p.config.async_buffer_k)] for p in points],
+    }
+
+    def _save_checkpoint(mgr: CheckpointManager, next_round: int) -> None:
+        # per-point boundary state from the server's own protocol, plus the
+        # grid's provenance keys and slot maps, point-prefixed
+        arrays: Dict[str, Any] = {}
+        meta_points = []
+        slot_maps: Dict[str, Any] = {}
+        for i, srv in enumerate(servers):
+            arrays[f"p{i:04d}"] = srv.checkpoint_arrays()
+            mp = srv.checkpoint_meta()
+            # only the equivalence classes of provenance keys matter, so the
+            # saved ints round-trip as opaque tokens
+            mp["params_key"] = int(params_keys[i])
+            mp["res_key"] = int(res_keys[i])
+            meta_points.append(mp)
+            for k, v in srv.checkpoint_slot_maps().items():
+                slot_maps[f"p{i:04d}/{k}"] = v
+        mgr.save(
+            next_round,
+            arrays,
+            metadata={
+                "next_round": int(next_round),
+                "grid": fingerprint,
+                "stats": _jsonable(dataclasses.asdict(stats)),
+                "points": meta_points,
+            },
+            slot_maps=slot_maps,
+        )
+
+    def _restore_checkpoint(mgr: CheckpointManager) -> int:
+        step = mgr.latest_step()
+        if step is None:
+            return 0
+        meta = mgr.metadata(step)
+        if meta["grid"] != fingerprint:
+            raise ValueError(
+                "checkpoint_dir holds a checkpoint from a DIFFERENT grid "
+                f"(saved {meta['grid']!r} vs this run {fingerprint!r}); "
+                "refusing to mix sweeps"
+            )
+        template = {
+            f"p{i:04d}": srv.checkpoint_template(meta["points"][i])
+            for i, srv in enumerate(servers)
+        }
+        tree, _ = load_tree(mgr._step_dir(step), template)
+        all_slot_maps = mgr.slot_maps(step)
+        for i, srv in enumerate(servers):
+            mp = meta["points"][i]
+            prefix = f"p{i:04d}/"
+            srv.apply_checkpoint(
+                mp,
+                tree[f"p{i:04d}"],
+                slot_maps={
+                    k[len(prefix):]: v for k, v in all_slot_maps.items() if k.startswith(prefix)
+                },
+            )
+            # equal saved keys across points => equal restored tokens, so
+            # trajectory sharing survives the resume (params provenance,
+            # residual provenance and the per-event dispatch tokens still in
+            # the async queue and buffer); the eval cache starts cold and
+            # recomputes identical values
+            for _, _, ev in srv._event_queue:
+                if ev["prov"] is not None:
+                    ev["prov"] = intern(("ckpt-prov", ev["prov"]))
+            for ev in srv._async_buffer:
+                if ev["prov"] is not None:
+                    ev["prov"] = intern(("ckpt-prov", ev["prov"]))
+            params_keys[i] = intern(("ckpt", mp["params_key"]))
+            res_keys[i] = intern(("ckpt-res", mp["res_key"]))
+        for k, v in meta["stats"].items():
+            if hasattr(stats, k):
+                setattr(stats, k, v)
+        return int(meta["next_round"])
+
+    mgr: Optional[CheckpointManager] = None
+    start_round = 0
+    if checkpoint_dir is not None:
+        _check_checkpointable(servers)
+        mgr = CheckpointManager(checkpoint_dir, keep=checkpoint_keep)
+        start_round = _restore_checkpoint(mgr)
+    stats.resumed_round = start_round
+
+    end_round = max_rounds if stop_after_round is None else min(max_rounds, stop_after_round)
+    for rnd in range(start_round, end_round):
         _round(rnd)
+        if mgr is not None and (rnd + 1) % checkpoint_every == 0:
+            _save_checkpoint(mgr, rnd + 1)
+            stats.checkpoints_saved += 1
 
     stats.quarantined = sum(1 for s in servers if s.history.status == "diverged")
     stats.server_restarts = sum(

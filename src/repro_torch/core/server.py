@@ -21,13 +21,18 @@ agree exactly on every numpy-computed field.
 The round is a state machine with drivable halves: ``select_cohort`` ->
 ``run_transport`` -> ``finish_transport`` -> ``execute_fit`` ->
 ``finish_round``. The port covers the sequential and batched engines,
-``engine="fused_transport"`` and every compressor, with error feedback in
-a dense or sparse ``StatePlane``; configurations it does not cover raise
-``NotImplementedError``, naming the ROADMAP item.
+``engine="fused_transport"``, every compressor with error feedback in a
+dense or sparse ``StatePlane``, the event-driven async engine
+(``ServerConfig.async_mode``), lazy client universes (``Population``) and
+the round-boundary checkpoint protocol (``run(checkpoint_dir=...)``, in the
+reference's on-disk format). The device transport backend raises
+``NotImplementedError``, naming its ROADMAP item.
 """
 
 from __future__ import annotations
 
+import dataclasses
+import heapq
 import math
 from dataclasses import dataclass, field
 from typing import Any, Dict, List, Optional
@@ -36,14 +41,21 @@ import numpy as np
 import torch
 
 from repro_torch.chaos import ChaosSchedule
+from repro_torch.checkpoint.store import CheckpointManager, load_tree
 from repro_torch.compress import Compressor, none_compressor
 from repro_torch.core.client import EdgeClient, LocalTask
+from repro_torch.core.population import Population
 from repro_torch.core.stateplane import StatePlane
 from repro_torch.core.strategy import Strategy
 from repro_torch.transport import LinkProfile, TcpParams, client_round as analytic_round
-from repro_torch.transport.des import sim_client_round, sim_cohort_round, sim_grid_round
+from repro_torch.transport.des import (
+    delivery_events,
+    sim_client_round,
+    sim_cohort_round,
+    sim_grid_round,
+)
 from repro_torch.transport.params import RetryPolicy
-from repro_torch.utils import tree_leaves, tree_stack, tree_unstack
+from repro_torch.utils import tree_leaves, tree_map, tree_stack, tree_unstack
 
 
 @dataclass
@@ -139,10 +151,9 @@ class PendingRound:
 
 @dataclass
 class ServerConfig:
-    """Every field of the reference's config. The port runs the synchronous
-    engines; ``async_mode`` and ``transport_backend="device"`` raise
-    ``NotImplementedError`` (see ``repro.core.server.ServerConfig`` for the
-    full semantics of each field)."""
+    """Every field of the reference's config; ``transport_backend="device"``
+    raises ``NotImplementedError`` (see ``repro.core.server.ServerConfig``
+    for the full semantics of each field)."""
 
     rounds: int = 20
     clients_per_round: float = 1.0  # fraction of live clients selected
@@ -157,10 +168,19 @@ class ServerConfig:
     # straggler mitigation: over-select and close at the first fraction
     over_provision: float = 1.0
     quorum_close_fraction: float = 1.0
-    # event-driven asynchronous engine (not ported yet)
+    # event-driven asynchronous engine: rounds become dispatch TICKS. Each
+    # tick dispatches fresh clients against the current model, pushes their
+    # (delivery time, update) events onto a priority queue, then lands
+    # queued events in delivery order into a FedBuff-style buffer; at
+    # ``async_buffer_k`` updates the whole buffer aggregates in one stacked
+    # pass, each update weighted by (1 + staleness)^-alpha (staleness =
+    # buffer flushes since its dispatch). A tick landing nothing is the
+    # async failed round.
     async_mode: bool = False
     staleness_alpha: float = 0.5
+    # buffer-flush threshold (FedBuff's K); robust strategies need >= 2
     async_buffer_k: int = 1
+    # cap on concurrently in-flight clients (None = the cohort fraction)
     async_concurrency: Optional[int] = None
     # batched cohort engine: vectorized transport sampling, one stacked
     # local-training program for the whole cohort, kernel-backed
@@ -220,10 +240,6 @@ class ServerConfig:
             raise ValueError("async_buffer_k must be >= 1")
         if self.async_concurrency is not None and self.async_concurrency < 1:
             raise ValueError("async_concurrency must be >= 1 (or None)")
-        if self.async_mode:
-            raise NotImplementedError(
-                "async_mode is not ported yet (ROADMAP Queue 1, item 11)"
-            )
         if self.transport_backend == "device":
             raise NotImplementedError(
                 "transport_backend='device' is not ported yet (ROADMAP Queue 1, item 13)"
@@ -267,11 +283,6 @@ class FederatedServer:
         eval_data: Optional[Dict[str, np.ndarray]] = None,
         eval_fn: Optional[Any] = None,
     ):
-        if not isinstance(clients, list):
-            raise NotImplementedError(
-                "lazy client populations are not ported yet (ROADMAP Queue 1, "
-                "item 12); pass a list of EdgeClient"
-            )
         if strategy.server_opt is not None:
             raise NotImplementedError(
                 f"strategy {strategy.name!r} uses a server-side optimizer, "
@@ -294,16 +305,60 @@ class FederatedServer:
         # split-stream discipline: select_cohort re-derives self.rng (the
         # cohort stream) and this transport stream at each round boundary
         self._transport_rng = None
+        if config.async_mode and strategy.robust and config.async_buffer_k < 2:
+            raise ValueError(
+                f"async_buffer_k={config.async_buffer_k} with robust "
+                f"strategy {strategy.name!r}: order-statistic aggregation "
+                "over a buffer of one silently degenerates to identity "
+                "(the single update IS its own trimmed mean/median/krum "
+                "pick); use async_buffer_k >= 2 or a weighted-mean strategy"
+            )
         self.global_params = task.init_fn(torch.Generator().manual_seed(config.seed))
+        self.history = History()
+        self.sim_time = 0.0
+        self.consecutive_failures = 0
+        self.terminated = False
+        # --- event-driven async engine state (config.async_mode) ---
+        # heap of (t_land_abs, seq, event) over in-flight updates; seq is
+        # the dispatch sequence number, unique, so events never compare
+        # their dicts
+        self._event_queue: List[Any] = []
+        self._event_seq = 0
+        # landed-but-unflushed updates (the FedBuff buffer), land order
+        self._async_buffer: List[Dict[str, Any]] = []
+        # client_ids with an update still in the queue (never re-dispatched)
+        self._in_flight: set = set()
+        # staleness clock: number of buffer flushes applied so far
+        self.model_version = 0
+        # per-tick outputs for the grid engine: provenance tokens of the
+        # tick's dispatched rows (set by the grid before finish_round) and
+        # the flush descriptor of the last tick (None without a flush)
+        self._plane_row_keys: Optional[tuple] = None
+        self._last_flush: Optional[Dict[str, Any]] = None
+        # grid hook, called (self, rnd) right after a tick's flush and
+        # before eval, so the memoized eval keys on the post-flush params
+        self._async_prov_hook = None
         # plane-resident error feedback: a StatePlane of per-client f32
         # residual rows (dense or sparse per config.state_plane), allocated
         # on the first compressed stacked round. The sequential engine keeps
         # per-client EdgeClient.residual.
         self._residual_plane: Optional[StatePlane] = None
-        self.history = History()
-        self.sim_time = 0.0
-        self.consecutive_failures = 0
-        self.terminated = False
+        # lazy population universe: client ids ARE state slots, and the
+        # O(population) id-keyed slot map is skipped
+        self._population: Optional[Population] = (
+            clients if isinstance(clients, Population) else None
+        )
+        if self._population is not None and config.async_mode:
+            raise ValueError(
+                "Population requires the synchronous engines: the async "
+                "tick loop tracks per-client in-flight state by slot map; "
+                "pass a materialized client list for async_mode"
+            )
+        self._client_slot = (
+            None
+            if self._population is not None
+            else {id(c): i for i, c in enumerate(self.clients)}
+        )
 
     # ------------------------------------------------------------------
     @property
@@ -442,7 +497,7 @@ class FederatedServer:
         crash = self.chaos.server_restart_in(record.t_start, self.sim_time)
         if crash is not None:
             # the server also died while waiting out this failed round
-            for c in self.clients:
+            for c in self._state_clients():
                 c.connected = False
             self.sim_time = max(self.sim_time, crash[0] + crash[1])
         self._end_round_failed(record)
@@ -454,7 +509,7 @@ class FederatedServer:
         crash + downtime. Consumes no RNG."""
         t_crash, downtime = crash
         record.cause = "server_restart"
-        for c in self.clients:
+        for c in self._state_clients():
             c.connected = False
         self.sim_time = t_crash + downtime
         self._end_round_failed(record)
@@ -499,19 +554,81 @@ class FederatedServer:
             self.rng = derive_rng(cfg.seed, _COHORT_STREAM, rnd)
             self._transport_rng = derive_rng(cfg.seed, _TRANSPORT_STREAM, rnd)
         t = self.sim_time
+        if cfg.async_mode:
+            return self._select_cohort_async(rnd, t)
         n_total = len(self.clients)
-        live = [c for c in self.clients if self.chaos.alive(t, c.client_id)]
+        if self._population is not None:
+            # lazy universe: live ids without materializing clients;
+            # live_ids=None is the O(1) path (no client-killing chaos: all
+            # ids live, in id order), the same draw as the list's
+            live = None
+            live_ids = self._population.live_ids(self.chaos, t)
+            n_live = n_total if live_ids is None else len(live_ids)
+        else:
+            live = [c for c in self.clients if self.chaos.alive(t, c.client_id)]
+            n_live = len(live)
         quorum = self.strategy.quorum(n_total)
         record = RoundRecord(rnd, t, t, 0, 0, False, 0.0)
-        if len(live) < quorum:
+        if n_live < quorum:
             # Flower blocks until min_fit clients are available; account
             # the wait as a failed round of deadline length
             self._fail_round(record, cause="no_live_quorum")
             return None
-        k = max(quorum, int(round(cfg.clients_per_round * len(live))))
-        k = min(int(round(k * max(cfg.over_provision, 1.0))), len(live))
-        idx = self.rng.choice(len(live), size=k, replace=False)
-        cohort = [live[i] for i in idx]
+        k = max(quorum, int(round(cfg.clients_per_round * n_live)))
+        k = min(int(round(k * max(cfg.over_provision, 1.0))), n_live)
+        idx = self.rng.choice(n_live, size=k, replace=False)
+        if live is None:
+            ids = idx if live_ids is None else live_ids[idx]
+            cohort = [self._population.client(int(cid)) for cid in ids]
+        else:
+            cohort = [live[i] for i in idx]
+        record.selected = k
+        record.selected_ids = [c.client_id for c in cohort]
+        links = [
+            c.link_override if c.link_override is not None
+            else self.chaos.link_at(t, c.client_id)
+            for c in cohort
+        ]
+        local_times = np.array(
+            [cfg.local_steps * c.step_time(cfg.base_step_cost) for c in cohort]
+        )
+        return PendingRound(
+            rnd=rnd,
+            record=record,
+            cohort=cohort,
+            links=links,
+            local_times=local_times,
+            connected=np.array([c.connected for c in cohort], bool),
+            upload_bytes=self.compressor.wire_bytes(self.global_params),
+            download_bytes=self.task.update_bytes,
+        )
+
+    def _select_cohort_async(self, rnd: int, t: float) -> PendingRound:
+        """Async dispatch half of a tick: fresh clients to dispatch against
+        the CURRENT model. Candidates are live clients without an update in
+        flight; ``async_concurrency`` caps the total in flight. No quorum
+        gate and no failed round here: a tick with nothing to dispatch
+        still drains the event queue (its PendingRound has an empty
+        cohort)."""
+        cfg = self.config
+        record = RoundRecord(rnd, t, t, 0, 0, False, 0.0)
+        live = [
+            c
+            for c in self.clients
+            if self.chaos.alive(t, c.client_id) and c.client_id not in self._in_flight
+        ]
+        budget = len(live)
+        if cfg.async_concurrency is not None:
+            budget = max(cfg.async_concurrency - len(self._in_flight), 0)
+        k = 0
+        if live and budget > 0:
+            k = max(1, int(round(cfg.clients_per_round * len(live))))
+            k = min(k, budget, len(live))
+        if k > 0:
+            idx = self.rng.choice(len(live), size=k, replace=False)
+            cohort = [live[i] for i in idx]
+        else:
+            cohort = []
         record.selected = k
         record.selected_ids = [c.client_id for c in cohort]
         links = [
@@ -537,6 +654,9 @@ class FederatedServer:
         """Sample the pending round's transport on this server's streams:
         the batched cohort draw or the sequential per-client loop. Returns
         (completed [k], times [k], reconnects [k], bytes_acked [k])."""
+        if len(pending.cohort) == 0:  # async drain-only tick
+            z = np.zeros(0, float)
+            return np.zeros(0, bool), z, z, z
         if self.config.batched:
             return self._cohort_transport(pending)
         outs = [
@@ -570,6 +690,8 @@ class FederatedServer:
         deadline, straggler close, quorum — and emit the round's FitJob (or
         record a failed round and return None)."""
         cfg = self.config
+        if cfg.async_mode:
+            return self._finish_transport_async(pending, completed, times, reconnects, bytes_acked)
         record = pending.record
         quorum = self.strategy.quorum(len(self.clients))
         record.reconnects += float(np.sum(np.asarray(reconnects, float)))
@@ -602,6 +724,32 @@ class FederatedServer:
             prox_mu=self.strategy.prox_mu,
         )
 
+    def _finish_transport_async(
+        self, pending: PendingRound, completed, times, reconnects, bytes_acked=None,
+    ) -> FitJob:
+        """Async post-transport half: fold the tick's sampled flows into
+        delivery EVENTS. Failed flows and stragglers past the deadline are
+        dropped here and never enter the event queue. Always returns a
+        FitJob (possibly with no clients: the drain still runs); clients
+        are listed in LAND order, their deltas computed against the
+        CURRENT global params (the model downloaded at dispatch)."""
+        cfg = self.config
+        record = pending.record
+        record.reconnects += float(np.sum(np.asarray(reconnects, float)))
+        self._record_bytes(record, completed, bytes_acked)
+        for client, done in zip(pending.cohort, completed):
+            client.connected = bool(done)  # failed exchange leaves conn dead
+        events = delivery_events(completed, times, t_start=0.0, deadline=cfg.round_deadline)
+        return FitJob(
+            rnd=pending.rnd,
+            record=record,
+            clients=[pending.cohort[j] for _, j in events],
+            arrivals=[t for t, _ in events],
+            payload_bytes=pending.upload_bytes,
+            steps=cfg.local_steps,
+            prox_mu=self.strategy.prox_mu,
+        )
+
     def begin_round(self, rnd: int) -> Optional[FitJob]:
         """``select_cohort`` -> ``run_transport`` -> ``finish_transport``."""
         pending = self.select_cohort(rnd)
@@ -615,6 +763,8 @@ class FederatedServer:
         [C,...] or None, deltas list, weights, per_metrics). Batch plans
         draw from ``self.rng``, the cohort stream."""
         cfg = self.config
+        if not job.clients:  # async drain-only tick: nothing to train
+            return None, [], [], []
         if cfg.batched and self.task.batched_local_fit is not None:
             stacked, weights, per_metrics = self.task.batched_local_fit(
                 self.global_params, job.clients, job.steps, self.rng, job.prox_mu
@@ -644,9 +794,34 @@ class FederatedServer:
 
     def client_slots(self, clients: List[EdgeClient]) -> List[int]:
         """Population-wide state slots for a list of (delivering) clients:
-        list universes key them by ``client_id``. ``StatePlane.rows_for``
-        maps them to physical buffer rows."""
-        return [c.client_id for c in clients]
+        list universes key them by list position, lazy populations by
+        client id. They are what grid compression provenance keys on;
+        ``StatePlane.rows_for`` maps them to physical buffer rows."""
+        if self._client_slot is None:
+            return [c.client_id for c in clients]
+        return [self._client_slot[id(c)] for c in clients]
+
+    def _state_clients(self) -> List[EdgeClient]:
+        """Clients that may hold non-default state: the whole list, or the
+        population's materialized clients (untouched lazy clients are
+        disconnected with zero counters by construction)."""
+        if self._population is not None:
+            return self._population.active_clients()
+        return self.clients
+
+    def _client_at(self, slot: int) -> EdgeClient:
+        """The client occupying a state slot (checkpoint restore path)."""
+        if self._population is not None:
+            return self._population.peek(slot)
+        return self.clients[slot]
+
+    def _slotted_state_clients(self):
+        """(slot, client) pairs for clients that may hold per-client state:
+        the checkpoint protocol's iteration surface, O(active) for
+        populations."""
+        if self._population is not None:
+            return [(c.client_id, c) for c in self._population.active_clients()]
+        return list(enumerate(self.clients))
 
     def finish_round(
         self, job: FitJob, stacked, deltas, weights, per_metrics,
@@ -667,20 +842,36 @@ class FederatedServer:
         cfg = self.config
         rnd = job.rnd
         record = job.record
-        round_time = min(max(job.arrivals), cfg.round_deadline)
         # fault domain, checked before any state mutates: a server crash
         # inside the round span loses the round outright; a non-finite
-        # loss/delta rejects it
-        if not fault_checked:
-            crash = self.chaos.server_restart_in(record.t_start, record.t_start + round_time)
-            if crash is not None:
-                self._abort_round_server_restart(record, crash)
-                return
-            if cfg.quarantine:
-                cause = self._divergence_cause(stacked, deltas, per_metrics)
-                if cause is not None:
-                    self._quarantine_round(job, cause)
+        # loss/delta rejects it. An async tick's crash window is the full
+        # deadline horizon (every event the tick can land falls in it), and
+        # a crash there voids the queue and the buffer too.
+        if cfg.async_mode:
+            if not fault_checked:
+                crash = self.chaos.server_restart_in(
+                    record.t_start, record.t_start + cfg.round_deadline
+                )
+                if crash is not None:
+                    self._abort_tick_server_restart(record, crash)
                     return
+                if cfg.quarantine and job.clients:
+                    cause = self._divergence_cause(stacked, deltas, per_metrics)
+                    if cause is not None:
+                        self._quarantine_round(job, cause)
+                        return
+        else:
+            round_time = min(max(job.arrivals), cfg.round_deadline)
+            if not fault_checked:
+                crash = self.chaos.server_restart_in(record.t_start, record.t_start + round_time)
+                if crash is not None:
+                    self._abort_round_server_restart(record, crash)
+                    return
+                if cfg.quarantine:
+                    cause = self._divergence_cause(stacked, deltas, per_metrics)
+                    if cause is not None:
+                        self._quarantine_round(job, cause)
+                        return
 
         # compression: the plane path keeps the cohort stacked (the
         # delivering rows' residuals are gathered from the StatePlane,
@@ -712,6 +903,16 @@ class FederatedServer:
             client.bytes_sent += job.payload_bytes
             record.metrics.update({f"client_{client.client_id}_{k}": v for k, v in m.items()})
 
+        if cfg.async_mode:
+            flushed = self._async_tick(job, stacked, deltas, weights, rnd)
+            if self._async_prov_hook is not None:
+                self._async_prov_hook(self, rnd)
+            if flushed and self.eval_data is not None and (rnd + 1) % cfg.eval_every == 0:
+                m = self._evaluate(self.global_params, self.eval_data)
+                m["round"] = rnd
+                m["t"] = self.sim_time
+                self.history.eval_metrics.append(m)
+            return
         if cfg.batched:
             # stacked-delta fast path: kernel-backed reduction
             if stacked is None:
@@ -734,23 +935,440 @@ class FederatedServer:
             m["t"] = self.sim_time
             self.history.eval_metrics.append(m)
 
-    def run(self, *, checkpoint_dir: Optional[str] = None,
-            stop_after_round: Optional[int] = None) -> History:
-        """Drive the configured number of rounds; ``stop_after_round=k``
-        exits cleanly once round k completes."""
-        if checkpoint_dir is not None:
-            raise NotImplementedError(
-                "checkpoint_dir is not ported yet (ROADMAP Queue 1, item 10)"
+
+    # ------------------------------------------------------------------
+    # event-driven async engine (config.async_mode)
+    # ------------------------------------------------------------------
+    def _abort_tick_server_restart(self, record: RoundRecord, crash) -> None:
+        """Async twin of ``_abort_round_server_restart``: the crash also
+        loses every in-flight update and the landed-but-unflushed buffer
+        (they live in server memory)."""
+        self._event_queue.clear()
+        self._async_buffer.clear()
+        self._in_flight.clear()
+        self._abort_round_server_restart(record, crash)
+
+    def _async_tick(self, job: FitJob, stacked, deltas, weights, rnd: int) -> bool:
+        """Enqueue the tick's dispatched updates, then land queued events in
+        delivery order until the buffer flushes (or the queue drains).
+        Returns True when a flush advanced the model.
+
+        - *Enqueue.* Each deliverable dispatch becomes a heap event at its
+          absolute land time, carrying its delta, the model version current
+          at dispatch (its staleness clock) and, in a grid, the provenance
+          token the grid staged in ``_plane_row_keys``.
+        - *Land.* Events pop in (t_land, seq) order; chaos ``alive()`` is
+          checked again at LAND time, and a client dead by then drops its
+          update.
+        - *Flush.* At ``async_buffer_k`` buffered updates each is weighted
+          by (1 + staleness)^-alpha, a Python float applied as ``d * w``
+          (skipped where every weight is 1.0, which keeps degenerate async
+          bitwise equal to sync), and the WHOLE buffer aggregates in one
+          stacked pass: one ``fedavg_reduce`` launch per flush on the card.
+          At most one flush per tick.
+        - *Clock/breaker.* The clock advances to the last landed event; a
+          tick landing nothing is a failed tick of deadline length and
+          counts toward ``max_consecutive_failures``."""
+        cfg = self.config
+        record = job.record
+        prov = self._plane_row_keys
+        self._plane_row_keys = None
+        if job.clients:
+            if stacked is not None:
+                deltas = tree_unstack(stacked)
+            for j, (client, dt) in enumerate(zip(job.clients, job.arrivals)):
+                ev = {
+                    "client_id": client.client_id,
+                    "slot": self._client_slot[id(client)],
+                    "delta": deltas[j],
+                    "weight": weights[j],
+                    "version": self.model_version,
+                    "prov": None if prov is None else prov[j],
+                }
+                heapq.heappush(self._event_queue, (record.t_start + float(dt), self._event_seq, ev))
+                self._event_seq += 1
+                self._in_flight.add(client.client_id)
+
+        landed = 0
+        dropped_dead = 0
+        last_land: Optional[float] = None
+        flush_time: Optional[float] = None
+        while self._event_queue:
+            t_land, _, ev = heapq.heappop(self._event_queue)
+            self._in_flight.discard(ev["client_id"])
+            last_land = t_land
+            if not self.chaos.alive(t_land, ev["client_id"]):
+                # mid-flight death: dispatched (and billed) but gone at land
+                dropped_dead += 1
+                continue
+            ev["t_land"] = t_land
+            self._async_buffer.append(ev)
+            landed += 1
+            if len(self._async_buffer) >= cfg.async_buffer_k:
+                flush_time = t_land
+                break
+        record.delivered = landed
+        if dropped_dead:
+            record.metrics["async_dropped_dead"] = float(dropped_dead)
+
+        self._last_flush = None
+        if flush_time is not None:
+            buf = self._async_buffer
+            self._async_buffer = []
+            stales = [self.model_version - e["version"] for e in buf]
+            ws = [(1.0 + s) ** (-cfg.staleness_alpha) for s in stales]
+            if any(w != 1.0 for w in ws):
+                scaled = [tree_map(lambda d, _w=w: d * _w, e["delta"]) for e, w in zip(buf, ws)]
+            else:
+                scaled = [e["delta"] for e in buf]  # w == 1.0: skip the multiply
+            bw = [e["weight"] for e in buf]
+            if cfg.batched:
+                self.global_params = self.strategy.aggregate_stacked(
+                    self.global_params, tree_stack(scaled), bw, rnd
+                )
+            else:
+                self.global_params = self.strategy.aggregate(self.global_params, scaled, bw, rnd)
+            self.model_version += 1
+            record.metrics["async_flush_size"] = float(len(buf))
+            self._last_flush = {
+                "version": self.model_version,
+                "opaque": any(e["prov"] is None for e in buf),
+                # flush identity for grid provenance: which updates, how
+                # stale, at what weight
+                "events": tuple((e["prov"], int(s), float(w)) for e, s, w in zip(buf, stales, bw)),
+            }
+
+        if landed > 0:
+            self.sim_time = max(
+                self.sim_time, flush_time if flush_time is not None else last_land
             )
+            self.consecutive_failures = 0
+            record.t_end = self.sim_time
+            self.history.rounds.append(record)
+        else:
+            self._fail_round(record, cause="no_updates")
+        return flush_time is not None
+
+    def run(
+        self,
+        *,
+        checkpoint_dir: Optional[str] = None,
+        checkpoint_every: int = 1,
+        checkpoint_keep: int = 3,
+        stop_after_round: Optional[int] = None,
+    ) -> History:
+        """Drive the configured number of rounds (sync) or ticks (async).
+
+        ``checkpoint_dir`` makes the run crash-consistent: every
+        ``checkpoint_every`` rounds the full boundary state persists
+        (params, residual plane, RNG cursors, history, client state,
+        compressor draw counters and, async, the event queue, buffer and
+        staleness clocks), and a re-invocation with the same directory
+        resumes at the first unfinished round, bitwise equal to the
+        uninterrupted run. ``stop_after_round=k`` exits cleanly once round
+        k completes."""
+        mgr: Optional[CheckpointManager] = None
+        start_round = 0
+        if checkpoint_dir is not None:
+            self._check_checkpointable()
+            mgr = CheckpointManager(checkpoint_dir, keep=checkpoint_keep)
+            start_round = self._restore_checkpoint(mgr)
         end_round = (
             self.config.rounds
             if stop_after_round is None
             else min(self.config.rounds, stop_after_round)
         )
-        for rnd in range(end_round):
+        for rnd in range(start_round, end_round):
             if self.terminated:
                 break
             job = self.begin_round(rnd)
             if job is not None:
                 self.finish_round(job, *self.execute_fit(job))
+            if mgr is not None and (rnd + 1) % checkpoint_every == 0:
+                self._save_checkpoint(mgr, rnd + 1)
         return self.history
+
+    # ------------------------------------------------------------------
+    # round-boundary checkpoint protocol (per point; the grid engine
+    # composes the same building blocks across points)
+    # ------------------------------------------------------------------
+    def _check_checkpointable(self) -> None:
+        comp = self.compressor
+        if (
+            comp.name != "none"
+            and not comp.fingerprint
+            and (comp.state_get is None or comp.state_set is None)
+        ):
+            raise ValueError(
+                f"checkpoint_dir: compressor {comp.name!r} carries "
+                "Python-side state (empty fingerprint) without state_get/"
+                "state_set accessors, so the round-boundary checkpoint "
+                "cannot capture it"
+            )
+
+    def _checkpoint_fingerprint(self) -> Dict[str, Any]:
+        cfg = self.config
+        return {
+            "kind": "point",
+            "seed": int(cfg.seed),
+            "rounds": int(cfg.rounds),
+            "n_clients": len(self.clients),
+            "async_mode": bool(cfg.async_mode),
+            "async_buffer_k": int(cfg.async_buffer_k),
+            "strategy": self.strategy.name,
+            "compressor": self.compressor.name,
+        }
+
+    def _device(self) -> torch.device:
+        return tree_leaves(self.global_params)[0].device
+
+    def checkpoint_arrays(self) -> Dict[str, Any]:
+        """The boundary state that lives in tensors: params, the residual
+        plane, per-client sequential residuals and, async, the delta trees
+        riding in the event queue and the flush buffer."""
+        node: Dict[str, Any] = {"params": self.global_params}
+        if self._residual_plane is not None:
+            # dense: the full buffer; sparse: occupied rows compacted in
+            # row order (their slots ride the manifest's slot_maps entry)
+            node["residual"] = self._residual_plane.state_arrays()
+        if self.strategy.server_state is not None:
+            node["server_state"] = self.strategy.server_state
+        cres = {
+            f"c{j}": c.residual for j, c in self._slotted_state_clients() if c.residual is not None
+        }
+        if cres:
+            node["cres"] = cres
+        if self._event_queue:
+            node["evq"] = {f"e{n}": ev["delta"] for n, (_, _, ev) in enumerate(self._event_queue)}
+        if self._async_buffer:
+            node["evb"] = {f"b{n}": ev["delta"] for n, ev in enumerate(self._async_buffer)}
+        return node
+
+    def checkpoint_meta(self) -> Dict[str, Any]:
+        """JSON-safe boundary state: clocks, RNG cursors, history, client
+        state, compressor draw counters, and the async queue/buffer
+        descriptors (their delta trees live in ``checkpoint_arrays``).
+        Every number is a Python float or int, so a restore is bitwise."""
+        h = self.history
+
+        def _ev_meta(t_land, seq, ev):
+            return {
+                "t_land": float(t_land),
+                "seq": int(seq),
+                "client_id": int(ev["client_id"]),
+                "slot": int(ev["slot"]),
+                "weight": _jsonable(ev["weight"]),
+                "version": int(ev["version"]),
+                "prov": ev["prov"],
+            }
+
+        def _client_meta(c):
+            return {
+                "connected": bool(c.connected),
+                "rounds_participated": int(c.rounds_participated),
+                "bytes_sent": int(c.bytes_sent),
+            }
+
+        comp_state = self.compressor.state_get() if self.compressor.state_get is not None else None
+        lazy = self._population is not None
+        return {
+            "sim_time": float(self.sim_time),
+            "consecutive_failures": int(self.consecutive_failures),
+            "terminated": bool(self.terminated),
+            "status": h.status,
+            "cause": h.cause,
+            "rng_state": _jsonable(self.rng.bit_generator.state),
+            "transport_rng_state": (
+                _jsonable(self._transport_rng.bit_generator.state)
+                if self._transport_rng is not None
+                else None
+            ),
+            # list universes save every client; lazy populations only the
+            # touched ones, keyed by slot
+            "clients": None if lazy else [_client_meta(c) for c in self.clients],
+            "clients_sparse": (
+                {str(j): _client_meta(c) for j, c in self._slotted_state_clients()}
+                if lazy
+                else None
+            ),
+            "rounds": [_jsonable(dataclasses.asdict(r)) for r in h.rounds],
+            "eval_metrics": [_jsonable(m) for m in h.eval_metrics],
+            "has_residual": self._residual_plane is not None,
+            "residual_plane": (
+                self._residual_plane.state_meta() if self._residual_plane is not None else None
+            ),
+            "has_server_state": self.strategy.server_state is not None,
+            "residual_clients": [
+                j for j, c in self._slotted_state_clients() if c.residual is not None
+            ],
+            "compressor_state": _jsonable(comp_state),
+            # async: the staleness clock, the dispatch sequence cursor, and
+            # the queue/buffer in HEAP-LIST order (the same list restores
+            # the same heap)
+            "model_version": int(self.model_version),
+            "event_seq": int(self._event_seq),
+            "queue": [_ev_meta(t, s, ev) for t, s, ev in self._event_queue],
+            "buffer": [_ev_meta(ev["t_land"], -1, ev) for ev in self._async_buffer],
+        }
+
+    def checkpoint_template(self, mp: Dict[str, Any]) -> Dict[str, Any]:
+        """Array-tree template matching ``checkpoint_arrays`` for a fresh
+        server, shaped from the saved metadata."""
+        device = self._device()
+        node: Dict[str, Any] = {"params": self.global_params}
+        if mp["has_residual"]:
+            node["residual"] = StatePlane.template_arrays(
+                self.global_params, len(self.clients), mp.get("residual_plane"), device=device
+            )
+        if mp["has_server_state"]:
+            raise NotImplementedError(
+                "the checkpoint carries server-optimizer state, and server-side "
+                "optimizers are not ported yet (ROADMAP Queue 1, item 5)"
+            )
+        if mp.get("residual_clients"):
+            f32 = tree_map(
+                lambda l: torch.zeros(l.shape, dtype=torch.float32, device=device),
+                self.global_params,
+            )
+            node["cres"] = {f"c{j}": f32 for j in mp["residual_clients"]}
+        zeros = tree_map(torch.zeros_like, self.global_params)
+        if mp.get("queue"):
+            node["evq"] = {f"e{n}": zeros for n in range(len(mp["queue"]))}
+        if mp.get("buffer"):
+            node["evb"] = {f"b{n}": zeros for n in range(len(mp["buffer"]))}
+        return node
+
+    def apply_checkpoint(
+        self,
+        mp: Dict[str, Any],
+        tree: Dict[str, Any],
+        slot_maps: Optional[Dict[str, Any]] = None,
+    ) -> None:
+        """Restore the boundary state captured by ``checkpoint_arrays`` +
+        ``checkpoint_meta`` onto this (freshly constructed) server.
+
+        ``slot_maps`` carries the manifest's slot-map entry: for sparse
+        planes, the slot each saved row belongs to. The restore is
+        storage-agnostic, so dense checkpoints resume into sparse runs and
+        vice versa, bitwise on every History observable. Arrays come back
+        onto the server's device."""
+        device = self._device()
+
+        def on_device(t):
+            return tree_map(lambda l: torch.as_tensor(l).to(device), t)
+
+        self.global_params = on_device(tree["params"])
+        if mp["has_residual"]:
+            self._residual_plane = StatePlane.from_checkpoint(
+                self.global_params,
+                len(self.clients),
+                mp.get("residual_plane"),
+                tree["residual"],
+                storage=self.config.state_plane,
+                slots=(slot_maps or {}).get("residual"),
+                device=device,
+            )
+        for j in mp.get("residual_clients", []):
+            self._client_at(j).residual = on_device(tree["cres"][f"c{j}"])
+        self.sim_time = float(mp["sim_time"])
+        self.consecutive_failures = int(mp["consecutive_failures"])
+        self.terminated = bool(mp["terminated"])
+        self.history.status = mp["status"]
+        self.history.cause = mp["cause"]
+        self.history.rounds = [RoundRecord(**r) for r in mp["rounds"]]
+        self.history.eval_metrics = [dict(m) for m in mp["eval_metrics"]]
+        self.rng.bit_generator.state = mp["rng_state"]
+        if mp["transport_rng_state"] is not None:
+            self._transport_rng = np.random.default_rng()
+            self._transport_rng.bit_generator.state = mp["transport_rng_state"]
+        if mp.get("clients") is not None:
+            for c, cs in zip(self.clients, mp["clients"]):
+                c.connected = bool(cs["connected"])
+                c.rounds_participated = int(cs["rounds_participated"])
+                c.bytes_sent = int(cs["bytes_sent"])
+        for j, cs in (mp.get("clients_sparse") or {}).items():
+            c = self._client_at(int(j))
+            c.connected = bool(cs["connected"])
+            c.rounds_participated = int(cs["rounds_participated"])
+            c.bytes_sent = int(cs["bytes_sent"])
+        if mp.get("compressor_state") is not None and self.compressor.state_set is not None:
+            self.compressor.state_set(mp["compressor_state"])
+        # async engine state
+        self.model_version = int(mp.get("model_version", 0))
+        self._event_seq = int(mp.get("event_seq", 0))
+
+        def _ev(em, delta):
+            return {
+                "client_id": int(em["client_id"]),
+                "slot": int(em["slot"]),
+                "delta": delta,
+                "weight": em["weight"],
+                "version": int(em["version"]),
+                "prov": em["prov"],
+            }
+
+        self._event_queue = [
+            (float(em["t_land"]), int(em["seq"]), _ev(em, on_device(tree["evq"][f"e{n}"])))
+            for n, em in enumerate(mp.get("queue", []))
+        ]
+        self._async_buffer = []
+        for n, em in enumerate(mp.get("buffer", [])):
+            ev = _ev(em, on_device(tree["evb"][f"b{n}"]))
+            ev["t_land"] = float(em["t_land"])
+            self._async_buffer.append(ev)
+        self._in_flight = {ev["client_id"] for _, _, ev in self._event_queue}
+
+    def checkpoint_slot_maps(self) -> Dict[str, Any]:
+        """Manifest ``slot_maps`` entry: per-plane slot lists naming the slot
+        of each saved row, in ``state_arrays`` row order. Dense planes save
+        nothing (row i IS slot i)."""
+        if self._residual_plane is not None and self._residual_plane.storage == "sparse":
+            return {"residual": self._residual_plane.slot_list()}
+        return {}
+
+    def _save_checkpoint(self, mgr: CheckpointManager, next_round: int) -> None:
+        mgr.save(
+            next_round,
+            self.checkpoint_arrays(),
+            metadata={
+                "next_round": int(next_round),
+                "fingerprint": self._checkpoint_fingerprint(),
+                "point": self.checkpoint_meta(),
+            },
+            slot_maps=self.checkpoint_slot_maps(),
+        )
+
+    def _restore_checkpoint(self, mgr: CheckpointManager) -> int:
+        step = mgr.latest_step()
+        if step is None:
+            return 0
+        meta = mgr.metadata(step)
+        if meta["fingerprint"] != self._checkpoint_fingerprint():
+            raise ValueError(
+                "checkpoint_dir holds a checkpoint from a DIFFERENT run "
+                f"(saved {meta['fingerprint']!r} vs this server "
+                f"{self._checkpoint_fingerprint()!r}); refusing to mix"
+            )
+        mp = meta["point"]
+        tree, _ = load_tree(mgr._step_dir(step), self.checkpoint_template(mp))
+        self.apply_checkpoint(mp, tree, slot_maps=mgr.slot_maps(step))
+        return int(meta["next_round"])
+
+
+def _jsonable(v):
+    """numpy and torch scalars -> Python numbers, tuples -> lists,
+    recursively: round-boundary metadata must survive a JSON round trip
+    bit-exactly (floats are IEEE-exact through json)."""
+    if isinstance(v, torch.Tensor):
+        return _jsonable(v.item())
+    if isinstance(v, np.floating):
+        return float(v)
+    if isinstance(v, np.integer):
+        return int(v)
+    if isinstance(v, np.bool_):
+        return bool(v)
+    if isinstance(v, dict):
+        return {k: _jsonable(x) for k, x in v.items()}
+    if isinstance(v, (list, tuple)):
+        return [_jsonable(x) for x in v]
+    return v

@@ -33,12 +33,13 @@ from repro_torch.core import (
     EdgeClient,
     FederatedServer,
     GridPoint,
+    Population,
     ServerConfig,
     fedavg,
     mnist_cnn_task,
     run_fl_grid,
 )
-from repro_torch.data import make_federated_mnist, synthetic_mnist
+from repro_torch.data import federated_mnist_factory, make_federated_mnist, synthetic_mnist
 from repro_torch.transport import DEFAULT, LAB, LinkProfile, RetryPolicy, TcpParams
 from repro_torch.utils import resolve_device
 
@@ -130,26 +131,41 @@ def _make_point(
     async_concurrency: Optional[int] = None,
     staleness_alpha: float = 0.5,
     population: Optional[int] = None,
+    population_factory=None,
+    max_cached_shards: Optional[int] = None,
     state_plane: str = "dense",
     clients_per_round: float = 1.0,
 ) -> GridPoint:
-    if population is not None:
-        raise NotImplementedError(
-            "population points (a lazy client universe) are not ported yet "
-            "(ROADMAP Queue 1, item 12)"
-        )
     # data_seed decouples shard contents from the RNG-stream seed: grids
     # with spawned per-point seeds keep ONE shared shard set (dataset
-    # identity is what the grid engine coalesces training rows on).
-    # client_links: per-client LinkProfile overrides (None = base link)
-    shards = _shared_shards(seed if data_seed is None else data_seed)
-    clients = [
-        EdgeClient(
-            i, dataset=shards[i],
-            link_override=None if client_links is None else client_links[i],
+    # identity is what the grid engine coalesces training rows on)
+    dseed = seed if data_seed is None else data_seed
+    if population is not None:
+        # population-scale point: a lazy client universe, nothing
+        # materializes until a cohort is drawn. The default factory makes
+        # shard c from its own SeedSequence((dseed, c)) stream.
+        # client_links is an O(population) list, so it is refused here:
+        # use Population(link_override_fn=...) instead.
+        if client_links is not None:
+            raise ValueError(
+                "population points take link overrides via "
+                "Population(link_override_fn=...), not client_links"
+            )
+        clients = Population(
+            population,
+            population_factory or federated_mnist_factory(EXAMPLES_PER_CLIENT, seed=dseed),
+            max_cached_shards=max_cached_shards or 256,
         )
-        for i in range(N_CLIENTS)
-    ]
+    else:
+        # client_links: per-client LinkProfile overrides (None = base link)
+        shards = _shared_shards(dseed)
+        clients = [
+            EdgeClient(
+                i, dataset=shards[i],
+                link_override=None if client_links is None else client_links[i],
+            )
+            for i in range(N_CLIENTS)
+        ]
     return GridPoint(
         clients=clients,
         strategy=fedavg(min_fit=min_fit),

@@ -25,17 +25,22 @@ def resolve_device(device: Optional[Union[str, torch.device]] = None) -> torch.d
 
 @contextlib.contextmanager
 def f32_math(device: Union[str, torch.device]) -> Iterator[None]:
-    """Full-f32 library math inside the block on a CUDA ``device``: TF32 off
-    for cuDNN convolutions and cuBLAS matmuls (PyTorch turns it on for
-    cuDNN by default, which keeps ~3 digits where the reference computes in
-    f32). Both flags are restored on exit, also after an exception. On the
-    CPU this does nothing."""
+    """Full-f32, reproducible library math inside the block on a CUDA
+    ``device``: TF32 off for cuDNN convolutions and cuBLAS matmuls (PyTorch
+    turns it on for cuDNN by default, which keeps ~3 digits where the
+    reference computes in f32), and cuDNN held to deterministic algorithms
+    without autotuning (its default conv backward sums with atomics, so two
+    identical runs of the sequential engine differed in the last bit). The
+    flags are restored on exit, also after an exception. On the CPU this
+    does nothing."""
     if torch.device(device).type != "cuda":
         yield
         return
-    saved = (torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32)
-    torch.backends.cudnn.allow_tf32 = torch.backends.cuda.matmul.allow_tf32 = False
+    cudnn, matmul = torch.backends.cudnn, torch.backends.cuda.matmul
+    saved = (cudnn.allow_tf32, matmul.allow_tf32, cudnn.deterministic, cudnn.benchmark)
+    cudnn.allow_tf32 = matmul.allow_tf32 = False
+    cudnn.deterministic, cudnn.benchmark = True, False
     try:
         yield
     finally:
-        torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32 = saved
+        cudnn.allow_tf32, matmul.allow_tf32, cudnn.deterministic, cudnn.benchmark = saved

@@ -18,7 +18,12 @@ The fixture is written on the CPU by the reference:
 - ``tests/data/card_reference.json``: each run's History (every
   ``RoundRecord`` field, events included, ``eval_metrics``, ``status`` and
   ``cause``) and each client's (connected, rounds participated, bytes
-  sent). Python floats round-trip exactly through ``json``.
+  sent). Python floats round-trip exactly through ``json``;
+- ``tests/data/card_reference_ckpt/``: the reference's point checkpoint
+  of the ``CHECKPOINT_RUN`` run after round 2 of 3 (``LATEST`` and
+  ``step_000000002/``, in the format of ``checkpoint/store.py``). A port
+  server restores it and finishes the run (``resume``), held to that run's
+  committed History.
 
 Not collected by pytest (the name does not start with ``test_``).
 """
@@ -53,7 +58,14 @@ ENGINES = [
 # the plane compressors with kernels, batched engine, sparse StatePlane,
 # zero initial residuals (the server's default)
 COMPRESSED = ("int8", "bf16")
-RUNS = [e[0] for e in ENGINES] + [f"compressed_{c}" for c in COMPRESSED]
+# the async engine, batched: degenerate (one client, clean link, a buffer
+# of one) and buffered (k=3, half the clients throttled, staleness weights)
+ASYNC = ("async_degenerate", "async_buffered")
+RUNS = [e[0] for e in ENGINES] + [f"compressed_{c}" for c in COMPRESSED] + list(ASYNC)
+# the run whose round-2 checkpoint is committed (single-stream stochastic
+# transport: the restore must carry the generator's state exactly)
+CHECKPOINT_RUN = "batched_stochastic"
+CHECKPOINT_PATH = DATA / "card_reference_ckpt"
 
 
 def _chaos(pkg, tr, kind):
@@ -67,14 +79,15 @@ def _chaos(pkg, tr, kind):
     return sched
 
 
-def _run(core, data, tr, chaos_pkg, task, name, overrides, chaos_kind, tcp_name):
-    """One engine run: 6 clients x 64 examples, 3 rounds of 2 local steps."""
+def _server(core, data, tr, chaos_pkg, task, name, overrides, chaos_kind, tcp_name):
+    """One engine run's server: 6 clients x 64 examples, 3 rounds of 2 local
+    steps."""
     shards = data.make_federated_mnist(6, 64, seed=0)
     clients = [core.EdgeClient(i, dataset=s) for i, s in enumerate(shards)]
     kw = dict(rounds=3, local_steps=2, seed=0, **overrides)
     if name == "batched_retry_zero_rtt":
         kw["retry"] = tr.RetryPolicy(max_retries=2, jitter=0.3, resume=True)
-    server = core.FederatedServer(
+    return core.FederatedServer(
         task,
         clients,
         core.fedavg(min_fit=0.3),
@@ -83,7 +96,11 @@ def _run(core, data, tr, chaos_pkg, task, name, overrides, chaos_kind, tcp_name)
         config=core.ServerConfig(**kw),
         eval_data=data.synthetic_mnist(2000, seed=77),
     )
-    return server.run(), clients
+
+
+def _run(core, data, tr, chaos_pkg, task, name, overrides, chaos_kind, tcp_name):
+    server = _server(core, data, tr, chaos_pkg, task, name, overrides, chaos_kind, tcp_name)
+    return server.run(), server.clients
 
 
 def _run_compressed(core, data, tr, chaos_pkg, comp_pkg, task, comp):
@@ -103,14 +120,56 @@ def _run_compressed(core, data, tr, chaos_pkg, comp_pkg, task, comp):
     return server.run(), clients
 
 
+def _run_async(core, data, tr, chaos_pkg, task, name):
+    """``async_degenerate``: 1 client x 64 examples on a clean link, buffer
+    of one, 3 ticks. ``async_buffered``: 6 clients x 64 examples, clients
+    0-2 at a fifth of the compute rate, buffer of 3, alpha 0.5, the
+    quickstart chaos (clients die mid-flight), 4 ticks. Both batched, 2
+    local steps."""
+    if name == "async_degenerate":
+        n, kw, sched = 1, dict(rounds=3, async_buffer_k=1), chaos_pkg.ChaosSchedule(tr.LAB)
+    else:
+        n, kw = 6, dict(rounds=4, async_buffer_k=3, staleness_alpha=0.5)
+        sched = _chaos(chaos_pkg, tr, "quickstart")
+    shards = data.make_federated_mnist(n, 64, seed=0)
+    clients = [core.EdgeClient(i, dataset=s) for i, s in enumerate(shards)]
+    for c in clients[: n // 2]:
+        c.compute_rate = 0.2
+    server = core.FederatedServer(
+        task, clients, core.fedavg(min_fit=0.3), tcp=tr.DEFAULT, chaos=sched,
+        config=core.ServerConfig(local_steps=2, seed=0, batched=True, async_mode=True, **kw),
+        eval_data=data.synthetic_mnist(2000, seed=77),
+    )
+    return server.run(), clients
+
+
 def run(name, task, core, data, tr, chaos_pkg, comp_pkg):
     """Run ``name`` (one of ``RUNS``) with the given package's modules;
     returns (History, clients)."""
     if name.startswith("compressed_"):
         return _run_compressed(core, data, tr, chaos_pkg, comp_pkg, task,
                                name[len("compressed_"):])
+    if name in ASYNC:
+        return _run_async(core, data, tr, chaos_pkg, task, name)
     engine = next(e for e in ENGINES if e[0] == name)
     return _run(core, data, tr, chaos_pkg, task, *engine)
+
+
+def checkpoint_server(task, core, data, tr, chaos_pkg, comp_pkg):
+    """A fresh server of ``CHECKPOINT_RUN`` with the given package's modules."""
+    engine = next(e for e in ENGINES if e[0] == CHECKPOINT_RUN)
+    return _server(core, data, tr, chaos_pkg, task, *engine)
+
+
+def resume(task, directory, core, data, tr, chaos_pkg, comp_pkg):
+    """Finish ``CHECKPOINT_RUN`` from a copy of the committed round-2
+    checkpoint in ``directory`` (a scratch directory: the run writes its
+    round-3 checkpoint there). Returns (History, clients)."""
+    import shutil
+
+    shutil.copytree(CHECKPOINT_PATH, directory, dirs_exist_ok=True)
+    server = checkpoint_server(task, core, data, tr, chaos_pkg, comp_pkg)
+    return server.run(checkpoint_dir=str(directory)), server.clients
 
 
 def port_packages():
@@ -251,6 +310,20 @@ def main() -> None:
     DATA.mkdir(exist_ok=True)
     np.savez(PARAMS_PATH, **flat)
     HISTORY_PATH.write_text(json.dumps(records, indent=1) + "\n")
+    write_checkpoint(task, CHECKPOINT_PATH, pkgs)
+
+
+def write_checkpoint(task, directory, pkgs) -> None:
+    """The reference's round-2 checkpoint of ``CHECKPOINT_RUN`` (one step
+    directory and ``LATEST``) written to ``directory``."""
+    import shutil
+    import tempfile
+
+    with tempfile.TemporaryDirectory() as tmp:
+        checkpoint_server(task, *pkgs).run(checkpoint_dir=tmp, checkpoint_every=2,
+                                           stop_after_round=2)
+        shutil.rmtree(directory, ignore_errors=True)
+        shutil.copytree(tmp, directory)
 
 
 if __name__ == "__main__":

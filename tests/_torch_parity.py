@@ -46,6 +46,23 @@ def with_params(task, params_np):
     return dataclasses.replace(task, init_fn=lambda _g: params_from_numpy(params_np, "cpu"))
 
 
+_REF_PARAMS: dict = {}
+
+
+def with_ref_init(task):
+    """The port's task whose ``init_fn`` gives, for a generator seeded with
+    ``seed`` (``FederatedServer`` seeds it with ``config.seed``), the
+    reference's ``cnn_init(PRNGKey(seed))`` params."""
+
+    def init(generator):
+        seed = generator.initial_seed()
+        if seed not in _REF_PARAMS:
+            _REF_PARAMS[seed] = ref_params_np(seed)
+        return params_from_numpy(_REF_PARAMS[seed], "cpu")
+
+    return dataclasses.replace(task, init_fn=init)
+
+
 def max_abs_diff(a, b) -> float:
     a, b = to_np(a), to_np(b)
     if isinstance(a, dict):

@@ -118,3 +118,31 @@ def test_f32_math_turns_tf32_off_on_cuda_only_and_restores():
             assert flags() == start
     finally:
         torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32 = saved
+
+
+def test_f32_math_holds_cudnn_to_deterministic_algorithms_and_restores():
+    """The same guard holds cuDNN to deterministic algorithms without
+    autotuning on a CUDA device (two runs of the sequential engine, whose
+    convs run on cuDNN, then give the same bits), and restores both flags;
+    on the CPU nothing changes."""
+    import torch
+
+    from repro_torch.utils import f32_math
+
+    cudnn = torch.backends.cudnn
+    flags = lambda: (cudnn.deterministic, cudnn.benchmark)  # noqa: E731
+    saved = flags()
+    try:
+        for start in ((False, False), (False, True), (True, True)):
+            cudnn.deterministic, cudnn.benchmark = start
+            with f32_math("cpu"):
+                assert flags() == start
+            with f32_math("cuda"):
+                assert flags() == (True, False)
+            assert flags() == start
+            with pytest.raises(KeyError):
+                with f32_math("cuda:0"):
+                    raise KeyError("inside")
+            assert flags() == start
+    finally:
+        cudnn.deterministic, cudnn.benchmark = saved

@@ -1,7 +1,9 @@
 """The port's FL History on the card against the reference's, written on
 the CPU and committed (``tests/data/card_reference.json``; see
-``tests/_card_reference.py``): the 7 engine runs and the int8 / bf16
-compressed runs, started from the reference's params. Numpy-computed
+``tests/_card_reference.py``): the 7 engine runs, the int8 / bf16
+compressed runs and the two async runs, started from the reference's
+params; and the reference's committed round-2 checkpoint finished on the
+card. Numpy-computed
 fields exactly; accuracy, loss and client metrics within ``HISTORY_TOL``.
 
 The runs keep PyTorch's TF32 defaults: the port itself must compute the
@@ -32,3 +34,10 @@ def test_port_on_cuda_matches_fixture(task, name):
     hist, clients = card.run(name, task, *card.port_packages())
     assert hist.completed_rounds > 0
     card.assert_records_match(card.load_records()[name], card.history_record(hist, clients))
+
+
+def test_port_on_cuda_resumes_the_reference_checkpoint(task, tmp_path):
+    hist, clients = card.resume(task, tmp_path / "ckpt", *card.port_packages())
+    assert len(hist.rounds) == 3
+    card.assert_records_match(card.load_records()[card.CHECKPOINT_RUN],
+                              card.history_record(hist, clients))

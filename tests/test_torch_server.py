@@ -14,7 +14,6 @@ import repro.transport as r_tr
 import repro_torch.chaos as p_chaos
 import repro_torch.core as p_core
 import repro_torch.data as p_data
-import repro_torch.experiments.common as p_experiments
 import repro_torch.transport as p_tr
 
 R_TASK = r_core.mnist_cnn_task()
@@ -61,33 +60,27 @@ def test_rec3_min_fit_under_90pct_failure_on_the_port():
     assert hist.completed_rounds == 3  # one surviving client suffices
 
 
-def _bare_server(strategy=None):
+def _bare_server(strategy=None, config=None):
     return p_core.FederatedServer(
         P_TASK, [], strategy or p_core.fedavg(), tcp=p_tr.DEFAULT,
-        chaos=p_chaos.ChaosSchedule(p_tr.LAB), config=p_core.ServerConfig(),
+        chaos=p_chaos.ChaosSchedule(p_tr.LAB), config=config or p_core.ServerConfig(),
     )
 
 
 @pytest.mark.parametrize(
     "build,item",
     [
-        (lambda: p_core.ServerConfig(async_mode=True), 11),
         (lambda: p_core.ServerConfig(transport_backend="device", stochastic=True, batched=True),
          13),
+        # a checkpointed run on the device backend fails at its config
+        (lambda: _bare_server(config=p_core.ServerConfig(
+            transport_backend="device", stochastic=True, batched=True,
+        )).run(checkpoint_dir="unused"), 13),
         (lambda: _bare_server(strategy=p_core.Strategy("fedadam", server_opt=object())), 5),
-        # any client universe other than a list stands in for a lazy Population
-        (lambda: p_core.FederatedServer(
-            P_TASK, tuple(), p_core.fedavg(), tcp=p_tr.DEFAULT,
-            chaos=p_chaos.ChaosSchedule(p_tr.LAB), config=p_core.ServerConfig(),
-        ), 12),
-        (lambda: _bare_server().run(checkpoint_dir="unused"), 10),
-        (lambda: p_core.run_fl_grid(P_TASK, [], checkpoint_dir="unused"), 10),
-        (lambda: p_experiments.run_fl_grid_experiments(
-            [dict(async_mode=True)], device="cpu"), 11),
-        (lambda: p_experiments._make_point(population=1000), 12),
+        (lambda: p_core.fedopt("adam"), 5),
+        (lambda: p_core.diloco(), 5),
     ],
-    ids=["async", "device_backend", "server_opt", "population", "checkpoint",
-         "grid_checkpoint", "grid_async_point", "experiments_population"],
+    ids=["device_backend", "checkpoint_device_backend", "server_opt", "fedopt", "diloco"],
 )
 def test_configs_outside_the_slice_raise(build, item):
     with pytest.raises(NotImplementedError, match=rf"ROADMAP Queue 1, item {item}\)"):
