@@ -45,12 +45,13 @@ Run from the repository root. Phases, each printing one JSON line:
 9. headline  6 s one-way delay: DEFAULT completes 0 rounds, TUNED_EDGE all 4
              (accuracy > 0.3); one stochastic fused_transport run;
 10. reference_history
-             the 7 engine runs, the int8 / bf16 compressed runs and the two
-             async runs of ``tests/_card_reference.py`` on the card, with PyTorch's TF32
+             the 8 engine runs (one on the device transport plane), the int8
+             / bf16 compressed runs and the two async runs of
+             ``tests/_card_reference.py`` on the card, with PyTorch's TF32
              defaults, against the reference's committed Histories
              (``tests/data/card_reference.json``, written on the CPU):
-             numpy fields exactly, accuracy, loss and client metrics within
-             1e-3; then the same runs and a profiled quickstart with the
+             numpy fields exactly (the device plane's clocks within 1e-6),
+             accuracy, loss and client metrics within 1e-3; then the same runs and a profiled quickstart with the
              task's guard (TF32 off, deterministic cuDNN) bypassed,
              reported and not checked (what a run without the guard would
              give);
@@ -85,7 +86,9 @@ Run from the repository root. Phases, each printing one JSON line:
              (``tests/data/card_reference_ckpt/``) finished on the card
              against the committed History; ``resilience_bench``
              (kill-and-resume per transport mode, a poisoned point
-             quarantined alone); a ``server_restart`` losing its round;
+             quarantined alone, the retry frontier and the degenerate
+             retry ladder on both transport planes); a ``server_restart``
+             losing its round;
 15. async     ``async_bench``: degenerate async == sync bitwise (sequential
              and batched, fedavg_reduce once per flush), the latency-cliff
              and dropout sections with their gates; an async fig3-shaped
@@ -100,7 +103,20 @@ Run from the repository root. Phases, each printing one JSON line:
              against the 1 GB budget (tracemalloc does not see torch's CPU
              allocator), clients materialized; then ``reliability_phases``,
              the seconds of phases 14-16 against their 90 s budget;
-17. lm_kernels
+17. transport_plane
+             the device transport plane: ``transport_plane_bench`` at 64,
+             512 and 4,096 rows (host loop, fused numpy plane, device plane;
+             the 3x gate over the host loop at 4,096 rows, the exact and the
+             distributional parity gates, the end-to-end fig4 sweep on both
+             backends); at 4,096 rows one round with the transfer loop one
+             iteration at a time and as CUDA graph blocks, in turns (equal
+             bits; wall, iterations, host syncs, device busy, idle share);
+             ``reliability_bench`` with its gates and the retry sections of
+             phase 14's ``resilience_bench``; a fig3-shaped device-backend
+             grid killed after round 2 and resumed, bitwise, fedavg_reduce
+             once per aggregating point-round; the fixture's device run
+             against the reference's History; ``env_profiles``;
+18. lm_kernels
              flash_attention and swiglu against their plain versions on the
              card: the reference sweeps, serving lengths, bf16 windows, both
              sides of the GQA packing boundary (G * Sq = 64, 65), the
@@ -110,12 +126,12 @@ Run from the repository root. Phases, each printing one JSON line:
              ``kernel`` and one PyTorch call's time; the share of the bf16
              swiglu's time that its cross-block reduction takes (the
              kernel built again with ``-DSWIGLU_NO_REDUCE``);
-18. serve     ``Server("qwen3-8b", reduced=False)`` on the card, params from a
+19. serve     ``Server("qwen3-8b", reduced=False)`` on the card, params from a
              seeded generator: serve.py:main's 8 requests (batch 4, 12 new
              tokens each); launches asserted per prefill and per decode step;
              prefill ms, decode ms per step, tokens/s, peak memory, and the
              device-idle share of one profiled run (``serve_profile``);
-19. full_width
+20. full_width
              a 2-layer model at Qwen3-8B's full widths with the served
              params: one prefill and three decode steps on the card
              (kernels) and on the CPU (plain versions, fed the card's
@@ -719,10 +735,12 @@ def phase_headline(torch):
 
 def phase_reference_history(torch):
     """The port on the card against the reference's committed Histories:
-    the 7 engine runs, the int8 / bf16 compressed runs and the two async
-    runs of ``tests/_card_reference.py``, with PyTorch's TF32 defaults (the
-    task turns TF32 off in its own scope). Numpy fields exactly, accuracy,
-    loss and client metrics within 1e-3; fedavg_reduce once per completed
+    the 8 engine runs (the device transport plane's degenerate run among
+    them), the int8 / bf16 compressed runs and the two async runs of
+    ``tests/_card_reference.py``, with PyTorch's TF32 defaults (the task
+    turns TF32 off in its own scope). Numpy fields exactly (the device
+    plane's clocks within ``CLOCK_RTOL``), accuracy, loss and client
+    metrics within 1e-3; fedavg_reduce once per completed
     round on the batched engines (once per buffer flush on the async runs),
     quantize_rows once per int8 round. Then the
     task's guard bypassed: the same runs' gaps and a profiled quickstart,
@@ -755,7 +773,8 @@ def phase_reference_history(torch):
             if not checked:
                 continue
             try:
-                card.assert_records_match(records[name], got)
+                card.assert_records_match(records[name], got,
+                                          clock_rtol=card.CLOCK_RTOL.get(name, 0.0))
             except AssertionError as e:
                 raise PhaseFailed(f"reference_history {name}: {e!r}; gaps {gaps[name]}") from e
             done = hist.completed_rounds
@@ -1236,7 +1255,7 @@ def phase_fault_domain(torch, tmp):
     emit("fault_domain", seconds=seconds, kill_at_round=KILL_AT, rounds=MAIN_ROUNDS,
          point=point, grid=grid, reference_checkpoint=reference, resilience_bench=bench,
          server_restart={"causes": causes, "completed_rounds": hist.completed_rounds})
-    return {"seconds": seconds, "point": point, "grid": grid}
+    return {"seconds": seconds, "point": point, "grid": grid, "resilience_bench": bench}
 
 
 def phase_async(torch, tmp):
@@ -1353,6 +1372,166 @@ def phase_population(torch):
          host_peak_note="tracemalloc sees numpy and Python objects, not torch's CPU allocator",
          launches=counts["fedavg_reduce"])
     return {"seconds": seconds, "launches": counts["fedavg_reduce"], "rounds": rounds}
+
+
+DEVICE_KILL_AT = 2  # rounds the device-backend grid runs before its kill
+
+
+def phase_transport_plane(torch, tmp, resilience):
+    """The device transport plane on the card. ``transport_plane_bench`` at
+    its three sizes (host loop, fused numpy plane, device plane, speedups),
+    its 3x gate at 4,096 rows, both parity gates and its end-to-end fig4
+    sweep on both backends; at 4,096 rows one round with the transfer loop
+    run one iteration at a time and as CUDA graph blocks, in turns: the same
+    bits, and each one's wall, loop iterations, host syncs, device busy time
+    and idle share; ``reliability_bench`` (full size) with its gates, and the retry
+    sections of the ``resilience_bench`` run of ``fault_domain``; a
+    fig3-shaped device-backend grid (20 points, fused, split streams)
+    killed after round 2 and resumed, bitwise, fedavg_reduce once per
+    aggregating point-round; the fixture's ``device_degenerate`` run against
+    the committed reference History, fedavg_reduce once per round;
+    ``env_profiles``."""
+    import contextlib
+    import io
+
+    from repro_torch.core import run_fl_grid
+    from repro_torch.experiments import (
+        common,
+        env_profiles,
+        fig3_latency,
+        reliability_bench,
+        transport_plane_bench as tpb,
+    )
+    from repro_torch.transport.plane import new_plane_stats
+
+    t0 = time.perf_counter()
+    out = io.StringIO()
+    with contextlib.redirect_stdout(out):
+        bench = tpb.run_bench(device="cuda")
+    check(bench["parity_exact"], "transport_plane: degenerate grid != host oracle")
+    check(bench["parity_distributional"]["ok"],
+          f"transport_plane: distributional gate {bench['parity_distributional']}")
+    check(bench["meets_target"],
+          f"transport_plane: {bench['speedup']}x over the host loop at "
+          f"{bench['sizes'][-1]['rows']} rows, under the {tpb.GATE_SPEEDUP}x gate: "
+          f"{bench['sizes']}")
+    e2e = bench["end_to_end"]
+    check(e2e["transport_device_dispatches"] == common.ROUNDS,
+          f"transport_plane: end-to-end device dispatches {e2e}")
+
+    # one round at 4,096 rows, the transfer loop one iteration at a time
+    # (as the reference writes it) and as CUDA graph blocks, in turns: the
+    # same bits; wall, iterations, host syncs, device busy and idle share
+    import numpy as np
+
+    from repro_torch.transport import plane as plane_mod
+
+    tcps, links, _ = tpb._grid(tpb.SIZES[-1])
+    kw = tpb._round_args(links)
+    loops = {"iters": plane_mod._transfer_iters, "blocks": plane_mod._transfer_blocks}
+
+    @contextlib.contextmanager
+    def transfer_loop(name):
+        saved = plane_mod._transfer_blocks
+        plane_mod._transfer_blocks = loops[name]  # the loop _plane_transfer runs on CUDA
+        try:
+            yield
+        finally:
+            plane_mod._transfer_blocks = saved
+
+    one_round = lambda stats=None: tpb._run_device(tcps, links, kw, 1, "cuda", stats)[0]  # noqa
+    rounds = {name: {"wall_s": []} for name in loops}
+    outs = {}
+    for name in ("iters", "blocks", "blocks", "iters"):
+        with transfer_loop(name):
+            stats = new_plane_stats()
+            torch.cuda.synchronize()
+            t1 = time.perf_counter()
+            outs[name] = one_round(stats)
+            rounds[name]["wall_s"].append(time.perf_counter() - t1)
+            rounds[name].update(stats)
+    check(all(np.array_equal(a, b) for a, b in zip(outs["iters"], outs["blocks"])),
+          "transport_plane: the CUDA graph blocks' round != the loop's round")
+    for name, r in rounds.items():
+        with transfer_loop(name):
+            busy_us, top, _ = device_profile(torch, one_round)
+        wall_s = min(r["wall_s"])
+        r.update(device_busy_ms=busy_us / 1e3, device_idle_share=1.0 - busy_us / (wall_s * 1e6),
+                 top=top[:6])
+    round_profile = {"rows": len(links) * len(links[0]), "block": plane_mod._BLOCK,
+                     "bitwise_equal": True, **rounds}
+
+    with contextlib.redirect_stdout(io.StringIO()):
+        reliability = reliability_bench.run_bench(device="cuda")
+    check(reliability["parity"], f"transport_plane: reliability_bench gates {reliability}")
+    retry = {k: resilience[k] for k in ("retry_frontier", "retry_degenerate")}
+    check(retry["retry_frontier"]["parity"] and retry["retry_degenerate"]["parity"],
+          f"transport_plane: resilience_bench retry sections {retry}")
+
+    # a fig3-shaped device-backend grid killed after round 2 and resumed
+    task, eval_data = common._shared_task("cuda"), common._shared_eval_data()
+    _, kwargs = fig3_latency.sweep_points()
+    make = lambda: [common._make_point(**kw, stochastic=True, rng_streams="split",  # noqa
+                                       transport_backend="device") for kw in kwargs]
+    grid_kw = dict(eval_data=eval_data, transport="fused")
+    d = str(Path(tmp) / "device_grid")
+    ref, ref_wall, ref_counts = counted(torch, lambda: run_fl_grid(task, make(), **grid_kw))
+    part = run_fl_grid(task, make(), checkpoint_dir=d, stop_after_round=DEVICE_KILL_AT,
+                       **grid_kw)
+    res, res_wall, counts = counted(
+        torch, lambda: run_fl_grid(task, make(), checkpoint_dir=d, **grid_kw))
+    for i, (a, b) in enumerate(zip(ref.servers, res.servers)):
+        check(_same_server_state(torch, a, b), f"transport_plane grid: point {i} differs")
+    check(ref.stats.transport_device_dispatches == common.ROUNDS
+          and part.stats.checkpoints_saved == DEVICE_KILL_AT
+          and res.stats.resumed_round == DEVICE_KILL_AT,
+          f"transport_plane grid: {ref.stats} / {res.stats}")
+    aggregating = sum(h.completed_rounds for h in ref.histories)
+    resumed = sum(0 if r.failed_round else 1
+                  for h in res.histories for r in h.rounds[DEVICE_KILL_AT:])
+    check(ref_counts["fedavg_reduce"] == aggregating and counts["fedavg_reduce"] == resumed,
+          f"transport_plane grid: launches {ref_counts['fedavg_reduce']} / "
+          f"{counts['fedavg_reduce']} for {aggregating} / {resumed} aggregating point-rounds")
+    grid = {"points": len(kwargs), "rounds": common.ROUNDS, "kill_at_round": DEVICE_KILL_AT,
+            "uninterrupted_wall_s": ref_wall, "resumed_wall_s": res_wall,
+            "transport_device_dispatches": ref.stats.transport_device_dispatches,
+            "completed_rounds": [h.completed_rounds for h in ref.histories],
+            "launches": ref_counts["fedavg_reduce"], "aggregating_point_rounds": aggregating,
+            "resumed_launches": counts["fedavg_reduce"],
+            "resumed_aggregating_point_rounds": resumed}
+
+    # the fixture's device-backend run against the reference's History
+    sys.path.insert(0, str(ROOT / "tests"))
+    import _card_reference as card
+
+    name = "device_degenerate"
+    (hist, clients), _, counts = counted(torch, lambda: card.run(
+        name, card.port_task("cuda"), *card.port_packages()))
+    got = card.history_record(hist, clients)
+    want = card.load_records()[name]
+    try:
+        card.assert_records_match(want, got, clock_rtol=card.CLOCK_RTOL[name])
+    except AssertionError as e:
+        raise PhaseFailed(f"transport_plane: {name} against the reference: {e!r}") from e
+    check(counts["fedavg_reduce"] == hist.completed_rounds,
+          f"transport_plane: {name}: {counts['fedavg_reduce']} launches for "
+          f"{hist.completed_rounds} rounds")
+    clock_gap = max(abs(w[k] - g[k]) / abs(w[k]) for w, g in zip(want["rounds"], got["rounds"])
+                    for k in ("t_start", "t_end") if w[k])
+    reference = {"run": name, "launches": counts["fedavg_reduce"],
+                 "completed_rounds": hist.completed_rounds, "clock_rtol": card.CLOCK_RTOL[name],
+                 "max_clock_rel_gap": clock_gap, "gaps": card.history_gaps(want, got)}
+
+    with contextlib.redirect_stdout(io.StringIO()):
+        env_rows = env_profiles.main()
+    seconds = time.perf_counter() - t0
+    emit("transport_plane", seconds=seconds, sizes=bench["sizes"], speedup=bench["speedup"],
+         target_speedup=bench["target_speedup"], meets_target=bench["meets_target"],
+         parity_exact=bench["parity_exact"],
+         parity_distributional=bench["parity_distributional"], end_to_end=e2e,
+         round_4096=round_profile, reliability_bench=reliability, resilience_retry=retry,
+         device_grid=grid, reference_history=reference, env_profiles=env_rows)
+    return {"seconds": seconds, "grid": grid, "reference": reference}
 
 
 # --------------------------------------------------------------------------
@@ -1880,6 +2059,8 @@ def main() -> int:
          within_budget=reliability_s <= RELIABILITY_BUDGET_S,
          by_phase={"fault_domain": fault["seconds"], "async": asyn["seconds"],
                    "population": population["seconds"]})
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_plane_") as tmp:
+        plane = phase_transport_plane(torch, tmp, fault["resilience_bench"])
     from repro_torch.utils import f32_math
 
     with f32_math("cuda"):  # the f32 plain versions as yardsticks in full f32
@@ -1968,6 +2149,12 @@ def main() -> int:
         "async_cliff_flushes": asyn["cliff_point"]["flushes"],
         "population_launches": population["launches"],
         "population_rounds": population["rounds"],
+        # the device transport backend: once per aggregating point-round of
+        # the fig3-shaped device grid, once per round of the fixture's run
+        "device_grid_launches": plane["grid"]["launches"],
+        "device_grid_aggregating_point_rounds": plane["grid"]["aggregating_point_rounds"],
+        "device_reference_launches": plane["reference"]["launches"],
+        "device_reference_rounds": plane["reference"]["completed_rounds"],
     },
         # one compressed round: the 8 CNN leaves at R = 10 (int8 grouped, bf16 summed)
         quant_row("quantize_rows", compressed["int8"], "src/repro/kernels/quantize.py:83",

@@ -46,9 +46,8 @@ Async points join the same plane: each dispatched row gets a provenance
 token that rides the event queue, and a point's params key advances when a
 buffer flush applies its events (``_async_prov_hook``). ``checkpoint_dir``
 makes a sweep crash-consistent with the per-point checkpoint protocol of
-``FederatedServer`` plus the provenance keys. The device transport backend
-raises ``NotImplementedError`` (ROADMAP Queue 1, item 13; ``ServerConfig``
-refuses it).
+``FederatedServer`` plus the provenance keys. Device-backend points share
+one device transport plane pass per round in ``fused`` mode.
 """
 
 from __future__ import annotations
@@ -77,6 +76,7 @@ from repro_torch.core.server import (
 from repro_torch.core.strategy import Strategy
 from repro_torch.transport import TcpParams
 from repro_torch.transport.des import sim_grid_round
+from repro_torch.transport.plane import sim_grid_round_device, transport_plane_key
 from repro_torch.utils import tree_leaves, tree_map
 
 
@@ -101,8 +101,7 @@ class GridPoint:
 @dataclass
 class GridStats:
     """Plane/coalescing telemetry for one grid run (every field of the
-    reference's; ``transport_device_dispatches`` stays 0 until the device
-    transport plane is ported)."""
+    reference's)."""
 
     rounds: int = 0  # lockstep rounds with at least one plane row
     fit_rows_total: int = 0  # rows requested across all points
@@ -169,24 +168,30 @@ def _plane_transport(
     rnd: int,
     stats: GridStats,
 ):
-    """Sample every waiting point's cohort transport as ONE host
-    ``sim_grid_round`` pass per partition: rows are (point, cohort member)
-    pairs, each row carrying its point's TcpParams, effective link, and
-    asymmetric payload bytes (compressed upload, full-model download).
-    Cohort sizes may differ across points — the plane is ragged-aware.
+    """Sample every waiting point's cohort transport as ONE plane pass per
+    partition: rows are (point, cohort member) pairs, each row carrying its
+    point's TcpParams, effective link, and asymmetric payload bytes
+    (compressed upload, full-model download). Cohort sizes may differ
+    across points — the plane is ragged-aware.
 
     ``mode="parity"`` hands each scenario its point's OWN derived
     per-round transport stream (``FederatedServer._transport_rng``), so
     outcomes are bitwise identical to each point sampling its transport
-    standalone. ``mode="fused"`` drives the whole plane from one shared
+    standalone (host-backend points only: a device-backend point's
+    per-point reference is the device plane, so ``_hoistable`` leaves it on
+    its own path). ``mode="fused"`` drives the whole plane from one shared
     stream derived from (transport_seed, round) — one lockstep pass, same
-    mechanisms and distributions, a single shared draw order. The fused
-    pass is partitioned by reliability kind: points whose profile is
-    ``zero_rtt`` or whose retry resumes from the acked frontier take a
-    separate pass on their own stream tag (``_GRID_ZR_STREAM``) — their
-    stage masks consume the shared stream in a different subset order, and
-    the split keeps plain restart-from-zero TCP points' fused outcomes
-    unchanged by their presence.
+    mechanisms and distributions, a single shared draw order. Fused mode
+    partitions points by ``transport_backend``: host points share one numpy
+    ``sim_grid_round`` pass, device points one ``sim_grid_round_device``
+    pass on the points' device, whose outcomes come to the host in one copy
+    per field. The fused HOST pass is further partitioned by reliability
+    kind: points whose profile is ``zero_rtt`` or whose retry resumes from
+    the acked frontier take a separate pass on their own stream tag
+    (``_GRID_ZR_STREAM``) — their stage masks consume the shared stream in
+    a different subset order, and the split keeps plain restart-from-zero
+    TCP points' fused outcomes unchanged by their presence. The device
+    plane needs no such split.
 
     Returns per-point (success [k], time [k], reconnects [k],
     bytes_acked [k]) tuples in ``waiting`` order, ready for
@@ -196,7 +201,7 @@ def _plane_transport(
         r = srv._effective_retry()
         return bool(srv.tcp.zero_rtt or (r is not None and r.resume))
 
-    def _sample(sub: List[Tuple[int, PendingRound]], stream: int):
+    def _sample(sub: List[Tuple[int, PendingRound]], backend: str, stream: int):
         tcps = [servers[i].tcp for i, _ in sub]
         links = [pr.links for _, pr in sub]
         up = [np.full(len(pr.cohort), pr.upload_bytes, np.int64) for _, pr in sub]
@@ -206,6 +211,28 @@ def _plane_transport(
         # per-scenario retry ladder: each point's own policy (deadline-cap
         # resolved), exactly what its standalone transport would apply
         retry = [servers[i]._effective_retry() for i, _ in sub]
+        if backend == "device":
+            out = sim_grid_round_device(
+                tcps,
+                links,
+                update_bytes=up,
+                download_bytes=down,
+                local_train_times=ltt,
+                connected=conn,
+                # _GRID_STREAM on the device key family: decorrelated from
+                # every point's private per-round device stream by tag
+                key=transport_plane_key(transport_seed, _GRID_STREAM, rnd),
+                retry=retry,
+                device=servers[sub[0][0]]._device(),
+            )
+            stats.transport_device_dispatches += 1
+            # one copy per field for the round's host bookkeeping
+            return (
+                out.success.cpu().numpy(),
+                out.time.cpu().numpy().astype(float),
+                out.reconnects.cpu().numpy(),
+                out.bytes_acked.cpu().numpy().astype(float),
+            )
         if mode == "parity":
             rng_kw = dict(rngs=[servers[i]._transport_rng for i, _ in sub])
         else:
@@ -229,17 +256,22 @@ def _plane_transport(
 
     res: List[Optional[tuple]] = [None] * len(waiting)
     if mode == "fused":
-        partitions = [(_GRID_STREAM, lambda srv: not _reliability(srv)),
-                      (_GRID_ZR_STREAM, _reliability)]
+        partitions = [("host", _GRID_STREAM, lambda srv: not _reliability(srv)),
+                      ("host", _GRID_ZR_STREAM, _reliability)]
     else:
         # parity mode hands every scenario its point's own rng — no shared
         # stream to protect, one pass covers all kinds
-        partitions = [(_GRID_STREAM, lambda srv: True)]
-    for stream, member in partitions:
-        sub = [(pos, iw) for pos, iw in enumerate(waiting) if member(servers[iw[0]])]
+        partitions = [("host", _GRID_STREAM, lambda srv: True)]
+    partitions.append(("device", _GRID_STREAM, lambda srv: True))
+    for backend, stream, member in partitions:
+        sub = [
+            (pos, iw)
+            for pos, iw in enumerate(waiting)
+            if servers[iw[0]].config.transport_backend == backend and member(servers[iw[0]])
+        ]
         if not sub:
             continue
-        succ, tt, rc, ba = _sample([iw for _, iw in sub], stream)
+        succ, tt, rc, ba = _sample([iw for _, iw in sub], backend, stream)
         for s, (pos, (_, pr)) in enumerate(sub):
             k = len(pr.cohort)
             res[pos] = (
@@ -404,7 +436,14 @@ def run_fl_grid(
     def _hoistable(srv: FederatedServer) -> bool:
         # the hoist reproduces the BATCHED cohort draw discipline, and a
         # point's selection stream only survives it under the split-rng
-        # contract; everything else keeps sampling inside begin_round
+        # contract; everything else keeps sampling inside begin_round.
+        # Parity mode is defined as bitwise per-point reproduction, and a
+        # device-backend point's per-point reference is the device plane
+        # keyed on its own (seed, stream, round) — a hoisted pass on the
+        # grid's key cannot reproduce it, so such points stay on their own
+        # path.
+        if transport == "parity" and srv.config.transport_backend == "device":
+            return False
         return srv.config.stochastic and srv.config.batched and srv.split_streams
 
     def _round(rnd: int) -> None:

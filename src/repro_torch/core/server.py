@@ -25,8 +25,9 @@ The round is a state machine with drivable halves: ``select_cohort`` ->
 dense or sparse ``StatePlane``, the event-driven async engine
 (``ServerConfig.async_mode``), lazy client universes (``Population``) and
 the round-boundary checkpoint protocol (``run(checkpoint_dir=...)``, in the
-reference's on-disk format). The device transport backend raises
-``NotImplementedError``, naming its ROADMAP item.
+reference's on-disk format). Stochastic transport is sampled by the host
+DES or, with ``transport_backend="device"``, by the device transport plane
+(``repro_torch.transport.plane``) on the device of the global params.
 """
 
 from __future__ import annotations
@@ -55,6 +56,7 @@ from repro_torch.transport.des import (
     sim_grid_round,
 )
 from repro_torch.transport.params import RetryPolicy
+from repro_torch.transport.plane import sim_grid_round_device, transport_plane_key
 from repro_torch.utils import tree_leaves, tree_map, tree_stack, tree_unstack
 
 
@@ -151,9 +153,9 @@ class PendingRound:
 
 @dataclass
 class ServerConfig:
-    """Every field of the reference's config; ``transport_backend="device"``
-    raises ``NotImplementedError`` (see ``repro.core.server.ServerConfig``
-    for the full semantics of each field)."""
+    """Every field of the reference's config (see
+    ``repro.core.server.ServerConfig`` for the full semantics of each
+    field)."""
 
     rounds: int = 20
     clients_per_round: float = 1.0  # fraction of live clients selected
@@ -193,8 +195,10 @@ class ServerConfig:
     # in interleaved order; "split": a cohort stream and a transport
     # stream, both re-derived per (seed, stream, round)
     rng_streams: str = "single"
-    # where stochastic transport is sampled: "host" (numpy); "device" is
-    # not ported yet
+    # where stochastic transport is sampled: "host" (the numpy DES, the
+    # parity oracle) or "device" (the torch transport plane on the device of
+    # the global params; keyed per (seed, stream, round), so it implies
+    # split streams)
     transport_backend: str = "host"
     # within-round retry of failed exchanges (stochastic engines only)
     retry: Optional[RetryPolicy] = None
@@ -240,10 +244,6 @@ class ServerConfig:
             raise ValueError("async_buffer_k must be >= 1")
         if self.async_concurrency is not None and self.async_concurrency < 1:
             raise ValueError("async_concurrency must be >= 1 (or None)")
-        if self.transport_backend == "device":
-            raise NotImplementedError(
-                "transport_backend='device' is not ported yet (ROADMAP Queue 1, item 13)"
-            )
 
 
 # stream tags for the split-rng discipline (spawn_key components).
@@ -257,7 +257,9 @@ _GRID_STREAM = 3
 # resume= retry): their stage masks consume the shared numpy stream in a
 # different order, so they get their own tag — pure-TCP restart-from-zero
 # points keep consuming _GRID_STREAM exactly as before the reliability
-# layer existed.
+# layer existed. (The device plane needs no such split: its draws are
+# unconditional and where-gated, so co-scheduled reliability rows cannot
+# shift a plain row's stream.)
 _GRID_ZR_STREAM = 4
 
 
@@ -365,7 +367,11 @@ class FederatedServer:
     def split_streams(self) -> bool:
         """True when selection/plan draws and transport draws come from the
         two derived per-round streams (see ServerConfig.rng_streams)."""
-        return self.config.rng_streams == "split" or self.config.engine == "fused_transport"
+        return (
+            self.config.rng_streams == "split"
+            or self.config.engine == "fused_transport"
+            or self.config.transport_backend == "device"
+        )
 
     def _round_transport_rng(self) -> np.random.Generator:
         return self._transport_rng if self.split_streams else self.rng
@@ -420,6 +426,26 @@ class FederatedServer:
         rng = self._round_transport_rng()
         if cfg.stochastic:
             connected = pending.connected
+            if cfg.transport_backend == "device":
+                # the S=1 case of the grid's device plane, keyed on this
+                # round's transport stream, on the device of the params
+                out = sim_grid_round_device(
+                    self.tcp,
+                    [links],
+                    update_bytes=np.full((1, len(cohort)), pending.upload_bytes, np.int64),
+                    download_bytes=np.full((1, len(cohort)), pending.download_bytes, np.int64),
+                    local_train_times=local_times[None],
+                    connected=connected[None],
+                    key=transport_plane_key(cfg.seed, _TRANSPORT_STREAM, pending.rnd),
+                    retry=self._effective_retry(),
+                    device=self._device(),
+                )
+                return (
+                    out.success[0].cpu().numpy(),
+                    out.time[0].cpu().numpy().astype(float),
+                    out.reconnects[0].cpu().numpy().astype(float),
+                    out.bytes_acked[0].cpu().numpy().astype(float),
+                )
             if cfg.engine == "fused_transport":
                 out = sim_grid_round(
                     self.tcp,

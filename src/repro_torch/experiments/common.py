@@ -106,6 +106,22 @@ def spawn_point_seeds(n: int, *, root: int = 0) -> List[int]:
     return [int(ss.generate_state(1)[0]) for ss in np.random.SeedSequence(root).spawn(n)]
 
 
+def stochastic_fig4_points(fast: bool = False) -> List[dict]:
+    """The fig4 (loss x tcp) grid with event-granular DES transport on
+    split RNG streams — the configuration whose transport the grid engine
+    can hoist into one plane pass per round. Every point gets its own
+    SeedSequence-spawned stream seed (one shared shard set via
+    ``data_seed``), so per-point transport streams are decorrelated."""
+    from repro_torch.experiments import fig4_loss
+
+    _, points = fig4_loss.sweep_points(fast)
+    seeds = spawn_point_seeds(len(points))
+    return [
+        dict(kw, stochastic=True, rng_streams="split", seed=s, data_seed=0)
+        for kw, s in zip(points, seeds)
+    ]
+
+
 def _make_point(
     *,
     tcp: TcpParams = DEFAULT,

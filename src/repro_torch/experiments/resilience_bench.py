@@ -1,7 +1,7 @@
 """Resilience benchmark: fault-domain gates and the cost of kill-and-resume
-(the port of ``benchmarks/resilience_bench.py``'s host sections).
+(the port of ``benchmarks/resilience_bench.py``).
 
-Sections, one BENCH json line:
+Four sections, one BENCH json line:
 
 - ``kill_resume``  a small characterization grid run three ways per
   transport mode: uninterrupted, checkpointed every round (the overhead),
@@ -9,13 +9,19 @@ Sections, one BENCH json line:
   ``checkpoint_dir``. The gate is crash consistency: the resumed sweep's
   histories are BITWISE equal to the uninterrupted run's, every summary
   field and every per-round record;
+- ``retry_frontier`` the paper's 5 s handshake cliff as a trade-off: a
+  delay ladder on a lossy link x retry budgets through both stochastic
+  transport engines (host DES grid and device plane), pooled delivery
+  rates as CSV. Gates: delivery non-decreasing in budget (sampling
+  tolerance) on both backends, a strict improvement at the cliff, and
+  host/device agreement;
 - ``quarantine``   a NaN-poisoned point inside a sweep is retired (status
   "diverged") while every other point stays bitwise equal to a sweep
-  without it.
+  without it;
+- ``retry_degenerate`` loss=0/jitter=0 at 6 s OWD makes the retry ladder's
+  clock closed-form (56.0 s with 3 retries); host grid and device plane
+  agree on it.
 
-The reference's ``retry_frontier`` and ``retry_degenerate`` sections hold
-the host DES against the device transport plane, which is not ported yet
-(ROADMAP Queue 1, item 13): here they raise ``NotImplementedError``.
 Checkpoint overhead is reported, not gated. Every entry point runs on CUDA
 unless given ``device=``.
 """
@@ -33,13 +39,22 @@ import time
 import numpy as np
 
 from repro_torch.core import EdgeClient, run_fl_grid
+from repro_torch.core.server import _TRANSPORT_STREAM, derive_rng
 from repro_torch.experiments.common import (
     _make_point,
     _shared_eval_data,
     _shared_shards,
     _shared_task,
+    emit_csv,
 )
-from repro_torch.transport import LAB, RetryPolicy
+from repro_torch.transport import (
+    DEFAULT,
+    LAB,
+    RetryPolicy,
+    sim_grid_round,
+    sim_grid_round_device,
+    transport_plane_key,
+)
 
 
 def _histories_identical(ref, got) -> bool:
@@ -133,6 +148,69 @@ def kill_resume_section(*, fast: bool = False, reps: int = 1, device=None):
     return out
 
 
+def retry_frontier_section(*, fast: bool = False, device=None):
+    """Retry-budget frontier on a lossy delay ladder near the 5 s cliff:
+    pooled delivery rate per (delay, budget) through the host DES and the
+    device plane, with monotonicity, cliff-improvement and host/device
+    gates."""
+    delays = [4.0] if fast else [3.0, 4.0, 5.0]
+    budgets = [0, 1, 3]
+    rounds, cohort = 8, 16
+    kw = dict(
+        update_bytes=np.full(1, 200_000, np.int64),
+        download_bytes=np.full(1, 200_000, np.int64),
+        local_train_times=np.full((1, cohort), 5.0),
+        connected=np.zeros((1, cohort), bool),
+    )
+    rows, rates = [], {}
+    for delay in delays:
+        link = LAB.replace(delay=delay, loss=0.15)
+        for budget in budgets:
+            rp = RetryPolicy(max_retries=budget) if budget else None
+            host = np.concatenate([
+                sim_grid_round([DEFAULT], [[link] * cohort],
+                               rng=derive_rng(0, _TRANSPORT_STREAM, r), retry=rp, **kw
+                               ).success.ravel()
+                for r in range(rounds)
+            ]).mean()
+            dev = np.concatenate([
+                sim_grid_round_device([DEFAULT], [[link] * cohort],
+                                      key=transport_plane_key(0, _TRANSPORT_STREAM, r),
+                                      retry=rp, device=device, **kw
+                                      ).success.cpu().numpy().ravel()
+                for r in range(rounds)
+            ]).mean()
+            rates[(delay, budget)] = (float(host), float(dev))
+            rows.append([delay, budget, round(float(host), 4), round(float(dev), 4)])
+    emit_csv(
+        "resilience_retry_frontier",
+        ["delay_s", "retry_budget", "host_delivery", "device_delivery"],
+        rows,
+    )
+    # monotone in budget per delay, both backends (binomial sampling
+    # tolerance at rounds*cohort draws per cell)
+    tol = 0.05
+    monotone = all(
+        rates[(d, hi)][b] >= rates[(d, lo)][b] - tol
+        for d in delays
+        for lo, hi in zip(budgets, budgets[1:])
+        for b in (0, 1)
+    )
+    # the budget buys a STRICT improvement at the cliff delay
+    cliff = all(rates[(4.0, budgets[-1])][b] > rates[(4.0, 0)][b] + 0.05 for b in (0, 1))
+    agreement = all(abs(h - d) < 0.15 for h, d in rates.values())
+    return {
+        "delays_s": delays,
+        "budgets": budgets,
+        "samples_per_cell": rounds * cohort,
+        "rates": [[d, b, h, v] for (d, b), (h, v) in rates.items()],
+        "monotone": monotone,
+        "cliff_improvement": cliff,
+        "host_device_agreement": agreement,
+        "parity": monotone and cliff and agreement,
+    }
+
+
 def quarantine_section(*, fast: bool = False, device=None):
     """Isolation gate: one NaN-poisoned point is quarantined and every other
     point's history is bitwise equal to a sweep without it."""
@@ -169,29 +247,57 @@ def quarantine_section(*, fast: bool = False, device=None):
     }
 
 
-def retry_frontier_section(*, fast: bool = False):
-    raise NotImplementedError(
-        "retry_frontier holds the host DES against the device transport plane, "
-        "which is not ported yet (ROADMAP Queue 1, item 13)"
+def retry_degenerate_section(*, device=None):
+    """Host/device retry parity on the deterministic path: the 6 s-OWD
+    loss-free ladder exhausts every attempt, so the round clock is the
+    closed form 10.5 + (2+10.5) + (4+10.5) + (8+10.5) = 56.0 s."""
+    link = LAB.replace(delay=6.0)
+    rp = RetryPolicy(max_retries=3, base_backoff=2.0, backoff_factor=2.0)
+    host = sim_grid_round(
+        [DEFAULT], [[link] * 4], update_bytes=100_000,
+        local_train_times=np.full((1, 4), 5.0), connected=np.zeros((1, 4), bool),
+        rng=derive_rng(0, _TRANSPORT_STREAM, 0), retry=rp,
     )
-
-
-def retry_degenerate_section():
-    raise NotImplementedError(
-        "retry_degenerate holds the host DES against the device transport plane, "
-        "which is not ported yet (ROADMAP Queue 1, item 13)"
+    dev = sim_grid_round_device(
+        [DEFAULT], [[link] * 4], update_bytes=np.full(1, 100_000, np.int64),
+        download_bytes=np.full(1, 100_000, np.int64),
+        local_train_times=np.full((1, 4), 5.0), connected=np.zeros((1, 4), bool),
+        key=transport_plane_key(0, _TRANSPORT_STREAM, 0), retry=rp, device=device,
     )
+    host_t = np.asarray(host.time, np.float64)
+    dev_t = dev.time.cpu().numpy().astype(np.float64)
+    parity = (
+        not host.success.any()
+        and not bool(dev.success.any())
+        and bool(np.allclose(host_t, 56.0, rtol=1e-6))
+        and bool(np.allclose(dev_t, 56.0, rtol=1e-4))
+    )
+    return {
+        "expected_s": 56.0,
+        "host_s": float(host_t.mean()),
+        "device_s": float(dev_t.mean()),
+        "parity": parity,
+    }
 
 
 def run_bench(*, fast: bool = False, reps: int = 1, device=None):
     kill_resume = kill_resume_section(fast=fast, reps=reps, device=device)
+    frontier = retry_frontier_section(fast=fast, device=device)
     quarantine = quarantine_section(fast=fast, device=device)
+    degenerate = retry_degenerate_section(device=device)
     result = {
         "bench": "resilience",
         "config": {"fast": fast, "reps": max(int(reps), 1)},
         "kill_resume": kill_resume,
+        "retry_frontier": frontier,
         "quarantine": quarantine,
-        "parity": all(m["resume_parity"] for m in kill_resume) and quarantine["isolation"],
+        "retry_degenerate": degenerate,
+        "parity": (
+            all(m["resume_parity"] for m in kill_resume)
+            and frontier["parity"]
+            and quarantine["isolation"]
+            and degenerate["parity"]
+        ),
     }
     print("BENCH " + json.dumps(result))
     return result

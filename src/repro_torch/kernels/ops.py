@@ -90,6 +90,16 @@ def downcast_bf16_rows_leaves(xs):
     return _quantize.downcast_bf16_rows_leaves([x.float().contiguous() for x in xs])
 
 
+def segment_sum(values: torch.Tensor, segment_ids: torch.Tensor, *, num_segments: int):
+    """Per-segment reduction: sum ``values[i]`` into ``segment_ids[i]``.
+
+    The device transport plane's byte accounting: per-scenario delivered
+    wire bytes from flat [S*C] row outcomes without leaving the device.
+    Oracle: ``repro_torch.kernels.ref.segment_sum_ref``."""
+    out = torch.zeros((num_segments,) + values.shape[1:], dtype=values.dtype, device=values.device)
+    return out.index_add_(0, segment_ids, values)
+
+
 def dequantize_tree(payload, template):
     _, meta = flatten_to_vector(template)
     return unflatten_from_vector(dequantize_flat(payload["q"], payload["scale"]), meta)

@@ -73,3 +73,9 @@ def quantize_rows_ref(x, scales):
 def downcast_bf16_rows_ref(x):
     """f32 -> bf16, round to nearest even."""
     return x.float().to(torch.bfloat16)
+
+
+def segment_sum_ref(values, segment_ids, num_segments):
+    """values [K], segment_ids [K] int -> [num_segments] scatter-add."""
+    out = torch.zeros((num_segments,) + values.shape[1:], dtype=values.dtype, device=values.device)
+    return out.index_put_((segment_ids,), values, accumulate=True)

@@ -54,7 +54,13 @@ ENGINES = [
     ("batched_retry_zero_rtt",
      dict(batched=True, stochastic=True, transport_profile="zero_rtt", quorum_close_fraction=0.8),
      "restart", "DEFAULT"),
+    # the device transport plane on a clean link (no draw decides anything)
+    ("device_degenerate", dict(batched=True, stochastic=True, transport_backend="device"),
+     "clean", "DEFAULT"),
 ]
+# runs whose clocks come from the device plane's f32 arithmetic: their
+# clock-derived fields are held within this relative tolerance
+CLOCK_RTOL = {"device_degenerate": 1e-6}
 # the plane compressors with kernels, batched engine, sparse StatePlane,
 # zero initial residuals (the server's default)
 COMPRESSED = ("int8", "bf16")
@@ -71,7 +77,8 @@ CHECKPOINT_PATH = DATA / "card_reference_ckpt"
 def _chaos(pkg, tr, kind):
     sched = pkg.ChaosSchedule(tr.LAB)
     sched.add(
-        pkg.netem(1.5, 10_000.0, delay=0.4, loss=0.05),
+        # "clean": the delay step without loss
+        pkg.netem(1.5, 10_000.0, delay=0.4, loss=0.0 if kind == "clean" else 0.05),
         pkg.client_failure_schedule(6, 0.3, t_start=2.0, seed=3),
     )
     if kind == "restart":  # lands inside round 2
@@ -251,23 +258,32 @@ def history_gaps(want: dict, got: dict) -> dict:
     return {"accuracy": acc, "loss": loss, "client_metrics": metric}
 
 
-def assert_records_match(want: dict, got: dict, tol: float = HISTORY_TOL):
+def _clock_equal(want: float, got: float, rtol: float) -> bool:
+    return want == got if rtol == 0.0 else abs(want - got) <= rtol * abs(want)
+
+
+def assert_records_match(want: dict, got: dict, tol: float = HISTORY_TOL,
+                         clock_rtol: float = 0.0):
     """Every numpy-computed field (clock, counts, reconnects, ids, cause,
     bytes, events, status, clients) exactly; client metrics and eval
-    accuracy/loss within ``tol``."""
+    accuracy/loss within ``tol``. With ``clock_rtol`` the clock-derived
+    fields (``t_start``, ``t_end``, the eval ``t``) are held within that
+    relative tolerance instead (``CLOCK_RTOL``)."""
     assert (want["status"], want["cause"]) == (got["status"], got["cause"])
     assert want["clients"] == got["clients"]
     assert len(want["rounds"]) == len(got["rounds"])
     for w_rec, g_rec in zip(want["rounds"], got["rounds"]):
         w_d, g_d = dict(w_rec), dict(g_rec)
         w_m, g_m = w_d.pop("metrics"), g_d.pop("metrics")
+        for k in ("t_start", "t_end"):
+            assert _clock_equal(w_d.pop(k), g_d.pop(k), clock_rtol), k
         assert w_d == g_d
         assert sorted(w_m) == sorted(g_m)
         for k in w_m:
             assert abs(w_m[k] - g_m[k]) <= tol, k
     assert len(want["eval_metrics"]) == len(got["eval_metrics"])
     for w_e, g_e in zip(want["eval_metrics"], got["eval_metrics"]):
-        assert (w_e["round"], w_e["t"]) == (g_e["round"], g_e["t"])
+        assert w_e["round"] == g_e["round"] and _clock_equal(w_e["t"], g_e["t"], clock_rtol)
         assert abs(w_e["accuracy"] - g_e["accuracy"]) <= tol
         assert abs(w_e["loss"] - g_e["loss"]) <= tol
 

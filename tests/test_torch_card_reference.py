@@ -39,14 +39,16 @@ def test_fixture_params_are_the_reference_init():
 def test_reference_matches_fixture(name):
     hist, clients = card.run(name, R_TASK, r_core, r_data, r_tr, r_chaos, r_comp)
     assert sorted(RECORDS) == sorted(card.RUNS)
-    card.assert_records_match(RECORDS[name], card.history_record(hist, clients))
+    card.assert_records_match(RECORDS[name], card.history_record(hist, clients),
+                              clock_rtol=card.CLOCK_RTOL.get(name, 0.0))
 
 
 @pytest.mark.parametrize("name", card.RUNS)
 def test_port_on_cpu_matches_fixture(name):
     hist, clients = card.run(name, P_TASK, *card.port_packages())
     assert hist.completed_rounds > 0
-    card.assert_records_match(RECORDS[name], card.history_record(hist, clients))
+    card.assert_records_match(RECORDS[name], card.history_record(hist, clients),
+                              clock_rtol=card.CLOCK_RTOL.get(name, 0.0))
 
 
 def test_reference_checkpoint_is_current(tmp_path):

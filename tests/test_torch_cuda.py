@@ -723,3 +723,102 @@ def test_sequential_engine_is_reproducible_on_the_card(device):
     a.run()
     b.run()
     _same_run(a, b)
+
+
+# --------------------------------------------------------------------------
+# the device transport plane on the card
+# --------------------------------------------------------------------------
+
+
+def _plane_grid(device, *, loss=0.0, jitter=0.0, retry=None, rnd=0, C=12):
+    """One grid round through the device plane: a clean or lossy ladder of
+    four scenarios (the last one dead at 8 s one-way delay when clean)."""
+    import numpy as np
+
+    from repro_torch.transport import BIG_BUFFER, DEFAULT, LAB, TUNED_EDGE
+    from repro_torch.transport.plane import sim_grid_round_device, transport_plane_key
+
+    base = LAB.replace(loss=loss, jitter=jitter)
+    links = [[base] * C, [base.replace(delay=0.3)] * C, [base.replace(rate_mbps=1.0)] * C,
+             [base.replace(delay=8.0 if loss == 0.0 else 0.05)] * C]
+    return sim_grid_round_device(
+        [DEFAULT, BIG_BUFFER, TUNED_EDGE, DEFAULT], links,
+        update_bytes=np.full(4, 300_000, np.int64), download_bytes=np.full(4, 300_000, np.int64),
+        local_train_times=np.full((4, C), 30.0), connected=np.zeros((4, C), bool),
+        key=transport_plane_key(0, 2, rnd), trace=True, retry=retry, device=device)
+
+
+def _outcomes(out):
+    fields = {f: getattr(out, f).cpu() for f in ("success", "time", "reconnects", "bytes_acked")}
+    fields.update({f: v.cpu() for f, v in out.trace.items()})
+    fields["scenario_bytes"] = out.scenario_bytes.cpu()
+    return fields
+
+
+@pytest.mark.parametrize("retry", [None, "resume"])
+def test_degenerate_plane_on_the_card_equals_the_cpu(device, retry):
+    """No draw decides a clean grid: the card's plane gives the CPU's bits,
+    every field, with and without a resuming retry ladder."""
+    from repro_torch.transport import RetryPolicy
+
+    rp = None if retry is None else RetryPolicy(max_retries=2, resume=True)
+    got, want = _outcomes(_plane_grid(device, retry=rp)), _outcomes(_plane_grid("cpu", retry=rp))
+    for name in want:
+        assert torch.equal(got[name], want[name]), name
+
+
+def test_plane_on_the_card_is_deterministic_and_keyed(device):
+    a = _outcomes(_plane_grid(device, loss=0.2, jitter=0.01, rnd=3))
+    b = _outcomes(_plane_grid(device, loss=0.2, jitter=0.01, rnd=3))
+    c = _outcomes(_plane_grid(device, loss=0.2, jitter=0.01, rnd=4))
+    for name in a:
+        assert torch.equal(a[name], b[name]), name
+    assert not (torch.equal(a["success"], c["success"]) and torch.equal(a["time"], c["time"]))
+
+
+def test_transfer_graph_blocks_equal_the_loop_on_the_card(device):
+    """The CUDA graph blocks of the transfer loop give the bits of the loop
+    run one iteration at a time on the card, on a lossy jittered plane."""
+    import numpy as np
+
+    from repro_torch.transport import DEFAULT, LAB
+    from repro_torch.transport import plane as P
+    from repro_torch.transport.des import _LinkArrays, _TcpArrays
+
+    k = 300
+    rng = np.random.default_rng(0)
+    la = _LinkArrays.from_links([LAB.replace(loss=float(x), jitter=0.01)
+                                 for x in rng.choice([0.0, 0.1, 0.3, 0.5], k)])
+    tp = P.TcpPlane.from_arrays(_TcpArrays.broadcast(DEFAULT, k), device)
+    lp = P.LinkPlane.from_arrays(la, device)
+    nbytes = torch.full((k,), 300_000.0, device=device)
+    need = torch.ones(k, dtype=torch.bool, device=device)
+    outs, stats = [], []
+    for run in (P._transfer_iters, P._transfer_blocks):
+        orig = P._transfer_blocks
+        P._transfer_blocks = run  # the same call path, one loop or the other
+        try:
+            st = P.new_plane_stats()
+            outs.append(P._plane_transfer(tp, lp, nbytes, P._stage_generator(7, 0, 1, device),
+                                          need, st))
+            stats.append(st)
+        finally:
+            P._transfer_blocks = orig
+    for x, y in zip(*outs):
+        assert torch.equal(x, y)
+    assert stats[1]["syncs"] < stats[0]["syncs"]
+    assert 0 <= stats[1]["transfer_iters"] - stats[0]["transfer_iters"] < P._BLOCK
+
+
+def test_device_backend_kill_and_resume_on_the_card(device, tmp_path):
+    """A device-backend point killed after round 2 and resumed equals the
+    uninterrupted run on the card, bitwise (the plane runs on the card)."""
+    case = dict(stochastic=True, transport_backend="device")
+    ref = _fl_server(device, **case)
+    ref.run()
+    d = str(tmp_path / "ckpt")
+    _fl_server(device, **case).run(checkpoint_dir=d, stop_after_round=2)
+    res = _fl_server(device, **case)
+    res.run(checkpoint_dir=d)
+    _same_run(ref, res)
+    assert ref.history.completed_rounds == 4

@@ -54,14 +54,15 @@ def test_card_reference_imports_jax_only_inside_main():
 
 
 def test_grid_tuning_and_experiments_are_checked():
-    """The grid engine, the tuning modules and the sweep harness are among
-    the files held to the rule above."""
+    """The grid engine, the device transport plane, the tuning modules and
+    the sweep harness are among the files held to the rule above."""
     names = {str(p.relative_to(PORT)) for p in FILES if PORT in p.parents}
-    want = {"core/grid.py", "tuning/__init__.py", "tuning/grid.py", "tuning/daemon.py",
-            "experiments/__init__.py", "experiments/common.py"}
+    want = {"core/grid.py", "transport/plane.py", "tuning/__init__.py", "tuning/grid.py",
+            "tuning/daemon.py", "experiments/__init__.py", "experiments/common.py"}
     want |= {f"experiments/{m}.py" for m in (
         "fig3_latency", "fig4_loss", "fig5_client_failure", "table3_boundaries",
-        "tuned_vs_default", "fig678_tcp_params", "adaptive_daemon")}
+        "tuned_vs_default", "fig678_tcp_params", "adaptive_daemon", "env_profiles",
+        "reliability_bench", "resilience_bench", "transport_plane_bench")}
     assert want <= names, want - names
 
 

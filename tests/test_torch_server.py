@@ -70,17 +70,11 @@ def _bare_server(strategy=None, config=None):
 @pytest.mark.parametrize(
     "build,item",
     [
-        (lambda: p_core.ServerConfig(transport_backend="device", stochastic=True, batched=True),
-         13),
-        # a checkpointed run on the device backend fails at its config
-        (lambda: _bare_server(config=p_core.ServerConfig(
-            transport_backend="device", stochastic=True, batched=True,
-        )).run(checkpoint_dir="unused"), 13),
         (lambda: _bare_server(strategy=p_core.Strategy("fedadam", server_opt=object())), 5),
         (lambda: p_core.fedopt("adam"), 5),
         (lambda: p_core.diloco(), 5),
     ],
-    ids=["device_backend", "checkpoint_device_backend", "server_opt", "fedopt", "diloco"],
+    ids=["server_opt", "fedopt", "diloco"],
 )
 def test_configs_outside_the_slice_raise(build, item):
     with pytest.raises(NotImplementedError, match=rf"ROADMAP Queue 1, item {item}\)"):
