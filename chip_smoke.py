@@ -116,7 +116,23 @@ Run from the repository root. Phases, each printing one JSON line:
              grid killed after round 2 and resumed, bitwise, fedavg_reduce
              once per aggregating point-round; the fixture's device run
              against the reference's History; ``env_profiles``;
-18. lm_kernels
+18. server_opt
+             the server-side optimizers: the quickstart under fedadam,
+             fedyogi, fedadagrad and diloco and under fedavg, in turns
+             (s/round against fedavg's), fedavg_reduce once per completed
+             round; the fixture's four server-optimizer runs against the
+             reference's committed Histories; a fedadam quickstart killed
+             after round 4 and resumed, bitwise, server state included; the
+             fig3 grid under fedadam == its 20 per-point runs bitwise, then
+             with split-stream stochastic transport on the fused transport
+             plane, killed after round 4 and resumed, bitwise;
+19. engine_benches
+             ``round_engine_bench`` at its full default size, ``sweep_bench``
+             and ``compress_bench`` at their ``fast`` sizes (at the default
+             sizes the phase outran its 180 s budget): every parity flag
+             true, their seconds and speedups, launches per bench
+             (quantize_rows in compress_bench's int8 points);
+20. lm_kernels
              flash_attention and swiglu against their plain versions on the
              card: the reference sweeps, serving lengths, bf16 windows, both
              sides of the GQA packing boundary (G * Sq = 64, 65), the
@@ -126,12 +142,12 @@ Run from the repository root. Phases, each printing one JSON line:
              ``kernel`` and one PyTorch call's time; the share of the bf16
              swiglu's time that its cross-block reduction takes (the
              kernel built again with ``-DSWIGLU_NO_REDUCE``);
-19. serve     ``Server("qwen3-8b", reduced=False)`` on the card, params from a
+21. serve     ``Server("qwen3-8b", reduced=False)`` on the card, params from a
              seeded generator: serve.py:main's 8 requests (batch 4, 12 new
              tokens each); launches asserted per prefill and per decode step;
              prefill ms, decode ms per step, tokens/s, peak memory, and the
              device-idle share of one profiled run (``serve_profile``);
-20. full_width
+22. full_width
              a 2-layer model at Qwen3-8B's full widths with the served
              params: one prefill and three decode steps on the card
              (kernels) and on the CPU (plain versions, fed the card's
@@ -583,12 +599,19 @@ def phase_compressed(torch, uncompressed_s_per_round):
 
 
 def paper_server(torch, *, tcp_name="DEFAULT", batched=True, rounds=MAIN_ROUNDS,
-                 compressor=None, **cfg):
-    """The quickstart: 10 clients x 200 examples, fedavg(min_fit=0.1), a
-    degraded network from t=60 s and 30 % of pods killed from t=120 s."""
+                 compressor=None, strategy="fedavg", **cfg):
+    """The quickstart: 10 clients x 200 examples, fedavg(min_fit=0.1) (or
+    another strategy of ``STRATEGIES`` at min_fit 0.1), a degraded network
+    from t=60 s and 30 % of pods killed from t=120 s."""
     from repro_torch import transport
     from repro_torch.chaos import ChaosSchedule, client_failure_schedule, netem
-    from repro_torch.core import EdgeClient, FederatedServer, ServerConfig, fedavg, mnist_cnn_task
+    from repro_torch.core import (
+        STRATEGIES,
+        EdgeClient,
+        FederatedServer,
+        ServerConfig,
+        mnist_cnn_task,
+    )
     from repro_torch.data import make_federated_mnist, synthetic_mnist
 
     shards = make_federated_mnist(n_clients=10, examples_per_client=200, seed=0)
@@ -599,7 +622,7 @@ def paper_server(torch, *, tcp_name="DEFAULT", batched=True, rounds=MAIN_ROUNDS,
     return FederatedServer(
         mnist_cnn_task(lr=0.05, batch_size=32),
         [EdgeClient(i, dataset=s) for i, s in enumerate(shards)],
-        fedavg(min_fit=0.1),
+        STRATEGIES[strategy](min_fit=0.1),
         tcp=getattr(transport, tcp_name),
         chaos=chaos,
         config=ServerConfig(rounds=rounds, local_steps=4, seed=0, batched=batched, **cfg),
@@ -1087,9 +1110,11 @@ def counted(torch, fn):
 
 
 def _same_server_state(torch, a, b) -> bool:
-    """History, clients, clock, staleness clock and final params: equal bits."""
+    """History, clients, clock, staleness clock, final params and the server
+    optimizer's state: equal bits."""
     return (_same_bits(torch, a.history, b.history)
             and _same_bits(torch, a.global_params, b.global_params)
+            and _same_bits(torch, a.strategy.server_state, b.strategy.server_state)
             and a.sim_time == b.sim_time and a.model_version == b.model_version
             and [(c.connected, c.rounds_participated, c.bytes_sent) for c in a.clients]
             == [(c.connected, c.rounds_participated, c.bytes_sent) for c in b.clients])
@@ -1532,6 +1557,162 @@ def phase_transport_plane(torch, tmp, resilience):
          round_4096=round_profile, reliability_bench=reliability, resilience_retry=retry,
          device_grid=grid, reference_history=reference, env_profiles=env_rows)
     return {"seconds": seconds, "grid": grid, "reference": reference}
+
+
+# --------------------------------------------------------------------------
+# the server-side optimizers and the engine benches
+# --------------------------------------------------------------------------
+
+SERVER_OPTS = ("fedadam", "fedyogi", "fedadagrad", "diloco")
+
+
+def phase_server_opt(torch, tmp):
+    """The server-side optimizers on the card. The quickstart (10 clients, 8
+    rounds, batched) under fedadam, fedyogi, fedadagrad and diloco, and
+    under fedavg, in turns (fedavg, the four, the four reversed, fedavg):
+    s/round against fedavg's, fedavg_reduce once per completed round. The
+    fixture's four server-optimizer runs against the reference's committed
+    Histories. A fedadam quickstart killed after round ``KILL_AT`` and
+    resumed, bitwise (server state included). The fig3 grid under fedadam
+    == its 20 per-point runs bitwise, fedavg_reduce once per aggregating
+    point-round; then fig3's links with split-stream stochastic transport on
+    the fused transport plane, killed after round ``KILL_AT`` and resumed,
+    bitwise."""
+    import dataclasses
+
+    from repro_torch.core import STRATEGIES, run_fl_grid
+    from repro_torch.experiments import common, fig3_latency
+
+    t0 = time.perf_counter()
+    runs = {}
+    for name in ("fedavg",) + SERVER_OPTS + SERVER_OPTS[::-1] + ("fedavg",):  # in turns
+        hist, wall, counts = timed_run(torch, paper_server(torch, strategy=name))
+        accs = [m["accuracy"] for m in hist.eval_metrics]
+        check(hist.completed_rounds > 0 and all(0.0 <= a <= 1.0 for a in accs),
+              f"server_opt {name}: {hist.summary()}")
+        check(counts["fedavg_reduce"] == hist.completed_rounds,
+              f"server_opt {name}: {counts['fedavg_reduce']} fedavg_reduce launches for "
+              f"{hist.completed_rounds} rounds")
+        runs.setdefault(name, []).append({
+            "wall_s_per_round": wall / len(hist.rounds), "launches": counts["fedavg_reduce"],
+            "completed_rounds": hist.completed_rounds, "final_accuracy": accs[-1]})
+    s_per_round = {k: [r["wall_s_per_round"] for r in v] for k, v in runs.items()}
+    base = statistics.median(s_per_round["fedavg"])
+    opt_runs = [r for name in SERVER_OPTS for r in runs[name]]
+
+    sys.path.insert(0, str(ROOT / "tests"))
+    import _card_reference as card
+
+    records, task, pkgs = card.load_records(), card.port_task("cuda"), card.port_packages()
+    fixture = {}
+    for name in card.SERVER_OPT:
+        (hist, clients), _, counts = counted(torch, lambda n=name: card.run(n, task, *pkgs))
+        got = card.history_record(hist, clients)
+        try:
+            card.assert_records_match(records[name], got)
+        except AssertionError as e:
+            raise PhaseFailed(f"server_opt fixture {name}: {e!r}; "
+                              f"gaps {card.history_gaps(records[name], got)}") from e
+        check(counts["fedavg_reduce"] == hist.completed_rounds,
+              f"server_opt fixture {name}: launches {counts['fedavg_reduce']}")
+        fixture[name] = {"gaps": card.history_gaps(records[name], got),
+                         "launches": counts["fedavg_reduce"]}
+
+    make = lambda: paper_server(torch, strategy="fedadam")  # noqa: E731
+    _, counts, seg = _kill_and_resume(torch, make, tmp, "server_opt_fedadam")
+    check(counts["fedavg_reduce"] == seg["completed"],
+          f"server_opt: resumed launches {counts['fedavg_reduce']} for {seg['completed']}")
+    resume = {"resumed_launches": counts["fedavg_reduce"], "resumed_rounds": seg["completed"],
+              "resumed_wall_s": seg["wall_s"]}
+
+    eval_data = common._shared_eval_data()
+    grid_task = common._shared_task("cuda")
+    _, kwargs = fig3_latency.sweep_points()
+
+    def points(**extra):
+        pts = [common._make_point(**kw, **extra) for kw in kwargs]
+        return [dataclasses.replace(p, strategy=STRATEGIES["fedadam"](
+            min_fit=p.strategy.min_fit_fraction)) for p in pts]
+
+    res, grid_wall, counts = _grid_run(torch, grid_task, points(), eval_data)
+    servers, pp_wall = _per_point_runs(torch, grid_task, points(), eval_data)
+    for i, (g, s) in enumerate(zip(res.servers, servers)):
+        check(_same_server_state(torch, g, s), f"server_opt grid: point {i} != its per-point run")
+    aggregating = sum(h.completed_rounds for h in res.histories)
+    check(counts["fedavg_reduce"] == aggregating,
+          f"server_opt grid: {counts['fedavg_reduce']} launches for {aggregating}")
+    grid = {"points": len(kwargs), "grid_wall_s": grid_wall, "per_point_wall_s": pp_wall,
+            "stats": dataclasses.asdict(res.stats), "launches": counts["fedavg_reduce"],
+            "aggregating_point_rounds": aggregating, "grid_equals_per_point": True}
+
+    split = dict(stochastic=True, rng_streams="split")
+    d = str(Path(tmp) / "server_opt_grid")
+    fused = lambda **kw: run_fl_grid(grid_task, points(**split), eval_data=eval_data,  # noqa: E731
+                                     transport="fused", **kw)
+    ref = fused()
+    fused(checkpoint_dir=d, stop_after_round=KILL_AT)
+    res, _, counts = counted(torch, lambda: fused(checkpoint_dir=d))
+    for i, (a, b) in enumerate(zip(ref.servers, res.servers)):
+        check(_same_server_state(torch, a, b), f"server_opt fused grid: point {i} differs")
+    check(res.stats.resumed_round == KILL_AT, f"server_opt fused grid: {res.stats}")
+    resumed = sum(0 if r.failed_round else 1 for h in res.histories for r in h.rounds[KILL_AT:])
+    check(counts["fedavg_reduce"] == resumed,
+          f"server_opt fused grid: {counts['fedavg_reduce']} launches for {resumed}")
+    grid["fused_resume"] = {"equal": True, "resumed_launches": counts["fedavg_reduce"],
+                            "resumed_aggregating_point_rounds": resumed,
+                            "stats": dataclasses.asdict(res.stats)}
+    seconds = time.perf_counter() - t0
+    emit("server_opt", seconds=seconds, rounds=MAIN_ROUNDS, runs=runs,
+         s_per_round=s_per_round,
+         s_per_round_over_fedavg={k: statistics.median(v) / base for k, v in s_per_round.items()},
+         fixture=fixture, tol=card.HISTORY_TOL,
+         fixture_max_gap={k: max(f["gaps"][k] for f in fixture.values())
+                          for k in ("accuracy", "loss", "client_metrics")},
+         kill_and_resume=resume, grid=grid)
+    return {"seconds": seconds, "launches": sum(r["launches"] for r in opt_runs),
+            "rounds": sum(r["completed_rounds"] for r in opt_runs)}
+
+
+ENGINE_BENCHES = ("round_engine_bench", "sweep_bench", "compress_bench")
+ENGINE_BENCH_BUDGET_S = 180.0  # the phase's budget
+
+
+def phase_engine_benches(torch):
+    """The three engine benches of ``repro_torch.experiments`` on the card:
+    ``round_engine_bench`` at its full default size (32 clients x 320
+    examples, 10 rounds of 10 local steps, sequential vs batched in turns),
+    ``sweep_bench`` (the fig3 grid vs per-point, fig3 / fig4 / table3 row
+    parity, the fused transport section) and ``compress_bench`` (the (loss x
+    tcp x {topk 0.05, int8}) grid through the plane vs unstacked) at their
+    ``fast`` sizes: at the default sizes the phase took 181 s on an H100,
+    over its 180 s budget (PERF.md). Every parity flag must hold; the speed
+    targets are readings. Launches are counted per bench (fedavg_reduce;
+    quantize_rows in compress_bench)."""
+    import contextlib
+    import io
+
+    from repro_torch.experiments import compress_bench, round_engine_bench, sweep_bench
+
+    t0 = time.perf_counter()
+    out = {}
+    for name, fn, kw in zip(ENGINE_BENCHES, (
+        round_engine_bench.run_bench, sweep_bench.run_bench, compress_bench.run_bench),
+            ({}, {"fast": True}, {"fast": True})):
+        with contextlib.redirect_stdout(io.StringIO()):
+            r, wall, counts = counted(torch, lambda f=fn, k=kw: f(device="cuda", **k))
+        parity = {k: v for k, v in r.items() if k.startswith(("parity", "agree_", "accuracy_"))}
+        if "fused_transport" in r:
+            parity["fused_transport_parity"] = r["fused_transport"]["parity"]
+        check(all(parity.values()), f"engine_benches {name}: parity {parity}")
+        out[name] = {"seconds": wall, "bench": r, "parity": parity,
+                     "launches": {k: counts[k] for k in ("fedavg_reduce", "quantize_rows")}}
+    check(out["compress_bench"]["launches"]["quantize_rows"] > 0,
+          "engine_benches: compress_bench launched no quantize_rows")
+    seconds = time.perf_counter() - t0
+    emit("engine_benches", seconds=seconds, fast_grid_benches=True,
+         budget_s=ENGINE_BENCH_BUDGET_S, within_budget=seconds <= ENGINE_BENCH_BUDGET_S,
+         speedups={k: v["bench"]["speedup"] for k, v in out.items()}, **out)
+    return {"seconds": seconds, **out}
 
 
 # --------------------------------------------------------------------------
@@ -2061,6 +2242,9 @@ def main() -> int:
                    "population": population["seconds"]})
     with tempfile.TemporaryDirectory(prefix="chip_smoke_plane_") as tmp:
         plane = phase_transport_plane(torch, tmp, fault["resilience_bench"])
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_server_opt_") as tmp:
+        server_opt = phase_server_opt(torch, tmp)
+    benches = phase_engine_benches(torch)
     from repro_torch.utils import f32_math
 
     with f32_math("cuda"):  # the f32 plain versions as yardsticks in full f32
@@ -2155,10 +2339,20 @@ def main() -> int:
         "device_grid_aggregating_point_rounds": plane["grid"]["aggregating_point_rounds"],
         "device_reference_launches": plane["reference"]["launches"],
         "device_reference_rounds": plane["reference"]["completed_rounds"],
+        # the quickstart under fedadam / fedyogi / fedadagrad / diloco, two
+        # runs each: one launch per completed round
+        "server_opt_launches": server_opt["launches"],
+        "server_opt_rounds": server_opt["rounds"],
+        # the three engine benches (the grid benches at their fast sizes)
+        "engine_bench_launches": {k: benches[k]["launches"]["fedavg_reduce"]
+                                  for k in ENGINE_BENCHES},
     },
         # one compressed round: the 8 CNN leaves at R = 10 (int8 grouped, bf16 summed)
-        quant_row("quantize_rows", compressed["int8"], "src/repro/kernels/quantize.py:83",
-                  NO_LIBRARY, grid["compressed"]["int8 dense"]),
+        {**quant_row("quantize_rows", compressed["int8"], "src/repro/kernels/quantize.py:83",
+                     NO_LIBRARY, grid["compressed"]["int8 dense"]),
+         # compress_bench: the int8 points' plane compressions and the
+         # unstacked baseline's per-client compressions
+         "compress_bench_launches": benches["compress_bench"]["launches"]["quantize_rows"]},
         quant_row("downcast_bf16_rows", compressed["bf16"], "src/repro/kernels/quantize.py:112",
                   "one x.to(torch.bfloat16) over the same elements as a single [10, 206922] "
                   "tensor (library_per_leaf_ms: one call per leaf, 8 calls)",

@@ -285,11 +285,6 @@ class FederatedServer:
         eval_data: Optional[Dict[str, np.ndarray]] = None,
         eval_fn: Optional[Any] = None,
     ):
-        if strategy.server_opt is not None:
-            raise NotImplementedError(
-                f"strategy {strategy.name!r} uses a server-side optimizer, "
-                "which is not ported yet (ROADMAP Queue 1, item 5)"
-            )
         self.task = task
         self.clients = clients
         self.strategy = strategy
@@ -1247,10 +1242,9 @@ class FederatedServer:
                 self.global_params, len(self.clients), mp.get("residual_plane"), device=device
             )
         if mp["has_server_state"]:
-            raise NotImplementedError(
-                "the checkpoint carries server-optimizer state, and server-side "
-                "optimizers are not ported yet (ROADMAP Queue 1, item 5)"
-            )
+            # init makes the state on the params' device, so load_tree
+            # brings the saved leaves onto the server's device
+            node["server_state"] = self.strategy.server_opt.init(self.global_params)
         if mp.get("residual_clients"):
             f32 = tree_map(
                 lambda l: torch.zeros(l.shape, dtype=torch.float32, device=device),
@@ -1294,6 +1288,8 @@ class FederatedServer:
                 slots=(slot_maps or {}).get("residual"),
                 device=device,
             )
+        if mp["has_server_state"]:
+            self.strategy.server_state = on_device(tree["server_state"])
         for j in mp.get("residual_clients", []):
             self._client_at(j).residual = on_device(tree["cres"][f"c{j}"])
         self.sim_time = float(mp["sim_time"])

@@ -4,10 +4,11 @@
 All strategies speak *deltas*: clients send (new_params - global_params);
 the server turns the aggregated delta into the next global model.
 ``min_fit_fraction`` implements Flower's min_fit_clients semantics, the
-paper's Recommendation #3 knob. FedAvg, FedProx and the robust
-order-statistic strategies (trimmed mean, median, Krum) are ported; the
-server-optimizer strategies (FedOpt, DiLoCo) are not yet and raise
-(ROADMAP Queue 1, item 5).
+paper's Recommendation #3 knob. FedAvg is the paper's baseline;
+FedProx, the server-optimizer strategies (FedAdam / FedYogi / FedAdagrad,
+DiLoCo) and the robust order-statistic strategies (trimmed mean, median,
+Krum) are the "advanced reliability techniques" tier the paper's Table III
+points practitioners to.
 """
 
 from __future__ import annotations
@@ -19,6 +20,7 @@ import numpy as np
 import torch
 
 from repro_torch.kernels import ops as kernel_ops
+from repro_torch.optim import Optimizer, fedopt_server, nesterov_outer
 from repro_torch.utils import tree_add, tree_leaves, tree_map, tree_unstack, tree_weighted_mean
 
 
@@ -28,11 +30,9 @@ class Strategy:
     min_fit_fraction: float = 0.5  # Flower default-ish; paper tunes to 0.1
     min_eval_fraction: float = 0.5
     prox_mu: float = 0.0  # >0 => FedProx client regularizer
-    # server-side optimizer (FedOpt/DiLoCo): not ported yet, and a server
-    # given a strategy that sets it refuses to start
-    server_opt: Optional[object] = None
-    # server-optimizer state: always None until item 5 (the checkpoint
-    # meta's ``has_server_state`` reads it, as the reference's does)
+    # server-side optimizer (FedOpt/DiLoCo) and its state, made from the
+    # global params at the first aggregation (on their device)
+    server_opt: Optional[Optimizer] = None
     server_state: Optional[dict] = None
     aggregate_fn: Callable = None  # (deltas, weights) -> delta
     # Stacked twin of aggregate_fn for the batched cohort engine:
@@ -62,11 +62,14 @@ class Strategy:
         return self._apply(global_params, self.stacked_aggregate_fn(stacked_deltas, weights), step)
 
     def _apply(self, global_params, agg_delta, step: int):
-        if self.server_opt is not None:
-            raise NotImplementedError(
-                "server-side optimizers are not ported yet (ROADMAP Queue 1, item 5)"
-            )
-        return tree_add(global_params, agg_delta)
+        if self.server_opt is None:
+            return tree_add(global_params, agg_delta)
+        if self.server_state is None:
+            self.server_state = self.server_opt.init(global_params)
+        upd, self.server_state = self.server_opt.update(
+            agg_delta, self.server_state, global_params, step
+        )
+        return tree_add(global_params, upd)
 
 
 def _weighted_mean(deltas, weights):
@@ -100,14 +103,27 @@ def fedprox(mu: float = 0.01, min_fit: float = 0.5) -> Strategy:
 
 
 def fedopt(kind: str = "adam", server_lr: float = 0.1, min_fit: float = 0.5) -> Strategy:
-    raise NotImplementedError(
-        "fedopt (a server-side optimizer) is not ported yet (ROADMAP Queue 1, item 5)"
+    return Strategy(
+        f"fed{kind}",
+        min_fit,
+        min_fit,
+        server_opt=fedopt_server(kind, lr=server_lr),
+        aggregate_fn=_weighted_mean,
+        stacked_aggregate_fn=_weighted_mean_stacked,
+        agg_fingerprint=("wmean", "fedopt", kind, float(server_lr)),
     )
 
 
 def diloco(outer_lr: float = 0.7, outer_momentum: float = 0.9, min_fit: float = 0.5) -> Strategy:
-    raise NotImplementedError(
-        "diloco (a server-side outer optimizer) is not ported yet (ROADMAP Queue 1, item 5)"
+    """Local-SGD outer Nesterov — the cross-pod datacenter configuration."""
+    return Strategy(
+        "diloco",
+        min_fit,
+        min_fit,
+        server_opt=nesterov_outer(outer_lr, outer_momentum),
+        aggregate_fn=_weighted_mean,
+        stacked_aggregate_fn=_weighted_mean_stacked,
+        agg_fingerprint=("wmean", "nesterov", float(outer_lr), float(outer_momentum)),
     )
 
 
@@ -209,6 +225,10 @@ def krum(n_byzantine: int = 1, min_fit: float = 0.5) -> Strategy:
 STRATEGIES = {
     "fedavg": fedavg,
     "fedprox": fedprox,
+    "fedadam": lambda **kw: fedopt("adam", **kw),
+    "fedyogi": lambda **kw: fedopt("yogi", **kw),
+    "fedadagrad": lambda **kw: fedopt("adagrad", **kw),
+    "diloco": diloco,
     "trimmed_mean": trimmed_mean,
     "median": median,
     "krum": krum,

@@ -23,9 +23,11 @@ from __future__ import annotations
 import io
 import math
 import sys
+import time
 from typing import Dict, List, Optional
 
 import numpy as np
+import torch
 
 from repro_torch.chaos import ChaosSchedule
 from repro_torch.compress import get_compressor
@@ -52,6 +54,7 @@ _TASKS: Dict[str, object] = {}
 _SHARDS: Dict[int, list] = {}
 _EVAL_DATA = None
 _COMPRESSORS: Dict[str, object] = {}
+last_grid_stats = None  # GridStats of the most recent grid sweep (bench telemetry)
 
 
 def _shared_task(device=None):
@@ -243,10 +246,12 @@ def run_fl_grid_experiments(
     samples its own transport), "parity" (one sim_grid_round per round on
     per-point streams — still bit-identical), or "fused" (one shared-rng
     lockstep plane per round — distribution-equivalent)."""
+    global last_grid_stats
     gpoints = [_make_point(**kw) for kw in points]
     res = run_fl_grid(
         _shared_task(device), gpoints, eval_data=_shared_eval_data(), transport=transport
     )
+    last_grid_stats = res.stats
     out = [
         _summarize(h.summary(), p.config.rounds)
         for h, p in zip(res.histories, gpoints)
@@ -265,6 +270,19 @@ def run_points(
     if engine == "per_point":
         return [run_fl_experiment(device=device, **kw) for kw in points]
     raise ValueError(f"unknown engine {engine!r}")
+
+
+def wall_s(device, fn):
+    """(``fn()``, its wall seconds), a CUDA ``device`` synchronized on both
+    sides so the time holds the card's work."""
+    cuda = torch.device(device).type == "cuda"
+    if cuda:
+        torch.cuda.synchronize(device)
+    t0 = time.perf_counter()
+    out = fn()
+    if cuda:
+        torch.cuda.synchronize(device)
+    return out, time.perf_counter() - t0
 
 
 def emit_csv(name: str, header: List[str], rows: List[List]) -> str:

@@ -1,5 +1,8 @@
 """Functional optimizers over nested dicts of tensors (the port of the
-slice's part of ``repro/optim/optimizers.py``).
+slice's part of ``repro/optim/optimizers.py``): ``sgd`` for the clients'
+local steps, and the server-side (outer) optimizers ``nesterov_outer``
+(DiLoCo-style outer momentum, FedAvg when lr=1, momentum=0) and
+``fedopt_server`` (FedAdam / FedYogi / FedAdagrad, Reddi et al.).
 
 (init, update) pairs; ``update`` returns *updates* to be added to params
 (the optax convention), so optimizers compose with clipping. Over stacked
@@ -74,5 +77,70 @@ def sgd(lr: Callable | float, momentum: float = 0.0, nesterov: bool = False,
         else:
             upd = tree_map(lambda mm: -lr_t * mm, m)
         return upd, {"m": m}
+
+    return Optimizer(init, update)
+
+
+# ---------------------------------------------------------------------------
+# Server-side (outer) optimizers for FedAvg / local-update training: the
+# reference's expressions in its operation order, f32 state
+# ---------------------------------------------------------------------------
+
+
+def _f32_zeros(params):
+    return tree_map(lambda p: torch.zeros(p.shape, dtype=torch.float32, device=p.device), params)
+
+
+def _sqrt_f32(x: torch.Tensor) -> torch.Tensor:
+    """The correctly rounded f32 square root, as XLA's and CUDA's: torch's
+    vectorised CPU sqrt is off by an ulp on ~0.7 % of inputs, and the f64
+    root rounds to the correctly rounded f32 one (53 >= 2 * 24 + 2 bits)."""
+    return torch.sqrt(x.double()).float()
+
+
+def nesterov_outer(lr: float = 0.7, momentum: float = 0.9) -> Optimizer:
+    """DiLoCo outer optimizer. lr=1, momentum=0 reduces to plain FedAvg."""
+
+    def init(params):
+        return {"m": _f32_zeros(params)}
+
+    def update(avg_delta, state, params, step):
+        m = tree_map(lambda mm, d: momentum * mm + d.float(), state["m"], avg_delta)
+        upd = tree_map(lambda mm, d: lr * (momentum * mm + d.float()), m, avg_delta)
+        return upd, {"m": m}
+
+    return Optimizer(init, update)
+
+
+def fedopt_server(kind: str = "adam", lr: float = 0.1, b1: float = 0.9,
+                  b2: float = 0.99, tau: float = 1e-3) -> Optimizer:
+    """FedAdam / FedYogi / FedAdagrad (Reddi et al. 2021). ``v`` starts at
+    ``tau * tau`` rounded to f32; yogi's ``sign(0)`` is 0, as ``jnp.sign``'s."""
+    if kind not in ("adam", "yogi", "adagrad"):
+        raise ValueError(f"unknown fedopt kind {kind!r}; expected adam, yogi or adagrad")
+
+    def init(params):
+        return {
+            "m": _f32_zeros(params),
+            "v": tree_map(
+                lambda p: torch.full(p.shape, tau * tau, dtype=torch.float32, device=p.device),
+                params,
+            ),
+        }
+
+    def update(avg_delta, state, params, step):
+        m = tree_map(lambda mm, d: b1 * mm + (1 - b1) * d.float(), state["m"], avg_delta)
+
+        def new_v(vv, d):
+            d2 = torch.square(d.float())
+            if kind == "adam":
+                return b2 * vv + (1 - b2) * d2
+            if kind == "yogi":
+                return vv - (1 - b2) * d2 * torch.sign(vv - d2)
+            return vv + d2  # adagrad
+
+        v = tree_map(new_v, state["v"], avg_delta)
+        upd = tree_map(lambda mm, vv: lr * mm / (_sqrt_f32(vv) + tau), m, v)
+        return upd, {"m": m, "v": v}
 
     return Optimizer(init, update)

@@ -67,7 +67,11 @@ COMPRESSED = ("int8", "bf16")
 # the async engine, batched: degenerate (one client, clean link, a buffer
 # of one) and buffered (k=3, half the clients throttled, staleness weights)
 ASYNC = ("async_degenerate", "async_buffered")
-RUNS = [e[0] for e in ENGINES] + [f"compressed_{c}" for c in COMPRESSED] + list(ASYNC)
+# the server-side optimizers (FedOpt's three kinds, DiLoCo's outer
+# Nesterov), each from ``STRATEGIES`` on the batched engine, quickstart chaos
+SERVER_OPT = ("fedadam", "fedyogi", "fedadagrad", "diloco")
+RUNS = ([e[0] for e in ENGINES] + [f"compressed_{c}" for c in COMPRESSED] + list(ASYNC)
+        + list(SERVER_OPT))
 # the run whose round-2 checkpoint is committed (single-stream stochastic
 # transport: the restore must carry the generator's state exactly)
 CHECKPOINT_RUN = "batched_stochastic"
@@ -86,9 +90,10 @@ def _chaos(pkg, tr, kind):
     return sched
 
 
-def _server(core, data, tr, chaos_pkg, task, name, overrides, chaos_kind, tcp_name):
+def _server(core, data, tr, chaos_pkg, task, name, overrides, chaos_kind, tcp_name,
+            strategy="fedavg"):
     """One engine run's server: 6 clients x 64 examples, 3 rounds of 2 local
-    steps."""
+    steps, ``strategy`` from ``STRATEGIES`` with min_fit 0.3."""
     shards = data.make_federated_mnist(6, 64, seed=0)
     clients = [core.EdgeClient(i, dataset=s) for i, s in enumerate(shards)]
     kw = dict(rounds=3, local_steps=2, seed=0, **overrides)
@@ -97,7 +102,7 @@ def _server(core, data, tr, chaos_pkg, task, name, overrides, chaos_kind, tcp_na
     return core.FederatedServer(
         task,
         clients,
-        core.fedavg(min_fit=0.3),
+        core.STRATEGIES[strategy](min_fit=0.3),
         tcp=getattr(tr, tcp_name),
         chaos=_chaos(chaos_pkg, tr, chaos_kind),
         config=core.ServerConfig(**kw),
@@ -158,6 +163,10 @@ def run(name, task, core, data, tr, chaos_pkg, comp_pkg):
                                name[len("compressed_"):])
     if name in ASYNC:
         return _run_async(core, data, tr, chaos_pkg, task, name)
+    if name in SERVER_OPT:
+        server = _server(core, data, tr, chaos_pkg, task, name, dict(batched=True),
+                         "quickstart", "DEFAULT", strategy=name)
+        return server.run(), server.clients
     engine = next(e for e in ENGINES if e[0] == name)
     return _run(core, data, tr, chaos_pkg, task, *engine)
 

@@ -94,3 +94,47 @@ def assert_same(a, b, path="out"):
         assert np.isnan(b), path
     else:
         assert a == b and type(a) is type(b), (path, a, b)
+
+
+def thin_sweep_harnesses(monkeypatch, commons, port_common, port_task):
+    """Every sweep harness in ``commons`` (``benchmarks/common.py`` and
+    ``repro_torch.experiments.common``) at 4 clients x 64 examples, 2 rounds
+    of 1 local step (``_make_point``'s defaults), on fresh shard caches; the
+    port's shared CPU task is ``port_task``."""
+    for c in commons:
+        monkeypatch.setattr(c, "N_CLIENTS", 4)
+        monkeypatch.setattr(c, "EXAMPLES_PER_CLIENT", 64)
+        monkeypatch.setattr(c, "ROUNDS", 2)
+        monkeypatch.setattr(c, "_SHARDS", {})
+        monkeypatch.setitem(c._make_point.__kwdefaults__, "rounds", 2)
+        monkeypatch.setitem(c._make_point.__kwdefaults__, "local_steps", 1)
+    monkeypatch.setattr(port_common, "_TASKS", {"cpu": port_task})
+
+
+def record_rows(monkeypatch, module, engine):
+    """Wrap ``module.compute_rows`` so that the rows of every call on
+    ``engine`` are kept, in order (a bench's timed pass is its last)."""
+    kept = []
+    compute = module.compute_rows
+
+    def recording(*args, **kw):
+        rows = compute(*args, **kw)
+        if kw.get("engine") == engine:
+            kept.append(rows)
+        return rows
+
+    monkeypatch.setattr(module, "compute_rows", recording)
+    return kept
+
+
+def assert_rows_match(ref_rows, port_rows, acc_cols, tol=1e-3):
+    """Sweep rows: every cell equal as text, except accuracy columns within
+    ``tol`` (a nan accuracy is compared as text)."""
+    assert len(ref_rows) == len(port_rows)
+    for r, p in zip(ref_rows, port_rows):
+        assert len(r) == len(p)
+        for j, (a, b) in enumerate(zip(r, p)):
+            if j in acc_cols and a == a:
+                assert abs(a - b) <= tol, (r, p)
+            else:
+                assert str(a) == str(b), (r, p)

@@ -639,9 +639,9 @@ def test_grid_matches_per_point_on_the_card(device, compressor):
             assert torch.equal(a, b)
 
 
-def _fl_server(device, *, n_clients=4, compressor=None, slow=(), **cfg):
+def _fl_server(device, *, n_clients=4, compressor=None, slow=(), strategy="fedavg", **cfg):
     from repro_torch.chaos import ChaosSchedule
-    from repro_torch.core import EdgeClient, FederatedServer, ServerConfig, fedavg
+    from repro_torch.core import STRATEGIES, EdgeClient, FederatedServer, ServerConfig
     from repro_torch.data import make_federated_mnist, synthetic_mnist
     from repro_torch.transport import DEFAULT, LAB
 
@@ -653,7 +653,7 @@ def _fl_server(device, *, n_clients=4, compressor=None, slow=(), **cfg):
     kw = dict(rounds=4, local_steps=2, seed=0, batched=True)
     kw.update(cfg)
     return FederatedServer(
-        task, clients, fedavg(min_fit=0.5), tcp=DEFAULT,
+        task, clients, STRATEGIES[strategy](min_fit=0.5), tcp=DEFAULT,
         chaos=ChaosSchedule(LAB.replace(loss=0.05)), config=ServerConfig(**kw),
         compressor=None if compressor is None else get_compressor(compressor),
         eval_data=synthetic_mnist(150, seed=7),
@@ -690,6 +690,31 @@ def test_kill_and_resume_bitwise_on_the_card(device, tmp_path, case):
     from repro_torch.utils import tree_leaves
 
     assert all(leaf.device.type == "cuda" for leaf in tree_leaves(res.checkpoint_arrays()))
+
+
+@pytest.mark.parametrize("batched", [True, False])
+def test_fedadam_kill_and_resume_on_the_card(device, tmp_path, batched):
+    """A fedadam point killed after round 2 and resumed equals the
+    uninterrupted run on the card, bitwise, server state included: the
+    state comes back onto the card, and the resumed half launches
+    fedavg_reduce once per completed round (batched)."""
+    from repro_torch.utils import tree_leaves
+
+    ref = _fl_server(device, strategy="fedadam", batched=batched)
+    ref.run()
+    d = str(tmp_path / "ckpt")
+    _fl_server(device, strategy="fedadam", batched=batched).run(
+        checkpoint_dir=d, stop_after_round=2)
+    res = _fl_server(device, strategy="fedadam", batched=batched)
+    before = fr.launches
+    res.run(checkpoint_dir=d)
+    resumed = sum(0 if r.failed_round else 1 for r in res.history.rounds[2:])
+    assert fr.launches - before == (resumed if batched else 0) and resumed > 0
+    _same_run(ref, res)
+    state = tree_leaves(res.strategy.server_state)
+    assert len(state) == 2 * len(tree_leaves(res.global_params))
+    for x, y in zip(tree_leaves(ref.strategy.server_state), state):
+        assert y.device.type == "cuda" and torch.equal(x, y)
 
 
 @pytest.mark.parametrize("batched", [False, True])

@@ -12,6 +12,7 @@ import repro.core as r_core
 import repro.data as r_data
 import repro.transport as r_tr
 import repro_torch.chaos as p_chaos
+import repro_torch.configs as p_configs
 import repro_torch.core as p_core
 import repro_torch.data as p_data
 import repro_torch.transport as p_tr
@@ -60,21 +61,14 @@ def test_rec3_min_fit_under_90pct_failure_on_the_port():
     assert hist.completed_rounds == 3  # one surviving client suffices
 
 
-def _bare_server(strategy=None, config=None):
-    return p_core.FederatedServer(
-        P_TASK, [], strategy or p_core.fedavg(), tcp=p_tr.DEFAULT,
-        chaos=p_chaos.ChaosSchedule(p_tr.LAB), config=config or p_core.ServerConfig(),
-    )
-
-
 @pytest.mark.parametrize(
     "build,item",
     [
-        (lambda: _bare_server(strategy=p_core.Strategy("fedadam", server_opt=object())), 5),
-        (lambda: p_core.fedopt("adam"), 5),
-        (lambda: p_core.diloco(), 5),
+        (lambda: p_configs.get_config("phi3-medium-14b"), 15),
+        (lambda: p_configs.get_reduced("starcoder2-3b"), 15),
+        (lambda: p_configs.get_config("mixtral-8x7b"), 15),
     ],
-    ids=["server_opt", "fedopt", "diloco"],
+    ids=["phi3-medium-14b", "starcoder2-3b", "mixtral-8x7b"],
 )
 def test_configs_outside_the_slice_raise(build, item):
     with pytest.raises(NotImplementedError, match=rf"ROADMAP Queue 1, item {item}\)"):
