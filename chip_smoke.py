@@ -151,7 +151,40 @@ Run from the repository root. Phases, each printing one JSON line:
              a 2-layer model at Qwen3-8B's full widths with the served
              params: one prefill and three decode steps on the card
              (kernels) and on the CPU (plain versions, fed the card's
-             tokens); logits within 3e-2 of max |logit|.
+             tokens); logits within 3e-2 of max |logit|;
+23. lm_grad  flash_attention and swiglu under autograd (their
+             ``torch.autograd.Function``s) against autograd through their
+             plain versions at the training shapes (flash B = 2, S = 256,
+             32 / 8 heads, D = 128, causal and a 64-key window; swiglu
+             M = 512 at Qwen3-8B's widths), f32 and bf16: the output and
+             every input gradient relative to its max |value|, the
+             tolerance beside it; forward and backward timed (CUDA events)
+             beside the bound, the plain version and SDPA;
+24. lm_train_qwen
+             Qwen3-8B at full width (bf16, Adafactor, 2 x 256 tokens): one
+             step's loss and gradient norm through the kernels and through
+             the plain versions, within a stated bf16 tolerance; then 4
+             train steps: losses finite, s/step, tokens/s, peak memory,
+             each kernel's launches (36 forward + 36 recomputed under
+             remat) and backward passes (36) per step, the device-idle share
+             of one profiled step;
+25. lm_train_starcoder2
+             ``train("starcoder2-3b", reduced=False)`` under AdamW, 10 steps
+             checkpointing at step 8 (one 31.8 GB checkpoint: the machine
+             takes at most 45 GiB of disk writes a run), then a restart that
+             resumes from step 8: its losses against steps 9 and 10 of the
+             uninterrupted run, the loss falling, save / restore seconds;
+26. lm_fl     ``FederatedServer`` on ``lm_task`` (reduced Qwen3), 4 clients,
+             2 rounds, batched and sequential: fedavg_reduce once per round
+             on the batched engine, the Histories equal by the CPU test's
+             rules;
+27. dense_serving
+             Phi-3-medium-14B and Minitron-8B at full width, one at a time:
+             one batch of serve.py:main's prompts with launches per prefill
+             and decode step, logits finite over the padded vocab (256,000
+             for Minitron), swiglu at their widths and flash_attention at
+             their heads against the plain versions; then ``lm_phases``,
+             the seconds of phases 23-27 against their 240 s budget.
 
 Then the kernels line, the card's name and power limit as nvidia-smi gives
 them, and the final ``{"ok": true, ...}`` line. A failed phase raises: the
@@ -161,7 +194,9 @@ repository beside it, it exits 2.
 
 from __future__ import annotations
 
+import gc
 import json
+import math
 import statistics
 import subprocess
 import sys
@@ -638,6 +673,7 @@ def reset_launches() -> None:
     from repro_torch.kernels import swiglu as sw
 
     fr.launches = fa.launches = sw.launches = 0
+    fa.backward_calls = sw.backward_calls = 0
     for name in qz.launches:
         qz.launches[name] = 0
 
@@ -649,7 +685,9 @@ def read_launches() -> dict:
     from repro_torch.kernels import swiglu as sw
 
     return {"fedavg_reduce": fr.launches, **qz.launches,
-            "flash_attention": fa.launches, "swiglu": sw.launches}
+            "flash_attention": fa.launches, "swiglu": sw.launches,
+            # backward passes of their autograd Functions (plain torch, no launch)
+            "flash_attention_backward": fa.backward_calls, "swiglu_backward": sw.backward_calls}
 
 
 def timed_run(torch, server):
@@ -2108,6 +2146,477 @@ def phase_full_width(torch, server):
          rel_err=worst, rtol=SERVE_LOGIT_RTOL, greedy_agree=agree, greedy_total=4 * len(card))
 
 
+# --------------------------------------------------------------------------
+# LM training (phases 23-26)
+# --------------------------------------------------------------------------
+
+LM_BUDGET_S = 240.0  # phases 23-26 together
+TRAIN_B, TRAIN_S = 2, 256  # the training batch: 2 sequences of 256 tokens
+# kernel Function vs autograd through the plain version, relative to the
+# largest |value|: f32 sums in another order; bf16 also rounds P (flash) or
+# h (swiglu) once more and runs the backward's products in bf16
+GRAD_RTOL = {"float32": 1e-4, "bfloat16": 3e-2}
+# one Qwen3-8B loss and gradient with the kernels against the plain
+# versions (bf16), relative gaps: the loss, the gradients' global norm, and
+# the norms of the attention's and the MLP's weight gradients over all
+# layers (the loss at random init sits near ln V whatever attention does,
+# so the leaves carry the check). A few times the gaps read on the card
+# (PERF.md).
+TRAIN_RTOL = {"loss": 1e-3, "grad_norm": 2e-3, "leaf": 5e-3}
+TRAIN_LEAVES = (("attn", "wq"), ("attn", "wk"), ("attn", "wv"), ("attn", "wo"),
+                ("mlp", "w_gate"), ("mlp", "w_up"), ("mlp", "w_down"))
+RESUME_TOL = 1e-4  # StarCoder2's resumed losses against the uninterrupted run's
+
+
+def flash_backward_work(B, S, Hq, Hkv, D, itemsize, window=0) -> tuple:
+    """(bytes, flops) of the attention backward: q, k, v, out and dO read
+    once, dq, dk, dv written once; per unmasked pair and head dim a
+    multiply-add for each of S = q k^T, dV, dP, dQ and dK."""
+    bytes_moved = (4 * B * Hq * S * D + 4 * B * Hkv * S * D) * itemsize
+    return bytes_moved, 10 * D * B * Hq * attention_pairs(S, S, True, window)
+
+
+def swiglu_backward_work(M, d, F, itemsize) -> tuple:
+    """(bytes, flops) of the SwiGLU backward: x, the three weights and dOut
+    read once, dx and the three weight gradients written once; eight
+    products of 2*M*d*F (g and u again, dh, dWd, dx twice, dWg, dWu)."""
+    return (4 * M * d + 6 * d * F) * itemsize, 16 * M * d * F
+
+
+def grad_gaps(torch, fn, plain, inputs, seed):
+    """max |kernel - plain| / max |plain| of the output and of each input's
+    gradient under one random cotangent; launches and backward passes made
+    here are comparisons, not the main path's."""
+    gen = torch.Generator(device=inputs[0].device).manual_seed(seed)
+    xs = [t.detach().requires_grad_(True) for t in inputs]
+    ys = [t.detach().requires_grad_(True) for t in inputs]
+    out, ref = fn(*xs), plain(*ys)
+    cot = torch.randn(ref.shape, generator=gen, device=ref.device).to(ref.dtype)
+    got = torch.autograd.grad(out, xs, cot)
+    want = torch.autograd.grad(ref, ys, cot)
+    torch.cuda.synchronize()
+    return [float((a.float() - b.float()).abs().max() / b.float().abs().max().clamp_min(1e-30))
+            for a, b in zip((out.detach(), *got), (ref.detach(), *want))]
+
+
+def phase_lm_grad(torch):
+    """flash_attention and swiglu under autograd against autograd through
+    their plain versions at the training shapes, in f32 and bf16; forward
+    and backward timed beside the bound and one PyTorch call."""
+    import torch.nn.functional as F
+
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import swiglu as sw
+    from repro_torch.kernels.ref import flash_attention_ref, swiglu_ref
+
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(11)
+    out = {"flash_attention": {}, "swiglu": {}}
+    B, S, Hq, Hkv, D = TRAIN_B, TRAIN_S, 32, 8, 128
+    for dt in (torch.float32, torch.bfloat16):
+        name = str(dt).removeprefix("torch.")
+        for window in (0, 64):
+            q = torch.randn(B * Hq, S, D, generator=gen, device=dev).to(dt)
+            k, v = (torch.randn(B * Hkv, S, D, generator=gen, device=dev).to(dt) for _ in "kv")
+            gaps = grad_gaps(torch, lambda *t: fa.flash_attention_grad(*t, window=window),
+                             lambda *t: flash_attention_ref(*t, window=window), [q, k, v], 1)
+            check(max(gaps) < GRAD_RTOL[name],
+                  f"lm_grad flash {name} window={window}: rel errs {gaps} >= {GRAD_RTOL[name]}")
+            row = {"kernel": "flash_attention", "shape": [B, S, S, Hq, Hkv, D], "dtype": name,
+                   "window": window, "rel_err": dict(zip(("out", "dq", "dk", "dv"), gaps)),
+                   "rtol": GRAD_RTOL[name]}
+            if window == 0:
+                scale = D ** -0.5
+                o = fa.flash_attention_bhsd(q, k, v)
+                dout = torch.randn(o.shape, generator=gen, device=dev).to(dt)
+                qs, ks, vs = (t.detach().requires_grad_(True) for t in (q, k, v))
+                ref_out = flash_attention_ref(qs, ks, vs)
+                lib_out = F.scaled_dot_product_attention(
+                    qs.view(B, Hq, S, D), ks.view(B, Hkv, S, D), vs.view(B, Hkv, S, D),
+                    is_causal=True, enable_gqa=True)
+                fwd = _timings(torch, lambda: fa.flash_attention_bhsd(q, k, v),
+                               lambda: flash_attention_ref(q, k, v),
+                               lambda: F.scaled_dot_product_attention(
+                                   q.view(B, Hq, S, D), k.view(B, Hkv, S, D), v.view(B, Hkv, S, D),
+                                   is_causal=True, enable_gqa=True),
+                               flash_work(B, S, S, Hq, Hkv, D, q.element_size()), dt,
+                               iters=20, reps=5)
+                bwd = _timings(torch, lambda: fa._flash_backward(q, k, v, o, dout, True, 0, scale),
+                               lambda: torch.autograd.grad(ref_out, (qs, ks, vs), dout,
+                                                           retain_graph=True),
+                               lambda: torch.autograd.grad(lib_out, (qs, ks, vs),
+                                                           dout.view(B, Hq, S, D),
+                                                           retain_graph=True),
+                               flash_backward_work(B, S, Hq, Hkv, D, q.element_size()), dt,
+                               iters=10, reps=5)
+                row.update(forward=fwd, backward=bwd)
+                out["flash_attention"][name] = row
+            emit("lm_grad", **row)
+        M, d, F_ = TRAIN_B * TRAIN_S, QWEN_D, QWEN_F
+        x = torch.randn(M, d, generator=gen, device=dev).to(dt)
+        ws = [(torch.randn(s, generator=gen, device=dev) * s[0] ** -0.5).to(dt)
+              for s in ((d, F_), (d, F_), (F_, d))]
+        gaps = grad_gaps(torch, sw.swiglu_grad, swiglu_ref, [x, *ws], 2)
+        check(max(gaps) < GRAD_RTOL[name], f"lm_grad swiglu {name}: rel errs {gaps}")
+        dout = torch.randn(M, d, generator=gen, device=dev).to(dt)
+        xs = [t.detach().requires_grad_(True) for t in (x, *ws)]
+        ref_out = swiglu_ref(*xs)
+        comp_out = (F.silu(xs[0] @ xs[1]) * (xs[0] @ xs[2])) @ xs[3]
+        fwd = _timings(torch, lambda: sw.swiglu_fused(x, *ws), lambda: swiglu_ref(x, *ws), None,
+                       swiglu_work(M, d, F_, x.element_size()), dt, iters=5, reps=3)
+        bwd = _timings(torch, lambda: sw._swiglu_backward(x, *ws, dout),
+                       lambda: torch.autograd.grad(ref_out, xs, dout, retain_graph=True), None,
+                       swiglu_backward_work(M, d, F_, x.element_size()), dt, iters=5, reps=3)
+        bwd["composite_us"] = device_us(
+            torch, lambda: torch.autograd.grad(comp_out, xs, dout, retain_graph=True), 5, 3)
+        row = {"kernel": "swiglu", "shape": [M, d, F_], "dtype": name,
+               "rel_err": dict(zip(("out", "dx", "dw_gate", "dw_up", "dw_down"), gaps)),
+               "rtol": GRAD_RTOL[name], "forward": fwd, "backward": bwd}
+        out["swiglu"][name] = row
+        emit("lm_grad", **row)
+        del x, ws, xs, ref_out, comp_out
+    torch.cuda.empty_cache()
+    return out
+
+
+def _batch(torch, cfg, seed, batch=TRAIN_B, seq=TRAIN_S):
+    from repro_torch.data.tokens import token_batch_for
+
+    return {k: torch.as_tensor(v, device="cuda")
+            for k, v in token_batch_for(cfg, batch=batch, seq=seq, seed=seed).items()}
+
+
+def _train_gaps(kern, plain) -> dict:
+    """Relative gaps of (loss, grad norm, leaf norms) readings."""
+    def rel(a, b):
+        return abs(a - b) / abs(b)
+    return {"loss": rel(kern[0], plain[0]), "grad_norm": rel(kern[1], plain[1]),
+            **{k: rel(kern[2][k], plain[2][k]) for k in plain[2]}}
+
+
+def _train_within(gaps) -> bool:
+    return all(v <= TRAIN_RTOL.get(k, TRAIN_RTOL["leaf"]) for k, v in gaps.items())
+
+
+def phase_lm_train_qwen(torch):
+    """One Qwen3-8B train step at full width (bf16, Adafactor, 2 x 256
+    tokens): its loss, gradient norm and the attention / MLP weights'
+    gradient norms through the kernels and through the plain versions, and
+    the same with each kernel's output zeroed, which the check must refuse;
+    then 4 steps with launches, time, memory and the device-idle share of
+    one profiled step."""
+    from repro_torch.configs import TrainConfig, get_config
+    from repro_torch.kernels import ops
+    from repro_torch.kernels.ref import flash_attention_ref, swiglu_ref
+    from repro_torch.launch.steps import build_train_step, make_optimizer
+    from repro_torch.models import Model
+    from repro_torch.utils import tree_leaves, tree_map, tree_unflatten
+
+    cfg = get_config("qwen3-8b")
+    L = cfg.n_layers
+    tcfg = TrainConfig(optimizer="adafactor", total_steps=8, warmup_steps=1)
+    model = Model(cfg)
+    t0 = time.perf_counter()
+    params = model.init(torch.Generator(device="cuda").manual_seed(0))
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    n_params = sum(p.numel() for p in tree_leaves(params))
+
+    def loss_and_norms():
+        ps = tree_map(lambda p: p.detach().requires_grad_(True), params)
+        loss, _ = model.loss(ps, _batch(torch, cfg, 0))
+        grads = torch.autograd.grad(loss, tree_leaves(ps))
+        gnorm = torch.sqrt(sum(torch.sum(torch.square(g.float())) for g in grads))
+        seg = tree_unflatten(ps, grads)["seg0"]
+        leaves = {f"{a}.{b}": float(torch.linalg.vector_norm(seg[a][b].float()))
+                  for a, b in TRAIN_LEAVES}
+        return float(loss.detach()), float(gnorm), leaves
+
+    def swapped(flash, swiglu):
+        saved = ops.flash_attention_grad, ops.swiglu_grad
+        ops.flash_attention_grad, ops.swiglu_grad = flash, swiglu
+        try:
+            return loss_and_norms()
+        finally:
+            ops.flash_attention_grad, ops.swiglu_grad = saved
+
+    kern, _, launches = counted(torch, loss_and_norms)
+    check(launches["flash_attention"] == launches["swiglu"] == 2 * L
+          and launches["flash_attention_backward"] == launches["swiglu_backward"] == L,
+          f"lm_train: one loss+grad launched {launches}")
+    plain = swapped(lambda q, k, v, *, causal, window: flash_attention_ref(
+        q, k, v, causal=causal, window=window), swiglu_ref)
+    gaps = _train_gaps(kern, plain)
+    check(_train_within(gaps), f"lm_train: kernels vs plain gaps {gaps} over {TRAIN_RTOL}")
+    # a faulted kernel (its output zeroed) must fail the same check
+    flash, swiglu = ops.flash_attention_grad, ops.swiglu_grad
+    faulted = {
+        "flash_attention": _train_gaps(swapped(
+            lambda q, k, v, *, causal, window: flash(q, k, v, causal=causal, window=window) * 0,
+            swiglu), plain),
+        "swiglu": _train_gaps(swapped(flash, lambda *a: swiglu(*a) * 0), plain)}
+    for name, g in faulted.items():
+        check(not _train_within(g), f"lm_train: {name} zeroed passes the check: {g}")
+
+    opt = make_optimizer(tcfg)
+    state = {"params": params, "opt": opt.init(params), "step": torch.zeros((), dtype=torch.int32)}
+    step = build_train_step(cfg, tcfg)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_launches()
+    walls, losses, gnorms = [], [], []
+    for i in range(4):
+        b = _batch(torch, cfg, 1 + i)
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        state, metrics = step(state, b)
+        losses.append(float(metrics["loss"]))
+        gnorms.append(float(metrics["grad_norm"]))
+        walls.append(time.perf_counter() - t)
+    launches = read_launches()
+    peak = torch.cuda.max_memory_allocated()
+    check(all(math.isfinite(x) for x in losses + gnorms), f"lm_train: losses {losses}")
+    check(launches["flash_attention"] == launches["swiglu"] == 4 * 2 * L
+          and launches["flash_attention_backward"] == launches["swiglu_backward"] == 4 * L,
+          f"lm_train: 4 steps launched {launches}")
+    check(int(state["step"]) == 4, "lm_train: step counter")
+    b = _batch(torch, cfg, 5)
+    busy, top, by_name = device_profile(torch, lambda: step(state, b),
+                                        names=("flash_kernel", "swiglu_kernel", "nvjet", "gemm",
+                                               "elementwise", "reduce"))
+    s_per_step = statistics.median(walls[1:])
+    row = {"arch": cfg.name, "params": n_params, "optimizer": "adafactor", "dtype": cfg.dtype,
+           "batch": TRAIN_B, "seq": TRAIN_S, "init_s": init_s,
+           "kernels_loss": kern[0], "plain_loss": plain[0], "kernels_grad_norm": kern[1],
+           "plain_grad_norm": plain[1], "plain_leaf_grad_norms": plain[2], "rel_err": gaps,
+           "rtol": TRAIN_RTOL, "faulted_rel_err": faulted,
+           "losses": losses, "grad_norms": gnorms, "step_walls_s": walls,
+           "s_per_step": s_per_step, "tokens_per_s": TRAIN_B * TRAIN_S / s_per_step,
+           "peak_memory_bytes": peak,
+           "launches_per_step": {k: launches[k] // 4 for k in ("flash_attention", "swiglu")},
+           "forward_launches_per_step": L, "recomputed_launches_per_step": L,
+           "backward_calls_per_step": {k: launches[f"{k}_backward"] // 4
+                                       for k in ("flash_attention", "swiglu")},
+           "device_busy_us": busy, "device_idle_share": 1.0 - busy / (s_per_step * 1e6), **by_name,
+           "top": top}
+    emit("lm_train_qwen", **row)
+    del state, params, b
+    torch.cuda.empty_cache()
+    return row
+
+
+def phase_lm_train_starcoder(torch, tmp):
+    """``train("starcoder2-3b", reduced=False)`` under AdamW: a 10-step run
+    checkpointing at step 8, then a restart in the same directory that
+    resumes from step 8; its two losses against the uninterrupted run's
+    steps 9 and 10. One checkpoint (bf16 params, f32 moments) is 31.8 GB,
+    and the card's machine takes at most 45 GiB of disk writes a run, so the
+    run checkpoints once (``ckpt_every=8``)."""
+    import shutil
+
+    from repro_torch.launch import train as tr
+
+    walls, io = [], {"save_s": [], "restore_s": []}
+    build, manager = tr.build_train_step, tr.CheckpointManager
+
+    def timed_build(cfg, tcfg, **kw):
+        fn = build(cfg, tcfg, **kw)
+
+        def timed(state, batch):
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            out = fn(state, batch)
+            torch.cuda.synchronize()
+            walls.append(time.perf_counter() - t)
+            return out
+
+        return timed
+
+    class TimedManager(manager):
+        def save(self, *a, **kw):
+            t = time.perf_counter()
+            out = super().save(*a, **kw)
+            io["save_s"].append(time.perf_counter() - t)
+            return out
+
+        def restore_latest(self, *a, **kw):
+            t = time.perf_counter()
+            out = super().restore_latest(*a, **kw)
+            if out is not None:
+                io["restore_s"].append(time.perf_counter() - t)
+            return out
+
+    free_before = shutil.disk_usage(tmp).free
+    kw = dict(reduced=False, steps=10, batch=TRAIN_B, seq=TRAIN_S, ckpt_dir=tmp, ckpt_every=8,
+              log_every=100)
+    tr.build_train_step, tr.CheckpointManager = timed_build, TimedManager
+    try:
+        torch.cuda.reset_peak_memory_stats()
+        full, _, launches = counted(torch, lambda: tr.train("starcoder2-3b", **kw))
+        peak = torch.cuda.max_memory_allocated()
+        full_walls = list(walls)
+        ckpt_bytes = sum(f.stat().st_size for f in Path(tmp).rglob("*") if f.is_file())
+        torch.cuda.empty_cache()
+        resumed, _, resumed_launches = counted(torch, lambda: tr.train("starcoder2-3b", **kw))
+    finally:
+        tr.build_train_step, tr.CheckpointManager = build, manager
+    L = 30
+    losses, tail = full["losses"], resumed["losses"]
+    check(len(losses) == 10 and len(tail) == 2 and len(io["save_s"]) == 1
+          and len(io["restore_s"]) == 1,
+          f"lm_train starcoder2: {len(losses)}, {len(tail)} steps, checkpoint io {io}")
+    check(all(math.isfinite(x) for x in losses + tail), f"lm_train starcoder2: losses {losses}")
+    check(losses[-1] < losses[0], f"lm_train starcoder2: loss did not fall {losses}")
+    gap = max(abs(a - b) for a, b in zip(tail, losses[8:]))
+    check(gap <= RESUME_TOL, f"lm_train starcoder2: resumed {tail} vs {losses[8:]}")
+    check(launches["flash_attention"] == 10 * 2 * L and launches["swiglu"] == 0
+          and resumed_launches["flash_attention"] == 2 * 2 * L,
+          f"lm_train starcoder2: launches {launches}, resumed {resumed_launches}")
+    s_per_step = statistics.median(full_walls[1:])
+    row = {"arch": "starcoder2-3b", "optimizer": "adamw", "batch": TRAIN_B, "seq": TRAIN_S,
+           "losses": losses, "resumed_losses": tail, "resume_gap": gap, "resume_tol": RESUME_TOL,
+           "resume_bitwise": tail == losses[8:], "step_walls_s": full_walls,
+           "s_per_step": s_per_step, "tokens_per_s": TRAIN_B * TRAIN_S / s_per_step,
+           "peak_memory_bytes": peak, "save_s": io["save_s"], "restore_s": io["restore_s"],
+           "disk_free_before_bytes": free_before, "checkpoint_bytes": ckpt_bytes,
+           "flash_attention_launches_per_step": launches["flash_attention"] // 10,
+           "swiglu_launches": launches["swiglu"]}
+    emit("lm_train_starcoder2", **row)
+    torch.cuda.empty_cache()
+    return row
+
+
+def phase_lm_fl(torch):
+    """FederatedServer on lm_task(reduced Qwen3) on the card, batched and
+    sequential engines, 4 clients, 2 rounds: the batched engine aggregates
+    with fedavg_reduce once per completed round (the sequential engine
+    averages a list of trees in plain torch, as the reference's does), the
+    two Histories equal by the CPU test's rules. Each engine runs twice, in
+    turns; the walls are the second turn's (the first pays the model's
+    first calls on the card)."""
+    sys.path.insert(0, str(ROOT / "tests"))
+    import _card_reference as card
+
+    from repro_torch import chaos, core, data, transport
+    from repro_torch.configs import get_reduced
+
+    task = core.lm_task(get_reduced("qwen3-8b"), device="cuda")
+
+    def server(batched):
+        shards = data.make_federated_mnist(4, 16, seed=0)
+        return core.FederatedServer(
+            task, [core.EdgeClient(i, dataset=s) for i, s in enumerate(shards)],
+            core.fedavg(min_fit=0.5), tcp=transport.DEFAULT,
+            chaos=chaos.ChaosSchedule(transport.LAB),
+            config=core.ServerConfig(rounds=2, local_steps=2, seed=0, batched=batched),
+            eval_data=data.synthetic_mnist(16, seed=1))
+
+    runs = {}
+    for batched in (True, False, True, False):
+        srv = server(batched)
+        hist, wall, counts = counted(torch, srv.run)
+        check(hist.completed_rounds == 2
+              and counts["fedavg_reduce"] == (hist.completed_rounds if batched else 0),
+              f"lm_fl batched={batched}: {counts['fedavg_reduce']} fedavg_reduce launches for "
+              f"{hist.completed_rounds} rounds")
+        check(counts["flash_attention"] > 0 and counts["swiglu"] > 0, f"lm_fl: launches {counts}")
+        record = card.history_record(hist, srv.clients)
+        if batched in runs:
+            try:
+                card.assert_records_match(runs[batched][0], record)
+            except AssertionError as e:
+                raise PhaseFailed(f"lm_fl batched={batched}: second run differs: {e}") from e
+        runs[batched] = (record, wall, counts)
+    try:
+        card.assert_records_match(runs[False][0], runs[True][0])
+    except AssertionError as e:
+        raise PhaseFailed(f"lm_fl: batched != sequential: {e}") from e
+    row = {"arch": "qwen3-smoke", "clients": 4, "rounds": 2,
+           "gaps": card.history_gaps(runs[False][0], runs[True][0]),
+           "batched_wall_s": runs[True][1], "sequential_wall_s": runs[False][1],
+           "launches": {("batched" if b else "sequential"): {k: r[2][k] for k in (
+               "fedavg_reduce", "flash_attention", "swiglu")} for b, r in runs.items()},
+           "final_eval": runs[True][0]["eval_metrics"][-1]}
+    emit("lm_fl", **row)
+    return row
+
+
+def phase_dense_serving(torch):
+    """Phi-3-medium-14B and Minitron-8B served at full width on the card,
+    one model at a time: one batch of serve.py:main's prompts, launches per
+    prefill and decode step, logits finite over the padded vocab; swiglu at
+    their widths and flash_attention at their heads against the plain
+    versions."""
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import swiglu as sw
+    from repro_torch.kernels.ref import flash_attention_ref, swiglu_ref
+    from repro_torch.launch import Server
+    from repro_torch.launch.serve import example_requests
+
+    out = {}
+    gen = torch.Generator(device="cuda").manual_seed(13)
+    for arch in ("phi3-medium-14b", "minitron-8b"):
+        t0 = time.perf_counter()
+        server = Server(arch, reduced=False, device="cuda")
+        torch.cuda.synchronize()
+        init_s = time.perf_counter() - t0
+        cfg, L = server.cfg, server.cfg.n_layers
+        calls = []
+
+        def traced(kind, fn):
+            def call(*args):
+                before = read_launches()
+                logits, cache = fn(*args)
+                after = read_launches()
+                check(logits.dtype == torch.float32
+                      and logits.shape == (server.batch, cfg.padded_vocab),
+                      f"{arch} {kind}: logits {logits.dtype} {tuple(logits.shape)}")
+                check(bool(torch.isfinite(logits).all()), f"{arch} {kind}: non-finite logits")
+                calls.append((kind, after["flash_attention"] - before["flash_attention"],
+                              after["swiglu"] - before["swiglu"]))
+                return logits, cache
+            return call
+
+        server._prefill = traced("prefill", server._prefill)
+        server._decode = traced("decode", server._decode)
+        reqs = example_requests(cfg.vocab_size)[:server.batch]
+        torch.cuda.reset_peak_memory_stats()
+        done, wall, launches = counted(torch, lambda: server.run(reqs))
+        check(all(len(r.generated) == 12 and all(0 <= t < cfg.padded_vocab for t in r.generated)
+                  for r in done), f"{arch}: generated {[r.generated for r in done]}")
+        check(all(c[1:] == ((L, L) if c[0] == "prefill" else (0, L)) for c in calls),
+              f"{arch}: per-call launches {calls}")
+        S = max(8, max(len(r.prompt) for r in reqs))
+        d, F_, D = cfg.d_model, cfg.d_ff, cfg.resolved_head_dim
+        errs = {}
+        for M in (server.batch * S, server.batch):  # the prefill's rows, a decode step's
+            x = torch.randn(M, d, generator=gen, device="cuda").bfloat16()
+            ws = [(torch.randn(s, generator=gen, device="cuda") * s[0] ** -0.5).bfloat16()
+                  for s in ((d, F_), (d, F_), (F_, d))]
+            got, want = sw.swiglu_fused(x, *ws).float(), swiglu_ref(x, *ws).float()
+            errs[f"swiglu_M{M}"] = float((got - want).abs().max() / want.abs().max())
+            check(errs[f"swiglu_M{M}"] <= 2e-2, f"{arch}: swiglu M={M} rel err {errs}")
+        q = torch.randn(server.batch * cfg.n_heads, S, D, generator=gen, device="cuda").bfloat16()
+        k, v = (torch.randn(server.batch * cfg.n_kv_heads, S, D, generator=gen,
+                            device="cuda").bfloat16() for _ in "kv")
+        got, want = fa.flash_attention_bhsd(q, k, v).float(), flash_attention_ref(q, k, v).float()
+        errs["flash_attention"] = float((got - want).abs().max())
+        check(errs["flash_attention"] < 5e-2, f"{arch}: flash_attention err {errs}")
+        n_tok = sum(len(r.generated) for r in done)
+        out[arch] = {"params": cfg.param_count(), "init_s": init_s, "wall_s": wall,
+                     "tokens": n_tok, "tokens_per_s": n_tok / wall,
+                     "peak_memory_bytes": torch.cuda.max_memory_allocated(),
+                     "launches": {k: launches[k] for k in ("flash_attention", "swiglu")},
+                     "per_call": calls[:2], "swiglu_shape": [d, F_], "heads": [cfg.n_heads,
+                     cfg.n_kv_heads, D], "padded_vocab": cfg.padded_vocab, "kernel_rel_err": errs,
+                     "first_tokens": [r.generated[:4] for r in done]}
+        emit("dense_serving", arch=arch, **out[arch])
+        del server, q, k, v, x, ws, got, want
+        gc.collect()  # the traced steps hold the server in a cycle
+        torch.cuda.empty_cache()
+    return out
+
+
 FL_DESIGN = {
     "fedavg_reduce": "one launch over a leaf table passed by value; 16-byte loads where a "
                      "leaf is aligned, clients unrolled 16 deep, weights in shared memory",
@@ -2124,12 +2633,32 @@ FL_DESIGN = {
 }
 
 
-def lm_rows(lm, served):
+def lm_rows(lm, served, grad, qwen):
     """The kernels-line rows of flash_attention (at the serving prefill
     shape, with the S = 4096 prefill beside it) and swiglu (at decode,
-    M = 4, with the M = 64 prefill beside it), launches from the serve run."""
+    M = 4, with the M = 64 prefill beside it), launches from the serve run;
+    then each kernel at the training shape (bf16, B = 2 x S = 256: forward
+    and the autograd Function's backward) with its launches and backward
+    passes per Qwen3-8B train step."""
     launches, n_pre, n_dec = served["launches"], served["prefills"], served["decode_steps"]
     per_pre, per_dec = served["per_prefill"], served["per_decode"]
+
+    def train(name):
+        row = grad[name]["bfloat16"]
+        out = {"train_launches_per_step": qwen["launches_per_step"][name],
+               "train_backward_calls_per_step": qwen["backward_calls_per_step"][name],
+               "train_shape": row["shape"], "train_grad_rel_err": row["rel_err"],
+               "train_grad_rel_err_f32": grad[name]["float32"]["rel_err"]}
+        for part in ("forward", "backward"):
+            t = row[part]
+            lib = t["library_us"]
+            out.update({f"train_{part}_ms": t["us"] / 1e3, f"train_{part}_plain_ms": t["plain_us"] / 1e3,
+                        f"train_{part}_bound_ms": t["bound_us"] / 1e3,
+                        f"train_{part}_bound_by": t["bound_by"],
+                        f"train_{part}_library_ms": None if lib is None else lib / 1e3})
+        if "composite_us" in row["backward"]:
+            out["train_backward_composite_ms"] = row["backward"]["composite_us"] / 1e3
+        return out
 
     def ms(row, prefix=""):
         lib = row["library_us"]
@@ -2150,7 +2679,9 @@ def lm_rows(lm, served):
          "max_abs_err": fa["max_abs_err"], "max_rel_err": fa["max_rel_err"],
          "max_row_rel_err": fa["max_row_rel_err"],
          **ms(fa["timed"]["serving"]), **ms(fa["timed"]["long_prefill"], "long_prefill_"),
-         "library_note": "F.scaled_dot_product_attention(is_causal=True, enable_gqa=True)"},
+         "library_note": "F.scaled_dot_product_attention(is_causal=True, enable_gqa=True); "
+                         "train_backward_library_ms: its autograd backward",
+         **train("flash_attention")},
         {"name": "swiglu", "route": "cuda", "source": "src/repro_torch/kernels/csrc/swiglu.cu",
          "replaces": "src/repro/kernels/swiglu.py:46",
          "design": "cp.async ring + swap-AB mma.sync, float4 atomics, cast launch (bf16); "
@@ -2164,7 +2695,9 @@ def lm_rows(lm, served):
          "prefill_composite_ms": sw["timed"][64]["composite_us"] / 1e3,
          "reduction_share": sw["reduction"][4]["reduction_share"],
          "prefill_reduction_share": sw["reduction"][64]["reduction_share"],
-         "library_note": SWIGLU_NO_LIBRARY + " (composite_ms: silu(x@Wg)*(x@Wu)@Wd in cuBLAS bf16)"},
+         "library_note": SWIGLU_NO_LIBRARY + " (composite_ms: silu(x@Wg)*(x@Wu)@Wd in cuBLAS bf16;"
+                         " train_backward_composite_ms: its autograd backward)",
+         **train("swiglu")},
     ]
 
 
@@ -2251,6 +2784,29 @@ def main() -> int:
         lm = phase_lm_kernels(torch)
     server, served = phase_serve(torch)
     phase_full_width(torch, server)
+    del server  # the LM phases need the card's memory (its wrapped steps hold it in a cycle)
+    gc.collect()
+    torch.cuda.empty_cache()
+    lm_s = {}
+    t = time.perf_counter()
+    with f32_math("cuda"):
+        grad = phase_lm_grad(torch)
+    lm_s["lm_grad"] = time.perf_counter() - t
+    t = time.perf_counter()
+    qwen = phase_lm_train_qwen(torch)
+    lm_s["lm_train_qwen"] = time.perf_counter() - t
+    t = time.perf_counter()
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_train_") as tmp:
+        phase_lm_train_starcoder(torch, tmp)
+    lm_s["lm_train_starcoder2"] = time.perf_counter() - t
+    t = time.perf_counter()
+    phase_lm_fl(torch)
+    lm_s["lm_fl"] = time.perf_counter() - t
+    t = time.perf_counter()
+    phase_dense_serving(torch)
+    lm_s["dense_serving"] = time.perf_counter() - t
+    emit("lm_phases", seconds=sum(lm_s.values()), budget_s=LM_BUDGET_S,
+         within_budget=sum(lm_s.values()) <= LM_BUDGET_S, by_phase=lm_s)
 
     us = main_kernel
     agg_bound_us, agg_bound_by = bound_us(us["bytes"], us["flops"])
@@ -2359,7 +2915,7 @@ def main() -> int:
                   grid["compressed"]["bf16 dense"]),
         # the whole flattened CNN (N = 206,922), as ops.quantize_tree feeds it
         quant_row("quantize_stochastic", None, "src/repro/kernels/quantize.py:44", NO_LIBRARY),
-        *lm_rows(lm, served),
+        *lm_rows(lm, served, grad, qwen),
     ]}), flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {

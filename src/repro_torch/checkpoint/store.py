@@ -138,10 +138,13 @@ def _as_template_kind(arr: np.ndarray, orig: Optional[str], tmpl):
     dtype of its template leaf."""
     bf16 = orig == "bfloat16" and arr.dtype == np.uint16
     if isinstance(tmpl, torch.Tensor):
+        # ``arr`` is the npz reader's own fresh, writable array: the tensor
+        # takes its memory without a copy (a Qwen-scale checkpoint is tens
+        # of GB, and each copy costs seconds)
         if bf16:
-            t = torch.from_numpy(np.array(arr.view(np.int16))).view(torch.bfloat16)
+            t = torch.from_numpy(arr.view(np.int16)).view(torch.bfloat16)
         else:
-            t = torch.from_numpy(np.array(arr))
+            t = torch.from_numpy(arr)
             if orig is not None and orig != str(arr.dtype) and hasattr(torch, orig):
                 t = t.to(getattr(torch, orig))
         return t.to(device=tmpl.device, dtype=tmpl.dtype)

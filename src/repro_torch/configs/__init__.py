@@ -1,9 +1,11 @@
 """Config registry: ``get_config(arch_id)`` / ``get_reduced(arch_id)``.
 
-The port knows the architectures whose families it implements: today the
-dense GQA LM ``qwen3-8b``. Every other architecture of ``repro.configs``
-raises ``NotImplementedError`` until its family is ported (ROADMAP Queue 1,
-item 15); an unknown name raises ``KeyError``.
+The port knows the architectures whose families it implements: the dense
+GQA LMs ``qwen3-8b``, ``phi3-medium-14b``, ``minitron-8b`` and
+``starcoder2-3b`` (LayerNorm, GELU MLP), and the paper's MNIST CNN
+(``paper-mnist-cnn``, metadata only). Every other architecture of
+``repro.configs`` raises ``NotImplementedError`` until its family is
+ported (ROADMAP Queue 1, item 15); an unknown name raises ``KeyError``.
 """
 
 from __future__ import annotations
@@ -11,7 +13,14 @@ from __future__ import annotations
 import importlib
 from typing import Dict, List
 
-from repro_torch.configs.base import HybridConfig, MLAConfig, ModelConfig, MoEConfig, SSMConfig
+from repro_torch.configs.base import (
+    HybridConfig,
+    MLAConfig,
+    ModelConfig,
+    MoEConfig,
+    SSMConfig,
+    TrainConfig,
+)
 
 # every architecture of the reference's registry, ported or not
 ARCH_IDS: List[str] = [
@@ -28,7 +37,13 @@ ARCH_IDS: List[str] = [
     "paper-mnist-cnn",
 ]
 
-_MODULES: Dict[str, str] = {"qwen3-8b": "qwen3_8b"}
+_MODULES: Dict[str, str] = {
+    "phi3-medium-14b": "phi3_medium_14b",
+    "starcoder2-3b": "starcoder2_3b",
+    "qwen3-8b": "qwen3_8b",
+    "minitron-8b": "minitron_8b",
+    "paper-mnist-cnn": "paper_mnist",
+}
 
 
 def _module(arch: str):
@@ -59,4 +74,5 @@ __all__ = [
     "MLAConfig",
     "SSMConfig",
     "HybridConfig",
+    "TrainConfig",
 ]

@@ -1,13 +1,14 @@
-"""Architecture configuration (the port's own copy of the model half of
+"""Architecture and training configuration (the port's own copy of
 ``repro/configs/base.py``: plain frozen dataclasses). The shape grid
-(``ShapeSpec``) and ``TrainConfig`` come with the dry-run and training.
+(``ShapeSpec``) comes with the dry-run (ROADMAP Queue 1, item 16).
 
 Every assigned architecture is expressed as a ``ModelConfig``. The same
 dataclass covers dense GQA transformers, MLA (DeepSeek), MoE, RWKV6,
 Mamba2 hybrids, and encoder-decoder (Whisper) — family-specific fields are
 simply unused elsewhere. The port's models implement the dense GQA family
-only (ROADMAP Queue 1, item 15); the other fields are kept so a config
-reads the same in both packages.
+(RMSNorm or LayerNorm, SwiGLU or GELU MLP) only (ROADMAP Queue 1, item
+15); the other fields are kept so a config reads the same in both
+packages.
 """
 
 from __future__ import annotations
@@ -205,3 +206,27 @@ class ModelConfig:
         full_moe = self.n_layers * (self.moe.num_experts + self.moe.num_shared) * n_mlp * d * moe_ff
         active_moe = self.n_layers * (self.moe.top_k + self.moe.num_shared) * n_mlp * d * moe_ff
         return total - full_moe + active_moe
+
+
+@dataclass(frozen=True)
+class TrainConfig:
+    """Training-loop level knobs (optimizer, FL/local-update schedule)."""
+
+    optimizer: str = "adamw"
+    learning_rate: float = 3e-4
+    weight_decay: float = 0.1
+    beta1: float = 0.9
+    beta2: float = 0.95
+    eps: float = 1e-8
+    grad_clip: float = 1.0
+    warmup_steps: int = 100
+    total_steps: int = 1000
+    opt_state_dtype: str = "float32"  # "bfloat16" for the huge archs
+    microbatches: int = 1  # gradient accumulation (activation-memory lever)
+    # local-update / federated outer loop
+    inner_steps: int = 1  # H; 1 => fully synchronous DP
+    outer_optimizer: str = "nesterov"  # FedAvg server optimizer
+    outer_lr: float = 0.7
+    outer_momentum: float = 0.9
+    compression: str = "none"  # none | topk | int8
+    topk_ratio: float = 0.01

@@ -2,7 +2,7 @@
 engines, the scenario-parallel grid engine, their strategies, the
 edge-client model and the lazy client population."""
 
-from repro_torch.core.client import EdgeClient, LocalTask, bucket_rows, mnist_cnn_task
+from repro_torch.core.client import EdgeClient, LocalTask, bucket_rows, lm_task, mnist_cnn_task
 from repro_torch.core.grid import GridPoint, GridResult, GridStats, run_fl_grid
 from repro_torch.core.population import Population
 from repro_torch.core.server import (
@@ -32,6 +32,7 @@ __all__ = [
     "LocalTask",
     "bucket_rows",
     "mnist_cnn_task",
+    "lm_task",
     "FederatedServer",
     "FitJob",
     "GridPoint",

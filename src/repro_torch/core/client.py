@@ -28,7 +28,8 @@ from typing import Any, Callable, Dict, List, Optional, Sequence
 import numpy as np
 import torch
 
-from repro_torch.data import ClientDataset
+from repro_torch.data import ClientDataset, token_batch_for
+from repro_torch.models import Model
 from repro_torch.models.cnn import cnn_apply, cnn_init, cnn_loss, cnn_loss_stacked
 from repro_torch.optim import (
     apply_updates,
@@ -44,6 +45,7 @@ from repro_torch.utils import (
     tree_stack,
     tree_sub,
     tree_unflatten,
+    tree_unstack,
 )
 
 
@@ -68,7 +70,8 @@ class LocalTask:
     plan_digest: Optional[Callable] = None
     # fit_rows(anchors, rows, steps, mus, use_prox, anchor_idx=None) ->
     #     (plane_delta [Rb,...], n_examples [R], metrics [R]); rows are R
-    # (client, plan) pairs, Rb is R padded up to its bucket width, and
+    # (client, plan) pairs, Rb is R padded up to its bucket width (R itself
+    # where the task runs its rows one at a time, as lm_task does), and
     # ``anchor_idx`` maps each row to one of the UNIQUE ``anchors``
     # (None: anchors is per-row).
     fit_rows: Optional[Callable] = None
@@ -118,7 +121,7 @@ def _prox_term(params, anchor, dims):
     )
 
 
-def _plane_sgd_runner(cohort_loss_fn, lr: float):
+def _plane_sgd_runner(cohort_loss_fn, lr: float, chunk: Optional[int] = _ROW_CHUNK):
     """Plane runner: R independent local-SGD trajectories as stacked tensor
     programs, one Python loop over steps, no per-row loop.
 
@@ -129,7 +132,10 @@ def _plane_sgd_runner(cohort_loss_fn, lr: float):
     stack of UNIQUE params trees [U, ...] plus a per-row gather index [R];
     ``mu`` is a per-row prox coefficient. Clipping is per row; the momentum
     update is leaf-wise and vectorizes over the row axis unchanged. The rows
-    run as chunks of ``_ROW_CHUNK`` (see there)."""
+    run as chunks of ``chunk`` rows (see ``_ROW_CHUNK``); ``chunk=None`` runs
+    them as one unpadded chunk, for a ``cohort_loss_fn`` that loops over the
+    rows: there a padding row costs a whole row's work, and a row's bits do
+    not depend on the rows beside it."""
     opt = sgd(lr, momentum=0.9)
 
     def run_chunk(uanchor, aidx, batches, mu, use_prox):
@@ -159,10 +165,11 @@ def _plane_sgd_runner(cohort_loss_fn, lr: float):
         run_rows.anchor_widths.append(int(tree_leaves(uanchor)[0].shape[0]))
         rows = torch.arange(r, device=aidx.device)
         deltas, metrics = [], []
-        for s in range(0, r, _ROW_CHUNK):
-            sel = rows[s:s + _ROW_CHUNK]
+        width = chunk or r
+        for s in range(0, r, width):
+            sel = rows[s:s + width]
             n = sel.shape[0]
-            sel = torch.cat([sel, sel[:1].expand(_ROW_CHUNK - n)])  # pad: the chunk's first row
+            sel = torch.cat([sel, sel[:1].expand(width - n)])  # pad: the chunk's first row
             delta, mets = run_chunk(
                 uanchor, aidx[sel], tree_map(lambda l: l[sel], batches), mu[sel], use_prox
             )
@@ -329,6 +336,101 @@ def mnist_cnn_task(lr: float = 0.05, batch_size: int = 32, device=None) -> Local
         "mnist_cnn",
         init_fn=lambda generator: cnn_init(generator, device=device),
         local_fit=_in_f32(_sgd_local_fit(cnn_loss, lr, batch_size, device), device),
+        evaluate=evaluate,
+        update_bytes=nbytes,
+        batched_local_fit=_plane_batched_local_fit(plan_fit, fit_rows),
+        plan_fit=plan_fit,
+        plan_digest=plan_digest,
+        fit_rows=fit_rows,
+    )
+
+
+def lm_task(cfg, lr: float = 1e-3, batch_size: int = 4, seq: int = 64, device=None) -> LocalTask:
+    """Reduced-LM payload: any ported arch config can be the FL workload.
+
+    Each local step trains on one synthetic token batch
+    (``data.tokens.token_batch_for``) whose seed is drawn from the client's
+    rng, with SGD (momentum 0.9) and a global-norm clip of 1.0; the prox
+    term is not applied, as in the reference. Runs on ``device`` (default
+    CUDA; raises without it); ``init_fn`` takes a ``torch.Generator``.
+
+    The plane's ``cohort_loss`` is the reference's ``vmap`` of the loss
+    written as a loop over rows: ``torch.func.vmap`` cannot pass through the
+    hand-written kernels, which are called through ``ctypes``. The per-row
+    losses are summed before differentiation and rows share no parameters,
+    so each row keeps its own gradient. For the same reason ``fit_rows``
+    runs only the R real rows and returns an unpadded plane: a padding row
+    would be a whole model's forward and backward, thrown away."""
+    device = resolve_device(device)
+    model = Model(cfg)
+    opt = sgd(lr, momentum=0.9)
+
+    def batch_of(seed: int, client_id: int):
+        b = token_batch_for(cfg, batch=batch_size, seq=seq, seed=seed, client_id=client_id)
+        return {k: torch.as_tensor(v, device=device) for k, v in b.items()}
+
+    def step(params, opt_state, batch):
+        ps = tree_map(lambda l: l.detach().requires_grad_(True), params)
+        loss, metrics = model.loss(ps, batch)
+        grads = tree_unflatten(ps, torch.autograd.grad(loss, tree_leaves(ps)))
+        grads, _ = clip_by_global_norm(grads, 1.0)
+        updates, opt_state = opt.update(grads, opt_state, params, 0)
+        return apply_updates(params, updates), opt_state, {k: v.detach() for k, v in metrics.items()}
+
+    def fit(params, client: "EdgeClient", steps: int, rng: np.random.Generator, prox_mu: float):
+        anchor = params
+        opt_state = opt.init(params)
+        metrics = {}
+        for _ in range(steps):
+            batch = batch_of(int(rng.integers(0, 2**31)), client.client_id)
+            params, opt_state, metrics = step(params, opt_state, batch)
+        return tree_sub(params, anchor), steps * batch_size, {k: float(v) for k, v in metrics.items()}
+
+    def evaluate(params, data):
+        with torch.no_grad():
+            _, metrics = model.loss(params, batch_of(7, 10_000))
+        return {k: float(v) for k, v in metrics.items()}
+
+    def cohort_loss(ps, batch):
+        out = [model.loss(p, b) for p, b in zip(tree_unstack(ps), tree_unstack(batch))]
+        return (torch.stack([loss for loss, _ in out]),
+                {k: torch.stack([m[k] for _, m in out]) for k in out[0][1]})
+
+    runner = _plane_sgd_runner(cohort_loss, lr, chunk=None)
+
+    def plan_fit(clients, steps, rng):
+        # same seed draws, same order as the sequential fit loop
+        return [[int(rng.integers(0, 2**31)) for _ in range(steps)] for _ in clients]
+
+    def plan_digest(client, plan):
+        return (client.client_id, tuple(plan))
+
+    def fit_rows(anchors, rows, steps, mus, use_prox, anchor_idx=None):
+        # the R rows unpadded: cohort_loss runs each row's model on its own
+        r = len(rows)
+        aidx = list(range(r)) if anchor_idx is None else list(anchor_idx)
+        per_row = []
+        for c, plan in rows:
+            bs = [token_batch_for(cfg, batch=batch_size, seq=seq, seed=s, client_id=c.client_id)
+                  for s in plan]
+            per_row.append({k: np.stack([b[k] for b in bs]) for k in bs[0]})
+        batches = {k: torch.as_tensor(np.stack([pr[k] for pr in per_row]), device=device)
+                   for k in per_row[0]}
+        plane, last = runner(
+            tree_stack(list(anchors)),
+            torch.as_tensor(np.asarray(aidx, np.int64), device=device),
+            batches,
+            torch.as_tensor(np.asarray(mus, np.float32), device=device),
+            use_prox,
+        )
+        return plane, [steps * batch_size] * r, _unstack_metrics(last, r)
+
+    fit_rows.runner = runner
+    nbytes = 4 * sum(l.numel() for l in tree_leaves(model.abstract_params()))
+    return LocalTask(
+        f"lm_{cfg.name}",
+        init_fn=lambda generator: tree_map(lambda t: t.to(device), model.init(generator)),
+        local_fit=fit,
         evaluate=evaluate,
         update_bytes=nbytes,
         batched_local_fit=_plane_batched_local_fit(plan_fit, fit_rows),

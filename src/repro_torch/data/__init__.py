@@ -7,6 +7,7 @@ from repro_torch.data.federated import (
     shard_list_factory,
     synthetic_mnist,
 )
+from repro_torch.data.tokens import synthetic_token_batches, token_batch_for
 
 __all__ = [
     "ClientDataset",
@@ -16,4 +17,6 @@ __all__ = [
     "make_federated_mnist",
     "federated_mnist_factory",
     "shard_list_factory",
+    "synthetic_token_batches",
+    "token_batch_for",
 ]

@@ -15,6 +15,20 @@ two: any other device, or an input the kernel does not take, raises.
 
 ``launches`` counts kernel launches (CPU calls do not count), so a run can
 show that it went through the kernel.
+
+``flash_attention_grad`` is the same function under autograd
+(``FlashAttention``): its forward is ``flash_attention_bhsd`` (the kernel
+on a CUDA tensor, the plain version on a CPU tensor) and its backward is
+written out in plain torch from the saved q, k, v and output. The
+reference has no backward kernel (its flash kernel is forward only), so
+this is the port of its gradient; a hand-written backward kernel is
+performance work. The backward recomputes the scores S = q k^T * scale and
+P = softmax(S) under the masks in f32, then dV = P^T dO,
+dS = P * (dO V^T - rowsum(dO * O)), dQ = dS K * scale and
+dK = dS^T Q * scale, each query head's contributions to dK and dV summed
+over the group of its kv head (GQA). It materializes P, [BH, Sq, Skv] in
+f32, which bounds the lengths it suits. ``backward_calls`` counts backward
+passes on CUDA tensors.
 """
 
 from __future__ import annotations
@@ -25,9 +39,10 @@ from typing import Callable, Dict
 import torch
 
 from repro_torch.kernels.build import load_library
-from repro_torch.kernels.ref import flash_attention_ref
+from repro_torch.kernels.ref import NEG_INF, flash_attention_ref
 
 launches = 0
+backward_calls = 0
 
 HEAD_DIMS = (32, 64, 128)
 MAX_HEADS = 65535  # BH indexes the grid's y dimension
@@ -93,3 +108,57 @@ def flash_attention_bhsd(q, k, v, *, causal=True, window=0, scale=None):
         raise RuntimeError(f"flash_attention kernel launch failed: cudaError {err}")
     launches += 1
     return out
+
+
+def _flash_backward(q, k, v, out, dout, causal, window, scale):
+    """Gradients of ``flash_attention_bhsd`` in plain torch, in f32: the
+    scores and probabilities recomputed from q and k, the kv-head sums of
+    GQA taken over a [BKV, G, ...] view (no repeated copy of k and v)."""
+    BH, Sq, D = q.shape
+    BKV, Skv, _ = k.shape
+    G = BH // BKV
+    qf = q.float().reshape(BKV, G, Sq, D)
+    kf, vf = k.float(), v.float()
+    do = dout.float().reshape(BKV, G, Sq, D)
+    s = torch.einsum("kgqd,ksd->kgqs", qf, kf) * scale
+    qpos = torch.arange(Sq, device=q.device)[:, None]
+    kpos = torch.arange(Skv, device=q.device)[None, :]
+    mask = torch.ones((Sq, Skv), dtype=torch.bool, device=q.device)
+    if causal:
+        mask &= qpos >= kpos
+    if window and window > 0:
+        mask &= qpos - kpos < window
+    p = torch.softmax(torch.where(mask, s, torch.full_like(s, NEG_INF)), dim=-1)
+    dv = torch.einsum("kgqs,kgqd->ksd", p, do)
+    dp = torch.einsum("kgqd,ksd->kgqs", do, vf)
+    delta = torch.sum(do * out.float().reshape(BKV, G, Sq, D), dim=-1, keepdim=True)
+    ds = p * (dp - delta)
+    dq = torch.einsum("kgqs,ksd->kgqd", ds, kf) * scale
+    dk = torch.einsum("kgqs,kgqd->ksd", ds, qf) * scale
+    return dq.reshape(BH, Sq, D).to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)
+
+
+class FlashAttention(torch.autograd.Function):
+    """``flash_attention_bhsd`` with its gradient (see the module docstring)."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, causal, window, scale):
+        out = flash_attention_bhsd(q, k, v, causal=causal, window=window, scale=scale)
+        ctx.save_for_backward(q, k, v, out)
+        ctx.args = (bool(causal), int(window or 0), scale)
+        return out
+
+    @staticmethod
+    def backward(ctx, dout):
+        global backward_calls
+        q, k, v, out = ctx.saved_tensors
+        if q.is_cuda:
+            backward_calls += 1
+        return (*_flash_backward(q, k, v, out, dout, *ctx.args), None, None, None)
+
+
+def flash_attention_grad(q, k, v, *, causal=True, window=0, scale=None):
+    """``flash_attention_bhsd`` under autograd: q [BH, Sq, D]; k/v
+    [BKV, Skv, D] -> [BH, Sq, D] in q's dtype, differentiable in q, k, v."""
+    scale = scale if scale is not None else q.shape[-1] ** -0.5
+    return FlashAttention.apply(q, k, v, causal, window, scale)

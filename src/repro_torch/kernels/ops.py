@@ -12,14 +12,14 @@ import torch
 
 from repro_torch.kernels import quantize as _quantize
 from repro_torch.kernels.fedavg_reduce import fedavg_reduce_leaves
-from repro_torch.kernels.flash_attention import flash_attention_bhsd
+from repro_torch.kernels.flash_attention import flash_attention_grad
 from repro_torch.kernels.quantize import (
     dequantize_flat,
     downcast_bf16_rows_flat,
     quantize_rows_flat,
     quantize_stochastic_flat,
 )
-from repro_torch.kernels.swiglu import swiglu_fused
+from repro_torch.kernels.swiglu import swiglu_grad
 from repro_torch.utils.pytree import (
     flatten_to_vector,
     tree_leaves,
@@ -109,20 +109,22 @@ def flash_attention(q, k, v, *, causal=True, window=0):
     """q [B, Sq, Hq, D]; k/v [B, Skv, Hkv, D] -> [B, Sq, Hq, D].
 
     GQA by head-major flattening: [B, S, H, D] -> [B*H, S, D], the kernel
-    reading kv head bh // G (no repeated copy of k and v)."""
+    reading kv head bh // G (no repeated copy of k and v). Differentiable
+    in q, k and v (``flash_attention.FlashAttention``)."""
     B, Sq, Hq, D = q.shape
     _, Skv, Hkv, Dv = v.shape
     qf = q.transpose(1, 2).reshape(B * Hq, Sq, D).contiguous()
     kf = k.transpose(1, 2).reshape(B * Hkv, Skv, D).contiguous()
     vf = v.transpose(1, 2).reshape(B * Hkv, Skv, Dv).contiguous()
-    out = flash_attention_bhsd(qf, kf, vf, causal=causal, window=window)
+    out = flash_attention_grad(qf, kf, vf, causal=causal, window=window)
     return out.reshape(B, Hq, Sq, Dv).transpose(1, 2)
 
 
 def swiglu(x, w_gate, w_up, w_down):
-    """Fused SwiGLU over [..., d] inputs."""
+    """Fused SwiGLU over [..., d] inputs, differentiable in x and the three
+    weights (``swiglu.SwiGLU``)."""
     lead = x.shape[:-1]
     d = x.shape[-1]
-    out = swiglu_fused(x.reshape(-1, d).contiguous(), w_gate.contiguous(), w_up.contiguous(),
+    out = swiglu_grad(x.reshape(-1, d).contiguous(), w_gate.contiguous(), w_up.contiguous(),
                        w_down.contiguous())
     return out.reshape(*lead, d)

@@ -18,6 +18,19 @@ device, or an input the kernel does not take, raises.
 
 ``launches`` counts kernel launches (CPU calls do not count), so a run can
 show that it went through the kernel.
+
+``swiglu_grad`` is the same function under autograd (``SwiGLU``): its
+forward is ``swiglu_fused`` (the kernel on a CUDA tensor, the plain
+version on a CPU tensor) and its backward is written out in plain torch
+from the saved inputs. The reference has no backward kernel, so this is
+the port of its gradient; a hand-written backward kernel is performance
+work. The backward recomputes g = x Wg and u = x Wu, then with
+a = silu(g) and h = a u: dh = dOut Wd^T, dWd = h^T dOut,
+du = dh a, dg = dh u sigmoid(g) (1 + g (1 - sigmoid(g))),
+dx = dg Wg^T + du Wu^T, dWg = x^T dg and dWu = x^T du. Its products run
+in the inputs' dtype (on the card a bf16 product sums in f32 and rounds
+once), the elementwise chain in f32. ``backward_calls`` counts backward
+passes on CUDA tensors.
 """
 
 from __future__ import annotations
@@ -31,6 +44,7 @@ from repro_torch.kernels.build import load_library
 from repro_torch.kernels.ref import swiglu_ref
 
 launches = 0
+backward_calls = 0
 
 _DTYPES = {torch.float32: "swiglu_f32", torch.bfloat16: "swiglu_bf16"}
 _P = ctypes.c_void_p
@@ -107,3 +121,43 @@ def swiglu_fused(x, w_gate, w_up, w_down):
         raise RuntimeError(f"swiglu kernel launch failed: cudaError {err}")
     launches += 1
     return bufs[-1]
+
+
+def _swiglu_backward(x, w_gate, w_up, w_down, dout):
+    """Gradients of ``swiglu_fused`` in plain torch: products in the
+    inputs' dtype, the elementwise chain in f32."""
+    dt = x.dtype
+    g = (x @ w_gate).float()
+    u = (x @ w_up).float()
+    sg = torch.sigmoid(g)
+    a = g * sg
+    dout = dout.to(dt)
+    dh = (dout @ w_down.T).float()
+    dw_down = (a * u).to(dt).T @ dout
+    du = (dh * a).to(dt)
+    dg = (dh * u * (sg * (1.0 + g * (1.0 - sg)))).to(dt)
+    dx = dg @ w_gate.T + du @ w_up.T
+    return dx, x.T @ dg, x.T @ du, dw_down
+
+
+class SwiGLU(torch.autograd.Function):
+    """``swiglu_fused`` with its gradient (see the module docstring)."""
+
+    @staticmethod
+    def forward(ctx, x, w_gate, w_up, w_down):
+        ctx.save_for_backward(x, w_gate, w_up, w_down)
+        return swiglu_fused(x, w_gate, w_up, w_down)
+
+    @staticmethod
+    def backward(ctx, dout):
+        global backward_calls
+        x, w_gate, w_up, w_down = ctx.saved_tensors
+        if x.is_cuda:
+            backward_calls += 1
+        return _swiglu_backward(x, w_gate, w_up, w_down, dout)
+
+
+def swiglu_grad(x, w_gate, w_up, w_down):
+    """``swiglu_fused`` under autograd: x [M, d], w_gate/w_up [d, F],
+    w_down [F, d] -> [M, d], differentiable in all four."""
+    return SwiGLU.apply(x, w_gate, w_up, w_down)

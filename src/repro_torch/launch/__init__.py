@@ -1,7 +1,10 @@
-"""Serving driver (the port of ``repro/launch/serve.py``). Mesh, sharded
-step builders, the dry-run and the training driver are not ported yet
-(ROADMAP Queue 1, item 16)."""
+"""Launch drivers (the port of ``repro/launch``): the serving driver, the
+single-device train step, and the trainer (``repro_torch.launch.train``,
+not imported here so that ``python -m`` runs it cleanly). The mesh, the sharded step
+builders, the dry-run and HLO analysis are not ported yet (ROADMAP Queue 1,
+item 16)."""
 
 from repro_torch.launch.serve import Request, Server
+from repro_torch.launch.steps import build_train_step, make_optimizer
 
-__all__ = ["Request", "Server"]
+__all__ = ["Request", "Server", "build_train_step", "make_optimizer"]

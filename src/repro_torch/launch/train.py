@@ -1,0 +1,160 @@
+"""End-to-end trainer: local-update (FL-across-pods) training with
+fault-tolerant checkpointing (the port of ``repro/launch/train.py``, on
+one device).
+
+- The full config (``--full``) or the reduced one (the default), real
+  optimization on synthetic token data (``data.tokens``).
+- ``inner_steps > 1`` is the local-SGD mode: every ``inner_steps`` steps
+  the params' delta from the last synced anchor goes through the outer
+  optimizer (``optim.nesterov_outer``) and the params restart from the new
+  anchor (one replica: the pod count is 1).
+- Checkpoints (``checkpoint.CheckpointManager``, the reference's on-disk
+  format) hold ``{params, opt, step}``; a run restarts from LATEST.
+
+It runs on CUDA unless ``device="cpu"`` is passed, and raises without
+CUDA. The production mesh (``mesh_kind="prod"``) is not ported (ROADMAP
+Queue 1, item 16) and raises. The weights come from a seeded
+``torch.Generator``, so they are not the reference's (threefry) draws.
+
+Usage:
+  PYTHONPATH=src python -m repro_torch.launch.train --arch qwen3-8b \\
+      --steps 50 --inner-steps 5 --ckpt-dir /tmp/ckpt
+  PYTHONPATH=src python -m repro_torch.launch.train --arch starcoder2-3b --full
+"""
+
+from __future__ import annotations
+
+import argparse
+import time
+from typing import Optional
+
+import torch
+
+from repro_torch.checkpoint import CheckpointManager
+from repro_torch.configs import TrainConfig, get_config, get_reduced
+from repro_torch.data.tokens import token_batch_for
+from repro_torch.launch.steps import build_train_step, make_optimizer
+from repro_torch.models import Model
+from repro_torch.optim import nesterov_outer
+from repro_torch.utils import resolve_device, tree_map, tree_sub
+
+
+def train(
+    arch: str,
+    *,
+    reduced: bool = True,
+    steps: int = 50,
+    inner_steps: int = 1,
+    batch: int = 8,
+    seq: int = 64,
+    ckpt_dir: Optional[str] = None,
+    ckpt_every: int = 10,
+    mesh_kind: str = "host",
+    seed: int = 0,
+    log_every: int = 10,
+    outer_compression: str = "none",
+    learning_rate: float = 2e-3,
+    device=None,
+):
+    if mesh_kind == "prod":
+        raise NotImplementedError(
+            "the production mesh is not ported yet (ROADMAP Queue 1, item 16)")
+    device = resolve_device(device)
+    cfg = get_reduced(arch) if reduced else get_config(arch)
+    tcfg = TrainConfig(
+        learning_rate=learning_rate,
+        total_steps=steps,
+        warmup_steps=max(steps // 10, 1),
+        inner_steps=inner_steps,
+        compression=outer_compression,
+    )
+    step_fn = build_train_step(cfg, tcfg)
+    model = Model(cfg)
+    opt = make_optimizer(tcfg)
+
+    params = model.init(torch.Generator(device=device).manual_seed(seed))
+    state = {
+        "params": params,
+        "opt": opt.init(params),
+        "step": torch.zeros((), dtype=torch.int32),
+    }
+
+    mgr = CheckpointManager(ckpt_dir) if ckpt_dir else None
+    start_step = 0
+    if mgr is not None:
+        restored = mgr.restore_latest(state)
+        if restored is not None:
+            state, meta = restored
+            start_step = int(meta.get("step", 0))
+            print(f"[train] resumed from checkpoint at step {start_step}")
+
+    # local-SGD outer state (anchor = last synced params, a copy: the train
+    # step updates the params in place). Only the local-SGD mode reads it,
+    # so only that mode holds it: at full width the copy and the outer
+    # momentum are 3x the params' bytes (the reference makes both always)
+    if inner_steps > 1:
+        anchor = tree_map(torch.clone, state["params"])
+        outer = nesterov_outer(tcfg.outer_lr, tcfg.outer_momentum)
+        outer_state = outer.init(anchor)
+
+    losses = []
+    t0 = time.time()
+    for it in range(start_step, steps):
+        np_batch = token_batch_for(cfg, batch=batch, seq=seq, seed=seed + it)
+        tbatch = {k: torch.as_tensor(v, device=device) for k, v in np_batch.items()}
+        state, metrics = step_fn(state, tbatch)
+        losses.append(float(metrics["loss"]))
+
+        if inner_steps > 1 and (it + 1) % inner_steps == 0:
+            # outer FedAvg step (single device: pod count 1 -> plain outer opt)
+            delta = tree_sub(state["params"], anchor)
+            upd, outer_state = outer.update(delta, outer_state, anchor, it)
+            new_anchor = tree_map(lambda a, u: (a.float() + u).to(a.dtype), anchor, upd)
+            anchor = tree_map(torch.clone, new_anchor)
+            state = dict(state, params=new_anchor)
+
+        if mgr is not None and (it + 1) % ckpt_every == 0:
+            mgr.save(it + 1, state, metadata={"arch": arch, "loss": losses[-1]})
+        if (it + 1) % log_every == 0:
+            dt = time.time() - t0
+            print(
+                f"[train] step {it+1}/{steps} loss={losses[-1]:.4f} "
+                f"({dt / (it + 1 - start_step):.2f}s/step)"
+            )
+
+    return {"losses": losses, "final_loss": losses[-1] if losses else float("nan")}
+
+
+def main():
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--arch", required=True)
+    ap.add_argument("--reduced", action="store_true", default=True)
+    ap.add_argument("--full", dest="reduced", action="store_false")
+    ap.add_argument("--steps", type=int, default=50)
+    ap.add_argument("--inner-steps", type=int, default=1)
+    ap.add_argument("--batch", type=int, default=8)
+    ap.add_argument("--seq", type=int, default=64)
+    ap.add_argument("--ckpt-dir", default=None)
+    ap.add_argument("--ckpt-every", type=int, default=10)
+    ap.add_argument("--mesh", default="host", choices=["host", "prod"])
+    ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--device", default=None, help="default: cuda")
+    args = ap.parse_args()
+    out = train(
+        args.arch,
+        reduced=args.reduced,
+        steps=args.steps,
+        inner_steps=args.inner_steps,
+        batch=args.batch,
+        seq=args.seq,
+        ckpt_dir=args.ckpt_dir,
+        ckpt_every=args.ckpt_every,
+        mesh_kind=args.mesh,
+        seed=args.seed,
+        device=args.device,
+    )
+    print(f"[train] done: final loss {out['final_loss']:.4f}")
+
+
+if __name__ == "__main__":
+    main()

@@ -1,14 +1,16 @@
-"""Uniform model API (the port of the serving part of
-``repro/models/api.py``).
+"""Uniform model API (the port of ``repro/models/api.py`` for the ``lm``
+family).
 
 ``Model(cfg)`` exposes, for family ``"lm"``:
   init(generator)                                      -> params
+  abstract_params()                                    -> params on ``meta``
+  loss(params, batch) -> (loss, metrics)               [train]
   prefill(params, batch, max_len) -> (logits, cache)   [prefill]
   decode_step(params, cache, tokens) -> (logits, cache) [decode]
   init_cache(batch, max_len, device)                   -> empty cache
 Params are drawn on the generator's device. The encoder-decoder and hybrid
-families, the loss and the dry-run stand-ins are not ported (ROADMAP
-Queue 1, items 15 and 16).
+families are not ported (ROADMAP Queue 1, item 15), nor the dry-run's
+input stand-ins and sharding axes (item 16).
 """
 
 from __future__ import annotations
@@ -40,6 +42,13 @@ class Model:
 
     def init(self, generator: torch.Generator):
         return lm_mod.lm_params(Ctx(generator, dtype_of(self.cfg.param_dtype)), self.cfg)
+
+    def abstract_params(self):
+        """The params' shapes and dtypes as ``meta`` tensors (no storage)."""
+        return lm_mod.lm_params(Ctx(None, dtype_of(self.cfg.param_dtype)), self.cfg)
+
+    def loss(self, params, batch):
+        return lm_mod.lm_loss(self.cfg, params, batch)
 
     def prefill(self, params, batch, max_len: int):
         return lm_mod.lm_prefill(self.cfg, params, batch, max_len)

@@ -3,8 +3,9 @@
 
 Models are plain functions ``apply(cfg, params, ...)`` over nested dicts of
 tensors. The tree structure is defined once, in the init code, through a
-:class:`Ctx`. The port keeps the ``init`` mode only: the reference's
-``abstract`` and ``axes`` modes serve the dry-run and sharding, which are
+:class:`Ctx`. The port keeps the ``init`` mode, and an abstract mode whose
+leaves are tensors on the ``meta`` device (shapes and dtypes, no storage;
+the reference's ``abstract``). Its ``axes`` mode serves sharding, which is
 not ported (ROADMAP Queue 1, item 16). Draws come from a
 ``torch.Generator`` on its own device, in f32, then cast to the parameter
 dtype; the kinds and the fan-in rule are the reference's. The reference's
@@ -12,8 +13,7 @@ threefry draws have no torch counterpart, so tests carry its parameters
 across with ``repro_torch.convert`` instead.
 
 The ops compute in f32 and return the activation dtype, as the
-reference's do. LayerNorm and the ``uniform`` init come with the families
-that use them.
+reference's do.
 """
 
 from __future__ import annotations
@@ -35,11 +35,12 @@ def dtype_of(name: str) -> torch.dtype:
 
 
 class Ctx:
-    """Parameter materialization context (init mode)."""
+    """Parameter materialization context: draws from ``generator`` on its
+    device, or shapes only (``meta`` tensors) when ``generator`` is None."""
 
-    def __init__(self, generator: torch.Generator, param_dtype=torch.bfloat16):
+    def __init__(self, generator: Optional[torch.Generator], param_dtype=torch.bfloat16):
         self.generator = generator
-        self.device = generator.device
+        self.device = generator.device if generator is not None else torch.device("meta")
         self.param_dtype = param_dtype
 
     def _randn(self, shape):
@@ -71,6 +72,11 @@ class Ctx:
             fan_in = math.prod(dims[:-1]) if len(dims) > 1 else dims[0]
             s = (scale if scale is not None else 1.0) / max(math.sqrt(fan_in), 1.0)
             return (self._randn(shape) * s).to(dtype)
+        if init == "uniform":
+            s = 1.0 if scale is None else scale
+            u = torch.rand(shape, generator=self.generator, device=self.device,
+                           dtype=torch.float32)
+            return (u * (2 * s) - s).to(dtype)  # jax.random.uniform(-s, s)
         raise ValueError(f"unknown init {init}")
 
 
@@ -86,15 +92,27 @@ def rms_norm(x, weight, eps: float = 1e-5):
     return (out * weight.float()).to(x.dtype)
 
 
+def layer_norm(x, weight, bias, eps: float = 1e-5):
+    xf = x.float()
+    mu = torch.mean(xf, dim=-1, keepdim=True)
+    var = torch.mean(torch.square(xf - mu), dim=-1, keepdim=True)  # jnp.var: biased
+    out = (xf - mu) * torch.rsqrt(var + eps)
+    return (out * weight.float() + bias.float()).to(x.dtype)
+
+
 def apply_norm(cfg, x, w):
-    """The block's norm: RMSNorm (``segments`` refuses LayerNorm models)."""
+    if cfg.norm_kind == "layernorm":
+        return layer_norm(x, w["scale"], w["bias"], cfg.norm_eps)
     return rms_norm(x, w["scale"], cfg.norm_eps)
 
 
 def norm_params(ctx: Ctx, cfg, d: int, stacked: Optional[int] = None):
     lead = () if stacked is None else (stacked,)
     lead_ax = () if stacked is None else ("layers",)
-    return {"scale": ctx.param(lead + (d,), lead_ax + ("embed",), init="ones")}
+    p = {"scale": ctx.param(lead + (d,), lead_ax + ("embed",), init="ones")}
+    if cfg.norm_kind == "layernorm":
+        p["bias"] = ctx.param(lead + (d,), lead_ax + ("embed",), init="zeros")
+    return p
 
 
 def linear(x, w):

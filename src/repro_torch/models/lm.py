@@ -1,13 +1,19 @@
-"""Decoder-LM assembly for serving (the port of the dense part of
-``repro/models/lm.py``).
+"""Decoder-LM assembly for training and serving (the port of the dense
+part of ``repro/models/lm.py``).
 
 The layer stack is organized as *segments*, runs of structurally identical
 blocks whose params are stacked on a leading layer axis, as in the
-reference; the port runs a segment as a Python loop over layers and
-indexes the stacked leaves per layer. Only the dense GQA block with
-RMSNorm is ported: MoE, MLA, RWKV, LayerNorm and the vision stub raise
-(ROADMAP Queue 1, item 15), and ``lm_loss`` / ``loss_from_hidden`` come
-with training.
+reference; the port runs a segment as a Python loop over layers and takes
+each stacked leaf apart with one ``unbind`` (whose backward stacks the
+layers' gradients once). Only the dense GQA block is ported, with RMSNorm
+or LayerNorm and a SwiGLU or GELU MLP: MoE, MLA, RWKV and the vision stub
+raise (ROADMAP Queue 1, item 15).
+
+Training differentiates ``lm_loss`` with autograd. With ``cfg.remat`` other
+than "none" each block runs under ``torch.utils.checkpoint`` (the
+reference's ``jax.checkpoint`` per block): its activations are recomputed
+in the backward pass, so the flash-attention and SwiGLU kernels launch
+twice per layer and step. Values are unchanged.
 
 Caches are updated IN PLACE: ``lm_prefill`` and ``lm_decode_step`` return
 the cache they were given (or built), written through, where the
@@ -19,11 +25,13 @@ from __future__ import annotations
 from typing import Any, Dict, List, Tuple
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models import attention as attn
 from repro_torch.models import mlp as mlp_mod
 from repro_torch.models.base import Ctx, apply_norm, dtype_of, norm_params
+from repro_torch.utils import tree_unstack
 
 
 def _not_ported(what: str):
@@ -45,8 +53,6 @@ def segments(cfg: ModelConfig) -> List[Tuple[str, int]]:
         raise _not_ported(f"attention kind '{cfg.attn_kind}'")
     if cfg.frontend != "none":
         raise _not_ported(f"the '{cfg.frontend}' frontend")
-    if cfg.norm_kind != "rmsnorm":
-        raise _not_ported(f"norm kind '{cfg.norm_kind}'")
     return [("dense", cfg.n_layers)]
 
 
@@ -79,17 +85,27 @@ def _index(tree, i):
 def _run_segment(cfg, kind, params, x, caches, *, decode, positions):
     """Run one segment layer by layer. ``caches`` (stacked by layer, or
     None) is written in place: each layer's view is filled by the block,
-    and a leaf the block replaces (decode's ``pos``) is copied back."""
-    count = params["ln1"]["scale"].shape[0]
-    for i in range(count):
+    and a leaf the block replaces (decode's ``pos``) is copied back.
+    Without caches, under autograd and ``cfg.remat != "none"``, each block
+    is checkpointed."""
+    layers = tree_unstack(params)
+    remat = caches is None and cfg.remat != "none" and torch.is_grad_enabled()
+    for i, layer_p in enumerate(layers):
+        if remat:
+            x = checkpoint(_block_train, cfg, kind, layer_p, x, positions, use_reentrant=False)
+            continue
         layer_cache = _index(caches, i) if caches is not None else None
-        x, new_cache = _block_apply(cfg, kind, _index(params, i), x, layer_cache,
+        x, new_cache = _block_apply(cfg, kind, layer_p, x, layer_cache,
                                     decode=decode, positions=positions)
         if caches is not None:
             for key, val in new_cache.items():
                 if val is not layer_cache[key]:
                     caches[key][i] = val
     return x, caches
+
+
+def _block_train(cfg, kind, p, x, positions):
+    return _block_apply(cfg, kind, p, x, None, decode=False, positions=positions)[0]
 
 
 # ---------------------------------------------------------------------------
@@ -131,24 +147,81 @@ def lm_forward(cfg, params, batch, *, caches=None, decode=False):
     return x, caches
 
 
-def unembed(cfg, params, h):
-    """h [..., d] -> f32 logits [..., V], summed in f32.
+def _unembed_weight(cfg, params, dtype):
+    w = params["embed"].T if cfg.tie_embeddings else params["unembed"]
+    return w.to(dtype)
+
+
+def _logits(h, w):
+    """h [..., d] @ w [d, V] (same dtype) -> f32 logits, summed in f32.
 
     A bf16 product on the card takes ``torch.mm(..., out_dtype=float32)``,
     so the logits are not rounded to bf16 and the unembedding is never
-    copied to f32; PyTorch has no CPU kernel for that call, so on the CPU
-    both operands are upcast per call (exact: bf16 products are exact in
-    f32)."""
-    w = params["embed"].T if cfg.tie_embeddings else params["unembed"]
-    w = w.to(h.dtype)
+    copied to f32. That call has no CPU kernel and no derivative, so on the
+    CPU, and under autograd, both operands are upcast instead (exact: bf16
+    products are exact in f32)."""
     h2 = h.reshape(-1, h.shape[-1])
     if h.dtype == torch.float32:
         out = torch.mm(h2, w)
-    elif h.is_cuda:
+    elif h.is_cuda and not (torch.is_grad_enabled() and (h.requires_grad or w.requires_grad)):
         out = torch.mm(h2, w, out_dtype=torch.float32)
     else:
         out = torch.mm(h2.float(), w.float())
     return out.reshape(*h.shape[:-1], w.shape[-1])
+
+
+def unembed(cfg, params, h):
+    """h [..., d] -> f32 logits [..., V], summed in f32."""
+    return _logits(h, _unembed_weight(cfg, params, h.dtype))
+
+
+def _xent(logits, targets, mask):
+    """Summed masked NLL, mask count and correct count of f32 logits."""
+    lse = torch.logsumexp(logits, dim=-1)
+    gold = torch.gather(logits, -1, targets[..., None]).squeeze(-1)
+    nll = (lse - gold) * mask
+    correct = (torch.argmax(logits, -1) == targets).float() * mask
+    return torch.sum(nll), torch.sum(mask), torch.sum(correct)
+
+
+def loss_from_hidden(cfg, params, h, batch):
+    """Cross entropy on hidden states, over vocab chunks of
+    ``cfg.loss_chunk`` sequence positions when that divides the target
+    length and is shorter. Returns (loss, metrics); the chunks' sums are
+    accumulated in order, as the reference's scan does."""
+    targets = batch["targets"].long()
+    mask = batch.get("loss_mask")
+    B, S, d = h.shape
+    St = targets.shape[1]
+    if St < S:  # vlm: patch prefix carries no loss
+        h = h[:, S - St:]
+    mask = torch.ones(targets.shape, dtype=torch.float32, device=h.device) if mask is None \
+        else mask.float()
+    w = _unembed_weight(cfg, params, h.dtype)
+
+    chunk = cfg.loss_chunk
+    if chunk and St % chunk == 0 and St > chunk:
+        zero = torch.zeros((), dtype=torch.float32, device=h.device)
+        tot, cnt, corr = zero, zero, zero
+        for c in range(St // chunk):
+            sl = slice(c * chunk, (c + 1) * chunk)
+            n, m, k = _xent(_logits(h[:, sl], w), targets[:, sl], mask[:, sl])
+            tot, cnt, corr = tot + n, cnt + m, corr + k
+    else:
+        tot, cnt, corr = _xent(_logits(h, w), targets, mask)
+
+    denom = torch.clamp(cnt, min=1.0)
+    loss = tot / denom
+    return loss, {"loss": loss, "accuracy": corr / denom}
+
+
+def lm_loss(cfg, params, batch):
+    """Full LM training loss (forward + chunked cross entropy). The MoE
+    auxiliary term has no ported family to come from: ``aux`` is 0."""
+    h, _ = lm_forward(cfg, params, batch)
+    loss, metrics = loss_from_hidden(cfg, params, h, batch)
+    aux = torch.zeros((), dtype=torch.float32, device=h.device)
+    return loss, dict(metrics, loss=loss, aux=aux)
 
 
 # ---------------------------------------------------------------------------

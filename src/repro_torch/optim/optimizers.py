@@ -1,8 +1,9 @@
-"""Functional optimizers over nested dicts of tensors (the port of the
-slice's part of ``repro/optim/optimizers.py``): ``sgd`` for the clients'
-local steps, and the server-side (outer) optimizers ``nesterov_outer``
-(DiLoCo-style outer momentum, FedAvg when lr=1, momentum=0) and
-``fedopt_server`` (FedAdam / FedYogi / FedAdagrad, Reddi et al.).
+"""Functional optimizers over nested dicts of tensors (the port of
+``repro/optim/optimizers.py``): ``sgd`` for the clients' local steps,
+``adamw`` and ``adafactor`` for LM training, and the server-side (outer)
+optimizers ``nesterov_outer`` (DiLoCo-style outer momentum, FedAvg when
+lr=1, momentum=0) and ``fedopt_server`` (FedAdam / FedYogi / FedAdagrad,
+Reddi et al.).
 
 (init, update) pairs; ``update`` returns *updates* to be added to params
 (the optax convention), so optimizers compose with clipping. Over stacked
@@ -14,11 +15,14 @@ engines need the state as a value they can stack and slice.
 from __future__ import annotations
 
 from dataclasses import dataclass
-from typing import Callable
+from typing import Callable, Optional
 
+import numpy as np
 import torch
 
 from repro_torch.utils.pytree import tree_leaves, tree_map
+
+_F = np.float32
 
 
 @dataclass(frozen=True)
@@ -81,6 +85,146 @@ def sgd(lr: Callable | float, momentum: float = 0.0, nesterov: bool = False,
     return Optimizer(init, update)
 
 
+def _sqrt_f32(x: torch.Tensor) -> torch.Tensor:
+    """The correctly rounded f32 square root, as XLA's: CUDA's ``sqrt`` is
+    correctly rounded; torch's vectorised CPU sqrt is off by an ulp on
+    ~0.7 % of inputs, so on the CPU the root is taken in f64 and rounded
+    to f32, which is the correctly rounded f32 root (53 >= 2 * 24 + 2
+    bits). (On the card an f64 copy of a large leaf would cost memory the
+    optimizers of a full-width model do not have.)"""
+    return torch.sqrt(x) if x.is_cuda else torch.sqrt(x.double()).float()
+
+
+def _slabs(t: torch.Tensor):
+    """Index expressions covering ``t``: one per entry of the leading axis
+    of a layer-stacked leaf (3+ dims), else the whole tensor. AdamW and
+    Adafactor compute such a leaf slab by slab, so that their f32
+    temporaries are one layer's size: a Qwen3-8B MLP leaf is 7.2 GB in
+    f32, and a handful of whole-leaf temporaries beside the params and
+    gradients does not fit in 80 GB."""
+    return range(t.shape[0]) if t.ndim >= 3 else (slice(None),)
+
+
+def adamw(
+    lr: Callable | float,
+    b1: float = 0.9,
+    b2: float = 0.95,
+    eps: float = 1e-8,
+    weight_decay: float = 0.1,
+    state_dtype=torch.float32,
+    master_dtype: Optional[torch.dtype] = None,
+) -> Optimizer:
+    """AdamW with optional master copy (``master_dtype``) when params are
+    bf16: the update then moves the master copy, and params follow it. The
+    reference's expressions in its operation order; the bias corrections in
+    f32, the moments' coefficients in the state dtype (the reference's
+    weakly typed Python scalars: bf16 moments take bf16(0.9))."""
+    lr_fn = lr if callable(lr) else (lambda _: lr)
+
+    def init(params):
+        st = {
+            "m": tree_map(lambda p: torch.zeros(p.shape, dtype=state_dtype, device=p.device), params),
+            "v": tree_map(lambda p: torch.zeros(p.shape, dtype=state_dtype, device=p.device), params),
+        }
+        if master_dtype is not None:
+            st["master"] = tree_map(lambda p: p.to(master_dtype, copy=True), params)
+        return st
+
+    def update(grads, state, params, step):
+        lr_t = lr_fn(step)
+        t = _F(int(step) + 1)
+        c1 = float(_F(1.0) - _F(b1) ** t)
+        c2 = float(_F(1.0) - _F(b2) ** t)
+        c = {k: torch.tensor(x, dtype=state_dtype) for k, x in
+             (("b1", b1), ("1-b1", 1 - b1), ("b2", b2), ("1-b2", 1 - b2))}
+
+        def leaf(mm, vv, g, p):
+            m, v = torch.empty_like(mm), torch.empty_like(vv)
+            u = torch.empty(mm.shape, dtype=torch.float32, device=mm.device)
+            for s in _slabs(mm):
+                gs = g[s].to(state_dtype)
+                m[s] = c["b1"] * mm[s] + c["1-b1"] * gs
+                v[s] = c["b2"] * vv[s] + c["1-b2"] * torch.square(gs)
+                mhat = m[s].float() / c1
+                vhat = v[s].float() / c2
+                u[s] = -lr_t * (mhat / (_sqrt_f32(vhat) + eps) + weight_decay * p[s].float())
+            return m, v, u
+
+        out = tree_map(leaf, state["m"], state["v"], grads, state.get("master", params))
+        pick = lambda i: tree_map(lambda o: o[i], out)  # noqa: E731
+        updates = pick(2)
+        new_state = {"m": pick(0), "v": pick(1)}
+        if "master" in state:
+            new_master = tree_map(lambda mp, u: mp + u.to(mp.dtype), state["master"], updates)
+            new_state["master"] = new_master
+            # params follow the master copy
+            updates = tree_map(lambda nm, p: nm.float() - p.float(), new_master, params)
+        return updates, new_state
+
+    return Optimizer(init, update)
+
+
+def adafactor(lr: Callable | float, eps: float = 1e-30, decay: float = 0.8,
+              clip_threshold: float = 1.0, eps_scale: float = 1e-3) -> Optimizer:
+    """Factored second-moment optimizer (Shazeer & Stern), with the
+    parameter-scale term: the update is multiplied by
+    max(rms(param), eps_scale). A leaf of two or more dims keeps row and
+    column moments ``vr`` [..., rows] and ``vc`` [..., cols]; a vector keeps
+    ``v``. No first moment and no master copy. A layer-stacked leaf is
+    computed slab by slab (``_slabs``); its update's rms and the param's
+    rms, which span the whole leaf, are summed over the slabs."""
+    lr_fn = lr if callable(lr) else (lambda _: lr)
+
+    def init(params):
+        def factored(p):
+            z = lambda shape: torch.zeros(shape, dtype=torch.float32, device=p.device)
+            if p.ndim >= 2:
+                return {"vr": z(p.shape[:-1]), "vc": z(p.shape[:-2] + (p.shape[-1],))}
+            return {"v": z(p.shape)}
+
+        return {"v": tree_map(factored, params)}
+
+    def update(grads, state, params, step):
+        lr_t = lr_fn(step)
+        beta = float(_F(1.0) - (_F(int(step)) + _F(1.0)) ** _F(-decay))
+
+        def upd(g, v, p):
+            u = torch.empty(g.shape, dtype=torch.float32, device=g.device)
+            new_v = {k: torch.empty_like(x) for k, x in v.items()}
+            u_sq = p_sq = 0.0
+            for s in _slabs(g):
+                gs = g[s].float()
+                g2 = torch.square(gs) + eps
+                if "v" in v:
+                    nv = new_v["v"][s] = beta * v["v"][s] + (1 - beta) * g2
+                    u[s] = gs / torch.clamp(_sqrt_f32(nv), min=1e-30)
+                else:
+                    vr = new_v["vr"][s] = beta * v["vr"][s] + (1 - beta) * torch.mean(g2, dim=-1)
+                    vc = new_v["vc"][s] = beta * v["vc"][s] + (1 - beta) * torch.mean(g2, dim=-2)
+                    del g2
+                    r = vr / torch.clamp(torch.mean(vr, dim=-1, keepdim=True), min=1e-30)
+                    denom = _sqrt_f32(r)[..., None] * _sqrt_f32(vc)[..., None, :]
+                    u[s] = gs / torch.clamp(denom, min=1e-30)
+                u_sq = u_sq + torch.sum(torch.square(u[s]))
+                p_sq = p_sq + torch.sum(torch.square(p[s].float()))
+            n = g.numel()
+            scale = torch.clamp(_sqrt_f32(u_sq / n) / clip_threshold, min=1.0)
+            # parameter-scale: relative step sizes (Shazeer & Stern)
+            p_rms = _sqrt_f32(p_sq / n)
+            return u.mul_(-lr_t * torch.clamp(p_rms, min=eps_scale)).div_(scale), new_v
+
+        def walk(g, v, p):
+            if isinstance(g, dict):
+                pairs = {k: walk(g[k], v[k], p[k]) for k in g}
+                return {k: u for k, (u, _) in pairs.items()}, {k: nv for k, (_, nv) in pairs.items()}
+            return upd(g, v, p)
+
+        updates, new_v = walk(grads, state["v"], params)
+        return updates, {"v": new_v}
+
+    return Optimizer(init, update)
+
+
 # ---------------------------------------------------------------------------
 # Server-side (outer) optimizers for FedAvg / local-update training: the
 # reference's expressions in its operation order, f32 state
@@ -89,13 +233,6 @@ def sgd(lr: Callable | float, momentum: float = 0.0, nesterov: bool = False,
 
 def _f32_zeros(params):
     return tree_map(lambda p: torch.zeros(p.shape, dtype=torch.float32, device=p.device), params)
-
-
-def _sqrt_f32(x: torch.Tensor) -> torch.Tensor:
-    """The correctly rounded f32 square root, as XLA's and CUDA's: torch's
-    vectorised CPU sqrt is off by an ulp on ~0.7 % of inputs, and the f64
-    root rounds to the correctly rounded f32 one (53 >= 2 * 24 + 2 bits)."""
-    return torch.sqrt(x.double()).float()
 
 
 def nesterov_outer(lr: float = 0.7, momentum: float = 0.9) -> Optimizer:

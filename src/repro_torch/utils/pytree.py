@@ -84,12 +84,16 @@ def tree_stack(trees):
     return tree_map(lambda *leaves: torch.stack(leaves, dim=0), *trees)
 
 
-def tree_unstack(tree):
-    """Split a stacked tree (leading axis C on every leaf) into C trees."""
-    leaves = tree_leaves(tree)
-    if not leaves:
-        return []
-    return [tree_map(lambda l, _i=i: l[_i], tree) for i in range(leaves[0].shape[0])]
+def tree_unstack(tree) -> List[Any]:
+    """Split a stacked tree (leading axis C on every leaf) into C trees of
+    views, one ``unbind`` per leaf (whose backward stacks the slices'
+    gradients once, where indexing each slice would build a full-size
+    gradient per slice)."""
+    if isinstance(tree, dict):
+        parts = {k: tree_unstack(v) for k, v in tree.items()}
+        n = len(next(iter(parts.values()))) if parts else 0
+        return [{k: parts[k][i] for k in tree} for i in range(n)]
+    return list(tree.unbind(0))
 
 
 def flatten_to_vector(tree):

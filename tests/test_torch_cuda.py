@@ -847,3 +847,86 @@ def test_device_backend_kill_and_resume_on_the_card(device, tmp_path):
     res.run(checkpoint_dir=d)
     _same_run(ref, res)
     assert ref.history.completed_rounds == 4
+
+
+# --------------------------------------------------------------------------
+# the kernels under autograd: FlashAttention / SwiGLU against autograd
+# through their plain versions, forward and every input gradient, relative
+# to the largest |value|; bf16 rounds P (flash) or h (swiglu) once more
+# than the plain version does, and the backward's products run in bf16
+# --------------------------------------------------------------------------
+
+GRAD_RTOL = {torch.float32: 1e-4, torch.bfloat16: 3e-2}
+
+
+def _grad_gaps(fn, plain, inputs, seed):
+    """Largest |kernel - plain| / max |plain| over the output and each
+    input's gradient, for one random cotangent."""
+    g = torch.Generator(device=inputs[0].device).manual_seed(seed)
+    xs = [t.detach().requires_grad_(True) for t in inputs]
+    ys = [t.detach().requires_grad_(True) for t in inputs]
+    out, ref = fn(*xs), plain(*ys)
+    cot = torch.randn(ref.shape, generator=g, device=ref.device).to(ref.dtype)
+    got = torch.autograd.grad(out, xs, cot)
+    want = torch.autograd.grad(ref, ys, cot)
+    return [(a.float() - b.float()).abs().max().item() / b.float().abs().max().item()
+            for a, b in zip((out.detach(), *got), (ref.detach(), *want))]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("B,S,Hq,Hkv,D,window", [(2, 256, 32, 8, 128, 0), (1, 100, 4, 2, 64, 0),
+                                                 (1, 256, 4, 2, 128, 64)])
+def test_flash_attention_grad_matches_plain_autograd(device, B, S, Hq, Hkv, D, window, dtype):
+    q, k, v = _attn_inputs(B, S, S, Hq, Hkv, D, dtype, device, seed=S)
+    launches, backs = fa.launches, fa.backward_calls
+    gaps = _grad_gaps(lambda *t: fa.flash_attention_grad(*t, causal=True, window=window),
+                      lambda *t: flash_attention_ref(*t, causal=True, window=window), [q, k, v], 1)
+    torch.cuda.synchronize()
+    assert (fa.launches, fa.backward_calls) == (launches + 1, backs + 1)
+    assert max(gaps) < GRAD_RTOL[dtype], gaps
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("M,d,F", [(64, 128, 256), (512, 4096, 12288)])
+def test_swiglu_grad_matches_plain_autograd(device, M, d, F, dtype):
+    g = torch.Generator(device=device).manual_seed(M)
+    x = torch.randn(M, d, generator=g, device=device).to(dtype)
+    w = [(torch.randn(s, generator=g, device=device) * s[0] ** -0.5).to(dtype)
+         for s in ((d, F), (d, F), (F, d))]
+    launches, backs = sw.launches, sw.backward_calls
+    gaps = _grad_gaps(sw.swiglu_grad, swiglu_ref, [x, *w], 2)
+    torch.cuda.synchronize()
+    assert (sw.launches, sw.backward_calls) == (launches + 1, backs + 1)
+    assert max(gaps) < GRAD_RTOL[dtype], gaps
+
+
+def test_reduced_lm_train_steps_on_the_card(device):
+    """Four train steps of reduced Qwen3 in bf16 on the card through both
+    kernels: finite losses, each kernel launched per layer in the forward
+    and again in the checkpointed recompute, one backward per layer. (That
+    the loss falls is held on the CPU by
+    ``test_torch_trainer.py::test_trainer_loss_decreases_and_resumes`` and on
+    the card by ``chip_smoke.py``'s ``lm_train_starcoder2`` phase, at full
+    width through flash_attention.)"""
+    from repro_torch.configs import TrainConfig, get_reduced
+    from repro_torch.data.tokens import token_batch_for
+    from repro_torch.launch.steps import build_train_step, make_optimizer
+    from repro_torch.models import Model
+
+    cfg = get_reduced("qwen3-8b")
+    tcfg = TrainConfig(optimizer="adafactor", learning_rate=1e-2, total_steps=4, warmup_steps=1)
+    params = Model(cfg).init(torch.Generator(device=device).manual_seed(0))
+    state = {"params": params, "opt": make_optimizer(tcfg).init(params),
+             "step": torch.zeros((), dtype=torch.int32)}
+    step = build_train_step(cfg, tcfg)
+    counts = (fa.launches, sw.launches, fa.backward_calls, sw.backward_calls)
+    losses = []
+    for i in range(4):
+        batch = {k: torch.as_tensor(v, device=device)
+                 for k, v in token_batch_for(cfg, batch=2, seq=64, seed=i).items()}
+        state, metrics = step(state, batch)
+        losses.append(float(metrics["loss"]))
+    L = cfg.n_layers
+    assert (fa.launches - counts[0], sw.launches - counts[1]) == (4 * 2 * L, 4 * 2 * L)
+    assert (fa.backward_calls - counts[2], sw.backward_calls - counts[3]) == (4 * L, 4 * L)
+    assert all(torch.isfinite(torch.tensor(losses)))

@@ -55,8 +55,10 @@ def test_card_reference_imports_jax_only_inside_main():
 
 def test_grid_tuning_and_experiments_are_checked():
     """The grid engine, the device transport plane, the tuning modules, the
-    sweep harness with the engine benches and their runner, and the server
-    optimizers are among the files held to the rule above."""
+    sweep harness with the engine benches and their runner, the server
+    optimizers, and LM training (schedules, token stream, train step,
+    trainer, the dense configs) are among the files held to the rule
+    above."""
     names = {str(p.relative_to(PORT)) for p in FILES if PORT in p.parents}
     want = {"core/grid.py", "transport/plane.py", "tuning/__init__.py", "tuning/grid.py",
             "tuning/daemon.py", "experiments/__init__.py", "experiments/common.py"}
@@ -66,6 +68,9 @@ def test_grid_tuning_and_experiments_are_checked():
         "reliability_bench", "resilience_bench", "transport_plane_bench",
         "round_engine_bench", "sweep_bench", "compress_bench", "run")}
     want |= {"optim/optimizers.py", "core/strategy.py"}
+    want |= {"optim/schedules.py", "data/tokens.py", "launch/steps.py", "launch/train.py",
+             "configs/phi3_medium_14b.py", "configs/minitron_8b.py", "configs/starcoder2_3b.py",
+             "configs/paper_mnist.py"}
     assert want <= names, want - names
 
 

@@ -90,8 +90,8 @@ def test_unported_archs_raise(arch):
 @pytest.mark.parametrize(
     "change",
     [dict(moe=MoEConfig(num_experts=4, expert_d_ff=64)), dict(attn_kind="mla"),
-     dict(enc_dec=True), dict(sliding_window=16), dict(norm_kind="layernorm")],
-    ids=["moe", "mla", "encdec", "ring_cache", "layernorm"],
+     dict(enc_dec=True), dict(sliding_window=16), dict(frontend="vision_stub")],
+    ids=["moe", "mla", "encdec", "ring_cache", "vision"],
 )
 def test_unported_families_raise(change):
     cfg = p_configs.get_reduced("qwen3-8b").replace(**change)

@@ -16,6 +16,8 @@ import repro_torch.configs as p_configs
 import repro_torch.core as p_core
 import repro_torch.data as p_data
 import repro_torch.transport as p_tr
+from repro_torch.launch import steps as p_steps
+from repro_torch.launch import train as p_train
 
 R_TASK = r_core.mnist_cnn_task()
 P_TASK = with_params(p_core.mnist_cnn_task(device="cpu"), ref_params_np(0))
@@ -64,11 +66,12 @@ def test_rec3_min_fit_under_90pct_failure_on_the_port():
 @pytest.mark.parametrize(
     "build,item",
     [
-        (lambda: p_configs.get_config("phi3-medium-14b"), 15),
-        (lambda: p_configs.get_reduced("starcoder2-3b"), 15),
+        (lambda: p_configs.get_reduced("deepseek-v2-236b"), 15),
         (lambda: p_configs.get_config("mixtral-8x7b"), 15),
+        (lambda: p_train.train("qwen3-8b", steps=1, mesh_kind="prod", device="cpu"), 16),
+        (lambda: p_steps.build_outer_sync(p_configs.get_reduced("qwen3-8b"), None, None), 16),
     ],
-    ids=["phi3-medium-14b", "starcoder2-3b", "mixtral-8x7b"],
+    ids=["deepseek-v2-236b", "mixtral-8x7b", "train-prod-mesh", "outer-sync"],
 )
 def test_configs_outside_the_slice_raise(build, item):
     with pytest.raises(NotImplementedError, match=rf"ROADMAP Queue 1, item {item}\)"):
