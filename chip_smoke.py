@@ -137,7 +137,9 @@ Run from the repository root. Phases, each printing one JSON line:
              card: the reference sweeps, serving lengths, bf16 windows, both
              sides of the GQA packing boundary (G * Sq = 64, 65), the
              serving shape (B = 4, S = 16, 32 / 8 heads, D = 128), one
-             S = 4096 prefill, and swiglu at Qwen3-8B's widths for
+             S = 4096 prefill, Mixtral's windowed prefill (S = 5,016,
+             window 4,096; SDPA with a boolean mask beside it), and swiglu
+             at Qwen3-8B's widths for
              M = 1, 4, 7, 44, 56, 64, with the same timing fields as
              ``kernel`` and one PyTorch call's time; the share of the bf16
              swiglu's time that its cross-block reduction takes (the
@@ -163,11 +165,13 @@ Run from the repository root. Phases, each printing one JSON line:
 24. lm_train_qwen
              Qwen3-8B at full width (bf16, Adafactor, 2 x 256 tokens): one
              step's loss and gradient norm through the kernels and through
-             the plain versions, within a stated bf16 tolerance; then 4
-             train steps: losses finite, s/step, tokens/s, peak memory,
-             each kernel's launches (36 forward + 36 recomputed under
-             remat) and backward passes (36) per step, the device-idle share
-             of one profiled step;
+             the plain versions, within a stated bf16 tolerance; then
+             train steps under remat "block" (the config's) and "full" in
+             turns, 3 steps a turn, two turns each: losses finite, s/step, tokens/s, peak memory, each
+             kernel's launches per step ("block": flash_attention 36
+             forward + 36 recomputed, swiglu 36, its output kept; "full":
+             both 72) and backward passes (36), the device-idle share of
+             one profiled step;
 25. lm_train_starcoder2
              ``train("starcoder2-3b", reduced=False)`` under AdamW, 10 steps
              checkpointing at step 8 (one 31.8 GB checkpoint: the machine
@@ -183,8 +187,28 @@ Run from the repository root. Phases, each printing one JSON line:
              one batch of serve.py:main's prompts with launches per prefill
              and decode step, logits finite over the padded vocab (256,000
              for Minitron), swiglu at their widths and flash_attention at
-             their heads against the plain versions; then ``lm_phases``,
-             the seconds of phases 23-27 against their 240 s budget.
+             their heads against the plain versions;
+28. moe_serving
+             ``Server("mixtral-8x7b", reduced=False, n_layers=16)``: full
+             width (d 4096, 32 / 8 heads, 8 experts of d_ff 14,336, top-2,
+             capacity 1.25, window 4,096), 16 of 32 layers (46.97 GB of
+             params); serve.py:main's 8 requests: flash_attention 16 a
+             prefill and 0 a decode step, prefill ms, decode ms per step,
+             tokens/s, peak memory, the tokens capacity drops per call;
+29. moe_long_prompt
+             the same params at capacity 4.0 (drop-free), B = 1: a 5,000-token
+             prompt into a 5,200-token cache (a 4,096-slot ring the prompt
+             wraps, position p at slot p % 4,096), 16 teacher-forced decode
+             steps, each step's logits within 3e-2 of max |logit| of one
+             forward over all 5,016 tokens;
+30. moe_train
+             Mixtral at full width, 4 of 32 layers (6.07 B params), bf16,
+             Adafactor, 2 x 256 tokens: one loss and gradient through the
+             kernel and through the plain version (loss 1e-3, gradient norm
+             2e-3; the kernel zeroed must fail), then ``train()`` for 3
+             steps: losses finite, aux > 0, s/step, tokens/s, peak memory,
+             launches per step; then ``lm_phases``, the seconds of phases
+             23-30 against their budget.
 
 Then the kernels line, the card's name and power limit as nvidia-smi gives
 them, and the final ``{"ok": true, ...}`` line. A failed phase raises: the
@@ -686,7 +710,7 @@ def read_launches() -> dict:
 
     return {"fedavg_reduce": fr.launches, **qz.launches,
             "flash_attention": fa.launches, "swiglu": sw.launches,
-            # backward passes of their autograd Functions (plain torch, no launch)
+            # backward passes of their autograd ops (plain torch, no launch)
             "flash_attention_backward": fa.backward_calls, "swiglu_backward": sw.backward_calls}
 
 
@@ -1905,7 +1929,10 @@ def phase_lm_kernels(torch):
     flash_cases += [((4, S, S, 32, 8, 128), dt, 0, "lengths") for S in (1, 7, 100) for dt in (f32, bf16)]
     flash_cases += [((4, 16, 16, 32, 8, 128), f32, 0, "lengths")]
     flash_cases += [((4, 16, 16, 32, 8, 128), bf16, 0, "serving"),
-                    ((1, 4096, 4096, 32, 8, 128), bf16, 0, "long_prefill")]
+                    ((1, 4096, 4096, 32, 8, 128), bf16, 0, "long_prefill"),
+                    # Mixtral's windowed prefill: moe_long_prompt's 5,016 tokens
+                    ((1, MIXTRAL_LONG_S, MIXTRAL_LONG_S, 32, 8, 128), bf16, MIXTRAL_WINDOW,
+                     "window_prefill")]
     tol = {f32: 2e-5, bf16: 5e-2}
     # per query row, relative to that row's max |plain|: a late row of the
     # S = 4096 prefill averages ~1,500 keys and is only ~0.02 in size, below
@@ -1935,13 +1962,20 @@ def phase_lm_kernels(torch):
         row = {"kernel": "flash_attention", "shape": [B, Sq, Skv, Hq, Hkv, D], "dtype": name[dt],
                "window": window, "group": group, "max_abs_err": err, "max_abs_ref": scale,
                "max_row_rel_err": row_err, "row_rtol": row_tol[dt]}
-        if group in ("serving", "long_prefill"):
+        if group in ("serving", "long_prefill", "window_prefill"):
+            if window:  # SDPA takes a window as a boolean mask (True: attend)
+                i = torch.arange(Sq, device=dev)[:, None]
+                j = torch.arange(Skv, device=dev)[None, :]
+                sdpa_kw = {"attn_mask": (j <= i) & (i - j < window)}
+            else:
+                sdpa_kw = {"is_causal": True}
             library = lambda: F.scaled_dot_product_attention(
                 q.view(B, Hq, Sq, D), k.view(B, Hkv, Skv, D), v.view(B, Hkv, Skv, D),
-                is_causal=True, enable_gqa=True)
+                enable_gqa=True, **sdpa_kw)
             n = 100 if group == "serving" else 5
             row.update(_timings(torch, kernel, plain, library,
-                                flash_work(B, Sq, Skv, Hq, Hkv, D, q.element_size()), dt,
+                                flash_work(B, Sq, Skv, Hq, Hkv, D, q.element_size(),
+                                           window=window), dt,
                                 iters=n, reps=7 if n == 100 else 3))
             acc["timed"][group] = row
         emit("lm_kernels", **row)
@@ -2147,10 +2181,10 @@ def phase_full_width(torch, server):
 
 
 # --------------------------------------------------------------------------
-# LM training (phases 23-26)
+# LM training (phases 23-27)
 # --------------------------------------------------------------------------
 
-LM_BUDGET_S = 240.0  # phases 23-26 together
+LM_BUDGET_S = 240.0  # phases 23-30 together
 TRAIN_B, TRAIN_S = 2, 256  # the training batch: 2 sequences of 256 tokens
 # kernel Function vs autograd through the plain version, relative to the
 # largest |value|: f32 sums in another order; bf16 also rounds P (flash) or
@@ -2166,6 +2200,7 @@ TRAIN_RTOL = {"loss": 1e-3, "grad_norm": 2e-3, "leaf": 5e-3}
 TRAIN_LEAVES = (("attn", "wq"), ("attn", "wk"), ("attn", "wv"), ("attn", "wo"),
                 ("mlp", "w_gate"), ("mlp", "w_up"), ("mlp", "w_down"))
 RESUME_TOL = 1e-4  # StarCoder2's resumed losses against the uninterrupted run's
+REMAT_TURNS = ("block", "full", "block", "full")  # lm_train_qwen's turns of 3 steps
 
 
 def flash_backward_work(B, S, Hq, Hkv, D, itemsize, window=0) -> tuple:
@@ -2264,6 +2299,8 @@ def phase_lm_grad(torch):
         comp_out = (F.silu(xs[0] @ xs[1]) * (xs[0] @ xs[2])) @ xs[3]
         fwd = _timings(torch, lambda: sw.swiglu_fused(x, *ws), lambda: swiglu_ref(x, *ws), None,
                        swiglu_work(M, d, F_, x.element_size()), dt, iters=5, reps=3)
+        fwd["composite_us"] = device_us(
+            torch, lambda: (F.silu(x @ ws[0]) * (x @ ws[1])) @ ws[2], 5, 3)
         bwd = _timings(torch, lambda: sw._swiglu_backward(x, *ws, dout),
                        lambda: torch.autograd.grad(ref_out, xs, dout, retain_graph=True), None,
                        swiglu_backward_work(M, d, F_, x.element_size()), dt, iters=5, reps=3)
@@ -2303,8 +2340,9 @@ def phase_lm_train_qwen(torch):
     tokens): its loss, gradient norm and the attention / MLP weights'
     gradient norms through the kernels and through the plain versions, and
     the same with each kernel's output zeroed, which the check must refuse;
-    then 4 steps with launches, time, memory and the device-idle share of
-    one profiled step."""
+    then 3 steps under remat "block", 3 under "full" and both again, with
+    launches, time and memory, and the device-idle share of one profiled
+    step."""
     from repro_torch.configs import TrainConfig, get_config
     from repro_torch.kernels import ops
     from repro_torch.kernels.ref import flash_attention_ref, swiglu_ref
@@ -2314,8 +2352,9 @@ def phase_lm_train_qwen(torch):
 
     cfg = get_config("qwen3-8b")
     L = cfg.n_layers
-    tcfg = TrainConfig(optimizer="adafactor", total_steps=8, warmup_steps=1)
+    tcfg = TrainConfig(optimizer="adafactor", total_steps=12, warmup_steps=1)
     model = Model(cfg)
+    check(cfg.remat == "block", f"lm_train: qwen3-8b remat {cfg.remat}")
     t0 = time.perf_counter()
     params = model.init(torch.Generator(device="cuda").manual_seed(0))
     torch.cuda.synchronize()
@@ -2341,7 +2380,7 @@ def phase_lm_train_qwen(torch):
             ops.flash_attention_grad, ops.swiglu_grad = saved
 
     kern, _, launches = counted(torch, loss_and_norms)
-    check(launches["flash_attention"] == launches["swiglu"] == 2 * L
+    check(launches["flash_attention"] == 2 * L and launches["swiglu"] == L
           and launches["flash_attention_backward"] == launches["swiglu_backward"] == L,
           f"lm_train: one loss+grad launched {launches}")
     plain = swapped(lambda q, k, v, *, causal, window: flash_attention_ref(
@@ -2360,45 +2399,67 @@ def phase_lm_train_qwen(torch):
 
     opt = make_optimizer(tcfg)
     state = {"params": params, "opt": opt.init(params), "step": torch.zeros((), dtype=torch.int32)}
-    step = build_train_step(cfg, tcfg)
-    torch.cuda.synchronize()
-    torch.cuda.reset_peak_memory_stats()
-    reset_launches()
-    walls, losses, gnorms = [], [], []
-    for i in range(4):
-        b = _batch(torch, cfg, 1 + i)
+    # remat "block" (the config's) keeps the swiglu output: each kernel launches
+    # 36 times forward, flash 36 more in the recompute; "full" recomputes both.
+    # Two turns of 3 steps each, in turns (block, full, block, full)
+    runs, seed = {}, 1
+    for remat in REMAT_TURNS:
+        step = build_train_step(cfg.replace(remat=remat), tcfg)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        reset_launches()
+        walls, losses, gnorms = [], [], []
+        for i in range(3):
+            b = _batch(torch, cfg, seed)
+            seed += 1
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            state, metrics = step(state, b)
+            losses.append(float(metrics["loss"]))
+            gnorms.append(float(metrics["grad_norm"]))
+            walls.append(time.perf_counter() - t)
+        launches = read_launches()
+        check(all(math.isfinite(x) for x in losses + gnorms), f"lm_train {remat}: losses {losses}")
+        want = {"flash_attention": 3 * 2 * L, "swiglu": 3 * (L if remat == "block" else 2 * L),
+                "flash_attention_backward": 3 * L, "swiglu_backward": 3 * L}
+        check(all(launches[k] == v for k, v in want.items()),
+              f"lm_train {remat}: 3 steps launched {launches}, want {want}")
+        run = runs.setdefault(remat, {"losses": [], "grad_norms": [], "step_walls_s": [],
+                                      "peak_memory_bytes": 0})
+        run["losses"] += losses
+        run["grad_norms"] += gnorms
+        run["step_walls_s"] += walls
+        run["peak_memory_bytes"] = max(run["peak_memory_bytes"], torch.cuda.max_memory_allocated())
+        run["launches_per_step"] = {k: launches[k] // 3 for k in ("flash_attention", "swiglu")}
+        run["backward_calls_per_step"] = {k: launches[f"{k}_backward"] // 3
+                                          for k in ("flash_attention", "swiglu")}
+    for run in runs.values():
+        run["s_per_step"] = statistics.median(run["step_walls_s"])
+        run["tokens_per_s"] = TRAIN_B * TRAIN_S / run["s_per_step"]
+    check(int(state["step"]) == 3 * len(REMAT_TURNS), "lm_train: step counter")
+    check(max(r["peak_memory_bytes"] for r in runs.values()) < 80e9,
+          f"lm_train: peak {[r['peak_memory_bytes'] for r in runs.values()]}")
+    # one profiled step at each setting: device busy against the step's wall
+    b = _batch(torch, cfg, seed)
+    for remat in ("full", "block"):
+        step = build_train_step(cfg.replace(remat=remat), tcfg)
         torch.cuda.synchronize()
         t = time.perf_counter()
-        state, metrics = step(state, b)
-        losses.append(float(metrics["loss"]))
-        gnorms.append(float(metrics["grad_norm"]))
-        walls.append(time.perf_counter() - t)
-    launches = read_launches()
-    peak = torch.cuda.max_memory_allocated()
-    check(all(math.isfinite(x) for x in losses + gnorms), f"lm_train: losses {losses}")
-    check(launches["flash_attention"] == launches["swiglu"] == 4 * 2 * L
-          and launches["flash_attention_backward"] == launches["swiglu_backward"] == 4 * L,
-          f"lm_train: 4 steps launched {launches}")
-    check(int(state["step"]) == 4, "lm_train: step counter")
-    b = _batch(torch, cfg, 5)
-    busy, top, by_name = device_profile(torch, lambda: step(state, b),
-                                        names=("flash_kernel", "swiglu_kernel", "nvjet", "gemm",
-                                               "elementwise", "reduce"))
-    s_per_step = statistics.median(walls[1:])
+        busy, top, by_name = device_profile(torch, lambda: step(state, b),
+                                            names=("flash_kernel", "swiglu_kernel", "nvjet",
+                                                   "gemm", "elementwise", "reduce"))
+        runs[remat].update(profiled_wall_s=time.perf_counter() - t, device_busy_us=busy)
+    block = runs["block"]
     row = {"arch": cfg.name, "params": n_params, "optimizer": "adafactor", "dtype": cfg.dtype,
            "batch": TRAIN_B, "seq": TRAIN_S, "init_s": init_s,
            "kernels_loss": kern[0], "plain_loss": plain[0], "kernels_grad_norm": kern[1],
            "plain_grad_norm": plain[1], "plain_leaf_grad_norms": plain[2], "rel_err": gaps,
            "rtol": TRAIN_RTOL, "faulted_rel_err": faulted,
-           "losses": losses, "grad_norms": gnorms, "step_walls_s": walls,
-           "s_per_step": s_per_step, "tokens_per_s": TRAIN_B * TRAIN_S / s_per_step,
-           "peak_memory_bytes": peak,
-           "launches_per_step": {k: launches[k] // 4 for k in ("flash_attention", "swiglu")},
-           "forward_launches_per_step": L, "recomputed_launches_per_step": L,
-           "backward_calls_per_step": {k: launches[f"{k}_backward"] // 4
-                                       for k in ("flash_attention", "swiglu")},
-           "device_busy_us": busy, "device_idle_share": 1.0 - busy / (s_per_step * 1e6), **by_name,
-           "top": top}
+           **block, "remat": runs,
+           "forward_launches_per_step": L, "recomputed_launches_per_step": {
+               "flash_attention": L, "swiglu": 0},
+           "device_busy_us": busy, "device_idle_share": 1.0 - busy / (block["s_per_step"] * 1e6),
+           **by_name, "top": top}
     emit("lm_train_qwen", **row)
     del state, params, b
     torch.cuda.empty_cache()
@@ -2617,6 +2678,327 @@ def phase_dense_serving(torch):
     return out
 
 
+# --------------------------------------------------------------------------
+# Mixtral 8x7B (phases 28-30)
+# --------------------------------------------------------------------------
+
+# the published config is 93.4 GB in bf16 and the card has 80 GB: full
+# width, depth cut to 16 of 32 layers for serving (46.97 GB of params) and to
+# 4 for training (6.07 B params: params, gradients and Adafactor ~46 GB)
+MIXTRAL_SERVE_LAYERS, MIXTRAL_TRAIN_LAYERS = 16, 4
+MIXTRAL_WINDOW = 4096
+# a prompt past the ring (5,000 % 4,096 != 0), 16 teacher-forced decode steps
+MIXTRAL_PROMPT, MIXTRAL_DECODE, MIXTRAL_MAX_LEN = 5000, 16, 5200
+MIXTRAL_LONG_S = MIXTRAL_PROMPT + MIXTRAL_DECODE
+MIXTRAL_DROP_FREE = 4.0  # capacity factor: C = 4 * 2 * T / 8 = T, no token dropped
+MOE_TRAIN_RTOL = {"loss": 1e-3, "grad_norm": 2e-3}
+MOE_TRAIN_LEAVES = (("attn", "wq"), ("attn", "wk"), ("attn", "wv"), ("attn", "wo"),
+                    ("mlp", "router"), ("mlp", "w_gate"), ("mlp", "w_up"), ("mlp", "w_down"))
+
+
+class RouteRecorder:
+    """Wraps ``models.mlp._router`` while active: per router call the token
+    count T, the capacity C and the tokens the gather dispatch drops (per
+    expert, those routed past C), kept on the device until read."""
+
+    def __init__(self, torch, cfg):
+        from repro_torch.models import mlp
+
+        self.torch, self.cfg, self.mlp, self.calls = torch, cfg, mlp, []
+        self.router = mlp._router
+
+    def __enter__(self):
+        torch, E = self.torch, self.cfg.moe.num_experts
+
+        def recording(cfg, p, x):
+            gates, ids, aux = self.router(cfg, p, x)
+            C = self.mlp.capacity(cfg, x.shape[0])
+            routed = torch.bincount(ids.reshape(-1), minlength=E)
+            self.calls.append((x.shape[0], C, torch.clamp(routed - C, min=0).sum()))
+            return gates, ids, aux
+
+        self.mlp._router = recording
+        return self
+
+    def __exit__(self, *exc):
+        self.mlp._router = self.router
+
+    def take(self):
+        """[(T, C, dropped), ...] since the last take."""
+        out = [(T, C, int(n)) for T, C, n in self.calls]
+        self.calls = []
+        return out
+
+
+def phase_moe_serving(torch):
+    """``Server("mixtral-8x7b", reduced=False, n_layers=16)`` on the card:
+    serve.py:main's 8 requests (batch 4, 12 greedy tokens); per prefill
+    flash_attention once per layer, per decode step never; prefill ms,
+    decode ms per step, tokens/s, peak memory and the tokens the published
+    capacity (1.25) drops in each call (a 4-row decode step has C = 1)."""
+    from repro_torch.launch import Server
+    from repro_torch.launch.serve import example_requests
+
+    t0 = time.perf_counter()
+    server = Server("mixtral-8x7b", reduced=False, n_layers=MIXTRAL_SERVE_LAYERS, device="cuda")
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    cfg, L = server.cfg, server.cfg.n_layers
+    check(cfg.d_model == 4096 and cfg.moe.num_experts == 8 and cfg.moe.expert_d_ff == 14336
+          and cfg.sliding_window == MIXTRAL_WINDOW and cfg.moe.capacity_factor == 1.25,
+          f"moe_serving: config {cfg}")
+    prefill, decode = server._prefill, server._decode
+    calls = []
+
+    def traced(kind, fn):
+        def call(*args):
+            torch.cuda.synchronize()
+            before = read_launches()
+            t = time.perf_counter()
+            logits, cache = fn(*args)
+            torch.cuda.synchronize()
+            ms = (time.perf_counter() - t) * 1e3
+            after = read_launches()
+            check(logits.dtype == torch.float32 and logits.shape == (server.batch, cfg.padded_vocab),
+                  f"moe_serving {kind}: logits {logits.dtype} {tuple(logits.shape)}")
+            check(bool(torch.isfinite(logits).all()), f"moe_serving {kind}: non-finite logits")
+            calls.append((kind, ms, after["flash_attention"] - before["flash_attention"],
+                          after["swiglu"] - before["swiglu"]))
+            return logits, cache
+        return call
+
+    # warm-up with the router recorded: the tokens dropped per call (the
+    # timed run serves the same requests with the same greedy tokens)
+    drops = {"prefill": [], "decode": []}
+    with RouteRecorder(torch, cfg) as rec:
+        server._prefill = traced("prefill", _recorded(prefill, rec, drops["prefill"]))
+        server._decode = traced("decode", _recorded(decode, rec, drops["decode"]))
+        server.run(example_requests(cfg.vocab_size))
+    server._prefill, server._decode = traced("prefill", prefill), traced("decode", decode)
+    calls.clear()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    done, wall, launches = counted(torch, lambda: server.run(example_requests(cfg.vocab_size)))
+    peak = torch.cuda.max_memory_allocated()
+    n_tok = sum(len(r.generated) for r in done)
+    check(len(done) == 8 and all(len(r.generated) == 12 for r in done),
+          f"moe_serving: generated {[len(r.generated) for r in done]}")
+    check(all(0 <= t < cfg.padded_vocab for r in done for t in r.generated),
+          "moe_serving: token range")
+    pre = [c for c in calls if c[0] == "prefill"]
+    dec = [c for c in calls if c[0] == "decode"]
+    check(all(c[2:] == (L, 0) for c in pre), f"moe_serving: per-prefill launches {pre}")
+    check(all(c[2:] == (0, 0) for c in dec), f"moe_serving: per-decode launches {dec}")
+    check(launches["flash_attention"] == L * len(pre) and launches["swiglu"] == 0,
+          f"moe_serving: launches {launches}")
+    check(all(len(d) == L for d in drops["prefill"] + drops["decode"]),
+          f"moe_serving: router calls per step {[len(d) for d in drops['decode']]}")
+    decode_ms = [c[1] for c in dec]
+    row = {"arch": cfg.name, "n_layers": L, "published_layers": 32, "d_model": cfg.d_model,
+           "params": cfg.param_count(), "active_params": cfg.param_count(active_only=True),
+           "init_s": init_s, "requests": len(done), "tokens": n_tok, "wall_s": wall,
+           "tokens_per_s": n_tok / wall, "prefills": len(pre), "decode_steps": len(dec),
+           "prefill_ms": [c[1] for c in pre], "decode_ms_per_step": statistics.mean(decode_ms),
+           "decode_ms_median": statistics.median(decode_ms), "peak_memory_bytes": peak,
+           "launches": {k: launches[k] for k in ("flash_attention", "swiglu")},
+           "flash_launches_per_prefill": pre[0][2], "flash_launches_per_decode_step": dec[0][2],
+           "capacity_factor": cfg.moe.capacity_factor,
+           "prefill_capacity": [d[0][1] for d in drops["prefill"]],
+           "decode_capacity": drops["decode"][0][0][1],
+           "dropped_per_prefill": [sum(x[2] for x in d) for d in drops["prefill"]],
+           "dropped_per_decode_step": [sum(x[2] for x in d) for d in drops["decode"]],
+           "routed_per_decode_step": L * server.batch * cfg.moe.top_k,
+           "prompt_lengths": [len(r.prompt) for r in done],
+           "first_tokens": [r.generated[:4] for r in done]}
+    emit("moe_serving", **row)
+    server._prefill, server._decode = prefill, decode
+    return server, row
+
+
+def _recorded(fn, rec, sink):
+    """``fn`` whose router calls (T, C, dropped) are appended to ``sink``."""
+    def call(*args):
+        out = fn(*args)
+        sink.append(rec.take())
+        return out
+    return call
+
+
+def phase_moe_long_prompt(torch, server):
+    """The served Mixtral params at a drop-free capacity (4.0), B = 1: a
+    5,000-token prompt into a 5,200-token cache (a ring of 4,096 slots,
+    which the prompt wraps), then 16 teacher-forced decode steps; every
+    step's logits (and the prefill's) against the same positions of one
+    forward over all 5,016 tokens, within 3e-2 of max |logit| (bf16)."""
+    import dataclasses
+
+    from repro_torch.models import Model
+    from repro_torch.models import lm as lm_mod
+
+    cfg = server.cfg.replace(moe=dataclasses.replace(server.cfg.moe,
+                                                     capacity_factor=MIXTRAL_DROP_FREE))
+    model, params, L = Model(cfg), server.params, cfg.n_layers
+    gen = torch.Generator(device="cuda").manual_seed(17)
+    toks = torch.randint(0, cfg.vocab_size, (1, MIXTRAL_LONG_S), generator=gen, device="cuda",
+                         dtype=torch.int32)
+    steps, launches = [], []
+    with torch.no_grad(), RouteRecorder(torch, cfg) as rec:
+        logits, cache = model.prefill(params, {"tokens": toks[:, :MIXTRAL_PROMPT]}, MIXTRAL_MAX_LEN)
+        # timed once more, the launches counted around it
+        (logits, cache), prefill_s, pre_launch = counted(torch, lambda: model.prefill(
+            params, {"tokens": toks[:, :MIXTRAL_PROMPT]}, MIXTRAL_MAX_LEN))
+        prefill_routes = rec.take()
+        seg = cache["seg0"]
+        check(seg["k"].shape[2] == MIXTRAL_WINDOW and "kv_pos" in seg,
+              f"moe_long_prompt: cache {[(k, tuple(v.shape)) for k, v in seg.items()]}")
+        kv_pos = seg["kv_pos"][0, 0]
+        want_pos = torch.arange(MIXTRAL_PROMPT - MIXTRAL_WINDOW, MIXTRAL_PROMPT, device="cuda")
+        check(torch.equal(kv_pos[want_pos % MIXTRAL_WINDOW].long(), want_pos),
+              "moe_long_prompt: the ring does not hold position p at slot p % 4096")
+        steps.append(logits.float())
+        decode_s = []
+        for j in range(MIXTRAL_DECODE):
+            cur = toks[:, MIXTRAL_PROMPT + j:MIXTRAL_PROMPT + j + 1]
+            (logits, cache), s, n = counted(torch, lambda: model.decode_step(params, cache, cur))
+            decode_s.append(s)
+            launches.append(n["flash_attention"])
+            steps.append(logits.float())
+        decode_routes = rec.take()
+        t = time.perf_counter()
+        h, _, _ = lm_mod.lm_forward(cfg, params, {"tokens": toks})
+        full = lm_mod.unembed(cfg, params, h[:, MIXTRAL_PROMPT - 1:])[0]
+        torch.cuda.synchronize()
+        full_s = time.perf_counter() - t
+        full_routes = rec.take()
+    errs, scales, agree = [], [], 0
+    for i, got in enumerate(steps):
+        want = full[i]
+        check(bool(torch.isfinite(got).all()), f"moe_long_prompt: step {i} non-finite")
+        errs.append(float((got[0] - want).abs().max()))
+        scales.append(float(want.abs().max()))
+        agree += int(got[0].argmax() == want.argmax())
+    rel = [e / s for e, s in zip(errs, scales)]
+    dropped = sum(x[2] for x in prefill_routes + decode_routes + full_routes)
+    check(dropped == 0, f"moe_long_prompt: {dropped} tokens dropped at capacity {MIXTRAL_DROP_FREE}")
+    check(pre_launch["flash_attention"] == L and all(n == 0 for n in launches),
+          f"moe_long_prompt: flash launches prefill {pre_launch['flash_attention']}, decode {launches}")
+    check(max(rel) <= SERVE_LOGIT_RTOL,
+          f"moe_long_prompt: decode vs full forward {max(rel)} of max |logit| > {SERVE_LOGIT_RTOL}")
+    row = {"arch": cfg.name, "n_layers": L, "prompt": MIXTRAL_PROMPT, "decode_steps": MIXTRAL_DECODE,
+           "max_len": MIXTRAL_MAX_LEN, "ring_slots": MIXTRAL_WINDOW,
+           "prompt_mod_ring": MIXTRAL_PROMPT % MIXTRAL_WINDOW, "capacity_factor": MIXTRAL_DROP_FREE,
+           "prefill_s": prefill_s, "decode_ms_per_step": 1e3 * statistics.mean(decode_s),
+           "full_forward_s": full_s, "flash_launches_prefill": pre_launch["flash_attention"],
+           "flash_launches_per_decode_step": launches[0], "rel_err": rel, "max_rel_err": max(rel),
+           "rtol": SERVE_LOGIT_RTOL, "max_abs_logit": max(scales), "greedy_agree": agree,
+           "greedy_total": len(steps), "dropped": dropped}
+    emit("moe_long_prompt", **row)
+    return row
+
+
+def phase_moe_train(torch):
+    """Mixtral at full width, 4 of 32 layers, bf16, Adafactor, 2 x 256
+    tokens: one loss and gradient through the kernels and through the plain
+    versions (loss within 1e-3, gradient norm within 2e-3; flash's output
+    zeroed must fail that check), then ``train("mixtral-8x7b", n_layers=4)``
+    for 3 steps: losses finite, aux > 0, s/step, tokens/s, peak memory and
+    launches per step."""
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import ops
+    from repro_torch.kernels.ref import flash_attention_ref
+    from repro_torch.launch import train as tr
+    from repro_torch.models import Model
+    from repro_torch.utils import tree_leaves, tree_map, tree_unflatten
+
+    cfg = get_config("mixtral-8x7b").replace(n_layers=MIXTRAL_TRAIN_LAYERS)
+    L = cfg.n_layers
+    model = Model(cfg)
+    params = model.init(torch.Generator(device="cuda").manual_seed(0))
+    n_params = sum(p.numel() for p in tree_leaves(params))
+
+    def loss_and_norms():
+        ps = tree_map(lambda p: p.detach().requires_grad_(True), params)
+        loss, metrics = model.loss(ps, _batch(torch, cfg, 0))
+        grads = torch.autograd.grad(loss, tree_leaves(ps))
+        gnorm = torch.sqrt(sum(torch.sum(torch.square(g.float())) for g in grads))
+        seg = tree_unflatten(ps, grads)["seg0"]
+        leaves = {f"{a}.{b}": float(torch.linalg.vector_norm(seg[a][b].float()))
+                  for a, b in MOE_TRAIN_LEAVES}
+        return float(loss.detach()), float(gnorm), leaves, float(metrics["aux"])
+
+    def with_flash(flash):
+        saved = ops.flash_attention_grad
+        ops.flash_attention_grad = flash
+        try:
+            return loss_and_norms()
+        finally:
+            ops.flash_attention_grad = saved
+
+    def within(gaps):
+        return all(gaps[k] <= v for k, v in MOE_TRAIN_RTOL.items())
+
+    kern, _, launches = counted(torch, loss_and_norms)
+    check(launches["flash_attention"] == 2 * L and launches["swiglu"] == 0
+          and launches["flash_attention_backward"] == L,
+          f"moe_train: one loss+grad launched {launches}")
+    plain = with_flash(lambda q, k, v, *, causal, window: flash_attention_ref(
+        q, k, v, causal=causal, window=window))
+    gaps = _train_gaps(kern, plain)
+    check(within(gaps), f"moe_train: kernels vs plain gaps {gaps} over {MOE_TRAIN_RTOL}")
+    flash = ops.flash_attention_grad
+    faulted = _train_gaps(with_flash(
+        lambda q, k, v, *, causal, window: flash(q, k, v, causal=causal, window=window) * 0), plain)
+    check(not within(faulted), f"moe_train: flash zeroed passes the check: {faulted}")
+    del params
+    torch.cuda.empty_cache()
+
+    walls, build = [], tr.build_train_step
+
+    def timed_build(cfg, tcfg, **kw):
+        fn = build(cfg, tcfg, **kw)
+
+        def timed(state, batch):
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            out = fn(state, batch)
+            torch.cuda.synchronize()
+            walls.append(time.perf_counter() - t)
+            return out
+
+        return timed
+
+    tr.build_train_step = timed_build
+    try:
+        torch.cuda.reset_peak_memory_stats()
+        out, _, launches = counted(torch, lambda: tr.train(
+            "mixtral-8x7b", reduced=False, n_layers=L, optimizer="adafactor", steps=3,
+            batch=TRAIN_B, seq=TRAIN_S, log_every=100))
+        peak = torch.cuda.max_memory_allocated()
+    finally:
+        tr.build_train_step = build
+    losses, auxes = out["losses"], out["aux"]
+    check(len(losses) == 3 and all(math.isfinite(x) for x in losses),
+          f"moe_train: losses {losses}")
+    check(all(a > 0 for a in auxes), f"moe_train: aux {auxes}")
+    check(launches["flash_attention"] == 3 * 2 * L and launches["swiglu"] == 0
+          and launches["flash_attention_backward"] == 3 * L, f"moe_train: 3 steps launched {launches}")
+    check(peak < 80e9, f"moe_train: peak {peak}")
+    s_per_step = statistics.median(walls[1:])
+    row = {"arch": cfg.name, "n_layers": L, "published_layers": 32, "params": n_params,
+           "optimizer": "adafactor", "dtype": cfg.dtype, "remat": cfg.remat, "batch": TRAIN_B,
+           "seq": TRAIN_S, "kernels_loss": kern[0], "plain_loss": plain[0],
+           "kernels_grad_norm": kern[1], "plain_grad_norm": plain[1], "kernels_aux": kern[3],
+           "plain_leaf_grad_norms": plain[2], "rel_err": gaps, "rtol": MOE_TRAIN_RTOL,
+           "faulted_rel_err": faulted, "losses": losses, "aux": auxes, "step_walls_s": walls,
+           "s_per_step": s_per_step, "tokens_per_s": TRAIN_B * TRAIN_S / s_per_step,
+           "peak_memory_bytes": peak,
+           "launches_per_step": {k: launches[k] // 3 for k in ("flash_attention", "swiglu")},
+           "backward_calls_per_step": launches["flash_attention_backward"] // 3}
+    emit("moe_train", **row)
+    torch.cuda.empty_cache()
+    return row
+
+
 FL_DESIGN = {
     "fedavg_reduce": "one launch over a leaf table passed by value; 16-byte loads where a "
                      "leaf is aligned, clients unrolled 16 deep, weights in shared memory",
@@ -2633,13 +3015,14 @@ FL_DESIGN = {
 }
 
 
-def lm_rows(lm, served, grad, qwen):
+def lm_rows(lm, served, grad, qwen, moe_launches):
     """The kernels-line rows of flash_attention (at the serving prefill
     shape, with the S = 4096 prefill beside it) and swiglu (at decode,
     M = 4, with the M = 64 prefill beside it), launches from the serve run;
     then each kernel at the training shape (bf16, B = 2 x S = 256: forward
-    and the autograd Function's backward) with its launches and backward
-    passes per Qwen3-8B train step."""
+    and the autograd op's backward) with its launches and backward passes
+    per Qwen3-8B train step; flash_attention also at Mixtral's windowed
+    5,016-token prefill, with its launches in the Mixtral phases."""
     launches, n_pre, n_dec = served["launches"], served["prefills"], served["decode_steps"]
     per_pre, per_dec = served["per_prefill"], served["per_decode"]
 
@@ -2656,8 +3039,9 @@ def lm_rows(lm, served, grad, qwen):
                         f"train_{part}_bound_ms": t["bound_us"] / 1e3,
                         f"train_{part}_bound_by": t["bound_by"],
                         f"train_{part}_library_ms": None if lib is None else lib / 1e3})
-        if "composite_us" in row["backward"]:
-            out["train_backward_composite_ms"] = row["backward"]["composite_us"] / 1e3
+        for part in ("forward", "backward"):
+            if "composite_us" in row[part]:
+                out[f"train_{part}_composite_ms"] = row[part]["composite_us"] / 1e3
         return out
 
     def ms(row, prefix=""):
@@ -2679,7 +3063,10 @@ def lm_rows(lm, served, grad, qwen):
          "max_abs_err": fa["max_abs_err"], "max_rel_err": fa["max_rel_err"],
          "max_row_rel_err": fa["max_row_rel_err"],
          **ms(fa["timed"]["serving"]), **ms(fa["timed"]["long_prefill"], "long_prefill_"),
+         **ms(fa["timed"]["window_prefill"], "window_prefill_"),
+         **moe_launches,
          "library_note": "F.scaled_dot_product_attention(is_causal=True, enable_gqa=True); "
+                         "window_prefill_library_ms: with a boolean window mask; "
                          "train_backward_library_ms: its autograd backward",
          **train("flash_attention")},
         {"name": "swiglu", "route": "cuda", "source": "src/repro_torch/kernels/csrc/swiglu.cu",
@@ -2805,6 +3192,25 @@ def main() -> int:
     t = time.perf_counter()
     phase_dense_serving(torch)
     lm_s["dense_serving"] = time.perf_counter() - t
+    t = time.perf_counter()
+    server, moe_served = phase_moe_serving(torch)
+    lm_s["moe_serving"] = time.perf_counter() - t
+    t = time.perf_counter()
+    moe_long = phase_moe_long_prompt(torch, server)
+    lm_s["moe_long_prompt"] = time.perf_counter() - t
+    del server
+    gc.collect()
+    torch.cuda.empty_cache()
+    t = time.perf_counter()
+    moe_train = phase_moe_train(torch)
+    lm_s["moe_train"] = time.perf_counter() - t
+    moe_launches = {"moe_serving_launches": moe_served["launches"]["flash_attention"],
+                    "moe_serving_launches_per_prefill": moe_served["flash_launches_per_prefill"],
+                    "moe_serving_launches_per_decode_step":
+                        moe_served["flash_launches_per_decode_step"],
+                    "moe_long_prompt_launches_prefill": moe_long["flash_launches_prefill"],
+                    "moe_train_launches_per_step": moe_train["launches_per_step"]["flash_attention"],
+                    "moe_train_backward_calls_per_step": moe_train["backward_calls_per_step"]}
     emit("lm_phases", seconds=sum(lm_s.values()), budget_s=LM_BUDGET_S,
          within_budget=sum(lm_s.values()) <= LM_BUDGET_S, by_phase=lm_s)
 
@@ -2915,7 +3321,7 @@ def main() -> int:
                   grid["compressed"]["bf16 dense"]),
         # the whole flattened CNN (N = 206,922), as ops.quantize_tree feeds it
         quant_row("quantize_stochastic", None, "src/repro/kernels/quantize.py:44", NO_LIBRARY),
-        *lm_rows(lm, served, grad, qwen),
+        *lm_rows(lm, served, grad, qwen, moe_launches),
     ]}), flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -2,7 +2,8 @@
 
 The port knows the architectures whose families it implements: the dense
 GQA LMs ``qwen3-8b``, ``phi3-medium-14b``, ``minitron-8b`` and
-``starcoder2-3b`` (LayerNorm, GELU MLP), and the paper's MNIST CNN
+``starcoder2-3b`` (LayerNorm, GELU MLP), the mixture of experts with a
+sliding window ``mixtral-8x7b``, and the paper's MNIST CNN
 (``paper-mnist-cnn``, metadata only). Every other architecture of
 ``repro.configs`` raises ``NotImplementedError`` until its family is
 ported (ROADMAP Queue 1, item 15); an unknown name raises ``KeyError``.
@@ -42,6 +43,7 @@ _MODULES: Dict[str, str] = {
     "starcoder2-3b": "starcoder2_3b",
     "qwen3-8b": "qwen3_8b",
     "minitron-8b": "minitron_8b",
+    "mixtral-8x7b": "mixtral_8x7b",
     "paper-mnist-cnn": "paper_mnist",
 }
 

@@ -16,9 +16,11 @@ two: any other device, or an input the kernel does not take, raises.
 ``launches`` counts kernel launches (CPU calls do not count), so a run can
 show that it went through the kernel.
 
-``flash_attention_grad`` is the same function under autograd
-(``FlashAttention``): its forward is ``flash_attention_bhsd`` (the kernel
-on a CUDA tensor, the plain version on a CPU tensor) and its backward is
+``flash_attention_grad`` is the same function under autograd, as the
+custom op ``repro_torch::flash_attention`` (an op, so that a
+selective-checkpoint policy sees it whole): its forward is
+``flash_attention_bhsd`` (the kernel on a CUDA tensor, the plain version
+on a CPU tensor) and its backward is
 written out in plain torch from the saved q, k, v and output. The
 reference has no backward kernel (its flash kernel is forward only), so
 this is the port of its gradient; a hand-written backward kernel is
@@ -138,27 +140,38 @@ def _flash_backward(q, k, v, out, dout, causal, window, scale):
     return dq.reshape(BH, Sq, D).to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)
 
 
-class FlashAttention(torch.autograd.Function):
-    """``flash_attention_bhsd`` with its gradient (see the module docstring)."""
+@torch.library.custom_op("repro_torch::flash_attention", mutates_args=())
+def flash_attention_op(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, causal: bool,
+                       window: int, scale: float) -> torch.Tensor:
+    """``flash_attention_bhsd`` as an op with its gradient (see the module
+    docstring)."""
+    return flash_attention_bhsd(q, k, v, causal=causal, window=window, scale=scale)
 
-    @staticmethod
-    def forward(ctx, q, k, v, causal, window, scale):
-        out = flash_attention_bhsd(q, k, v, causal=causal, window=window, scale=scale)
-        ctx.save_for_backward(q, k, v, out)
-        ctx.args = (bool(causal), int(window or 0), scale)
-        return out
 
-    @staticmethod
-    def backward(ctx, dout):
-        global backward_calls
-        q, k, v, out = ctx.saved_tensors
-        if q.is_cuda:
-            backward_calls += 1
-        return (*_flash_backward(q, k, v, out, dout, *ctx.args), None, None, None)
+@flash_attention_op.register_fake
+def _(q, k, v, causal, window, scale):
+    return torch.empty_like(q)
+
+
+def _setup_context(ctx, inputs, output):
+    q, k, v, causal, window, scale = inputs
+    ctx.save_for_backward(q, k, v, output)
+    ctx.args = (causal, window, scale)
+
+
+def _backward(ctx, dout):
+    global backward_calls
+    q, k, v, out = ctx.saved_tensors
+    if q.is_cuda:
+        backward_calls += 1
+    return (*_flash_backward(q, k, v, out, dout, *ctx.args), None, None, None)
+
+
+flash_attention_op.register_autograd(_backward, setup_context=_setup_context)
 
 
 def flash_attention_grad(q, k, v, *, causal=True, window=0, scale=None):
     """``flash_attention_bhsd`` under autograd: q [BH, Sq, D]; k/v
     [BKV, Skv, D] -> [BH, Sq, D] in q's dtype, differentiable in q, k, v."""
     scale = scale if scale is not None else q.shape[-1] ** -0.5
-    return FlashAttention.apply(q, k, v, causal, window, scale)
+    return flash_attention_op(q, k, v, bool(causal), int(window or 0), float(scale))

@@ -110,7 +110,7 @@ def flash_attention(q, k, v, *, causal=True, window=0):
 
     GQA by head-major flattening: [B, S, H, D] -> [B*H, S, D], the kernel
     reading kv head bh // G (no repeated copy of k and v). Differentiable
-    in q, k and v (``flash_attention.FlashAttention``)."""
+    in q, k and v (``flash_attention.flash_attention_op``)."""
     B, Sq, Hq, D = q.shape
     _, Skv, Hkv, Dv = v.shape
     qf = q.transpose(1, 2).reshape(B * Hq, Sq, D).contiguous()
@@ -122,7 +122,7 @@ def flash_attention(q, k, v, *, causal=True, window=0):
 
 def swiglu(x, w_gate, w_up, w_down):
     """Fused SwiGLU over [..., d] inputs, differentiable in x and the three
-    weights (``swiglu.SwiGLU``)."""
+    weights (``swiglu.swiglu_op``)."""
     lead = x.shape[:-1]
     d = x.shape[-1]
     out = swiglu_grad(x.reshape(-1, d).contiguous(), w_gate.contiguous(), w_up.contiguous(),

@@ -19,10 +19,11 @@ device, or an input the kernel does not take, raises.
 ``launches`` counts kernel launches (CPU calls do not count), so a run can
 show that it went through the kernel.
 
-``swiglu_grad`` is the same function under autograd (``SwiGLU``): its
-forward is ``swiglu_fused`` (the kernel on a CUDA tensor, the plain
-version on a CPU tensor) and its backward is written out in plain torch
-from the saved inputs. The reference has no backward kernel, so this is
+``swiglu_grad`` is the same function under autograd, as the custom op
+``repro_torch::swiglu`` (an op, so that a selective-checkpoint policy can
+keep its output): its forward is ``swiglu_fused`` (the kernel on a CUDA
+tensor, the plain version on a CPU tensor) and its backward is written
+out in plain torch from the saved inputs. The reference has no backward kernel, so this is
 the port of its gradient; a hand-written backward kernel is performance
 work. The backward recomputes g = x Wg and u = x Wu, then with
 a = silu(g) and h = a u: dh = dOut Wd^T, dWd = h^T dOut,
@@ -140,24 +141,35 @@ def _swiglu_backward(x, w_gate, w_up, w_down, dout):
     return dx, x.T @ dg, x.T @ du, dw_down
 
 
-class SwiGLU(torch.autograd.Function):
-    """``swiglu_fused`` with its gradient (see the module docstring)."""
+@torch.library.custom_op("repro_torch::swiglu", mutates_args=())
+def swiglu_op(x: torch.Tensor, w_gate: torch.Tensor, w_up: torch.Tensor,
+              w_down: torch.Tensor) -> torch.Tensor:
+    """``swiglu_fused`` as an op with its gradient (see the module
+    docstring)."""
+    return swiglu_fused(x, w_gate, w_up, w_down)
 
-    @staticmethod
-    def forward(ctx, x, w_gate, w_up, w_down):
-        ctx.save_for_backward(x, w_gate, w_up, w_down)
-        return swiglu_fused(x, w_gate, w_up, w_down)
 
-    @staticmethod
-    def backward(ctx, dout):
-        global backward_calls
-        x, w_gate, w_up, w_down = ctx.saved_tensors
-        if x.is_cuda:
-            backward_calls += 1
-        return _swiglu_backward(x, w_gate, w_up, w_down, dout)
+@swiglu_op.register_fake
+def _(x, w_gate, w_up, w_down):
+    return x.new_empty((x.shape[0], w_down.shape[1]))
+
+
+def _setup_context(ctx, inputs, output):
+    ctx.save_for_backward(*inputs)
+
+
+def _backward(ctx, dout):
+    global backward_calls
+    x, w_gate, w_up, w_down = ctx.saved_tensors
+    if x.is_cuda:
+        backward_calls += 1
+    return _swiglu_backward(x, w_gate, w_up, w_down, dout)
+
+
+swiglu_op.register_autograd(_backward, setup_context=_setup_context)
 
 
 def swiglu_grad(x, w_gate, w_up, w_down):
     """``swiglu_fused`` under autograd: x [M, d], w_gate/w_up [d, F],
     w_down [F, d] -> [M, d], differentiable in all four."""
-    return SwiGLU.apply(x, w_gate, w_up, w_down)
+    return swiglu_op(x, w_gate, w_up, w_down)

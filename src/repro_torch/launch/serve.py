@@ -16,7 +16,7 @@ from __future__ import annotations
 import argparse
 import time
 from dataclasses import dataclass, field
-from typing import List
+from typing import List, Optional
 
 import numpy as np
 import torch
@@ -38,12 +38,17 @@ class Request:
 class Server:
     """Greedy-decoding batch server. Params are drawn from a
     ``torch.Generator`` seeded with ``seed`` on ``device``; a caller may
-    set ``server.params`` to carried-across params instead."""
+    set ``server.params`` to carried-across params instead. ``n_layers``
+    cuts the config's depth (for a model whose every layer does not fit
+    on one card), leaving its widths as they are."""
 
     def __init__(self, arch: str, *, reduced: bool = True, batch: int = 4,
-                 max_len: int = 128, seed: int = 0, device=None):
+                 max_len: int = 128, seed: int = 0, n_layers: Optional[int] = None,
+                 device=None):
         self.device = resolve_device(device)
         self.cfg = get_reduced(arch) if reduced else get_config(arch)
+        if n_layers is not None:
+            self.cfg = self.cfg.replace(n_layers=n_layers)
         self.model = Model(self.cfg)
         self.params = self.model.init(torch.Generator(device=self.device).manual_seed(seed))
         self.batch = batch

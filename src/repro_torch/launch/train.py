@@ -12,7 +12,10 @@ one device).
   format) hold ``{params, opt, step}``; a run restarts from LATEST.
 
 It runs on CUDA unless ``device="cpu"`` is passed, and raises without
-CUDA. The production mesh (``mesh_kind="prod"``) is not ported (ROADMAP
+CUDA. ``optimizer`` is the ``TrainConfig``'s ("adamw" or "adafactor": at
+full width AdamW's f32 moments alone outgrow the card for Mixtral), and
+``n_layers`` cuts the depth of a model that does not fit on the card
+whole. The result carries each step's loss and router aux loss. The production mesh (``mesh_kind="prod"``) is not ported (ROADMAP
 Queue 1, item 16) and raises. The weights come from a seeded
 ``torch.Generator``, so they are not the reference's (threefry) draws.
 
@@ -54,6 +57,8 @@ def train(
     log_every: int = 10,
     outer_compression: str = "none",
     learning_rate: float = 2e-3,
+    optimizer: str = "adamw",
+    n_layers: Optional[int] = None,
     device=None,
 ):
     if mesh_kind == "prod":
@@ -61,7 +66,10 @@ def train(
             "the production mesh is not ported yet (ROADMAP Queue 1, item 16)")
     device = resolve_device(device)
     cfg = get_reduced(arch) if reduced else get_config(arch)
+    if n_layers is not None:  # a depth cut, for a model that does not fit on the card whole
+        cfg = cfg.replace(n_layers=n_layers)
     tcfg = TrainConfig(
+        optimizer=optimizer,
         learning_rate=learning_rate,
         total_steps=steps,
         warmup_steps=max(steps // 10, 1),
@@ -97,13 +105,14 @@ def train(
         outer = nesterov_outer(tcfg.outer_lr, tcfg.outer_momentum)
         outer_state = outer.init(anchor)
 
-    losses = []
+    losses, auxes = [], []
     t0 = time.time()
     for it in range(start_step, steps):
         np_batch = token_batch_for(cfg, batch=batch, seq=seq, seed=seed + it)
         tbatch = {k: torch.as_tensor(v, device=device) for k, v in np_batch.items()}
         state, metrics = step_fn(state, tbatch)
         losses.append(float(metrics["loss"]))
+        auxes.append(float(metrics["aux"]))
 
         if inner_steps > 1 and (it + 1) % inner_steps == 0:
             # outer FedAvg step (single device: pod count 1 -> plain outer opt)
@@ -122,7 +131,8 @@ def train(
                 f"({dt / (it + 1 - start_step):.2f}s/step)"
             )
 
-    return {"losses": losses, "final_loss": losses[-1] if losses else float("nan")}
+    return {"losses": losses, "aux": auxes,
+            "final_loss": losses[-1] if losses else float("nan")}
 
 
 def main():

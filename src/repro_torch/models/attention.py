@@ -1,4 +1,4 @@
-"""GQA attention for serving (the port of the GQA half of
+"""GQA attention for serving and training (the port of the GQA half of
 ``repro/models/attention.py``).
 
 - Prefill runs ``kernels.ops.flash_attention``: the hand-written flash
@@ -13,11 +13,17 @@
 
 Caches are dicts of tensors; the per-layer views of the stacked cache are
 written IN PLACE (the reference returns updated copies), which keeps one
-cache in device memory. MLA, cross attention, the cache of a
-sliding-window model (the reference's ring of ``min(max_len, window)``
-slots; ``gqa_cache_spec`` refuses it) and the prefill branch for a cache
-shorter than the prompt are not ported (ROADMAP Queue 1, item 15) and
-raise.
+cache in device memory. A sliding-window model's cache is a ring of
+``Smax = min(max_len, window)`` slots with a ``kv_pos`` leaf (the absolute
+position in each slot, -1 when empty): position ``p`` lives at slot
+``p % Smax``. A prompt longer than the ring keeps its last ``Smax`` tokens
+at those slots. The reference puts them at slots ``0..Smax-1`` instead,
+which agrees with its own decode only when ``S % Smax == 0``, so its decode
+then overwrites a token still inside the window; the port keeps the ring's
+rule (ROADMAP Queue 3, C5). A cache without a ring that is shorter than
+the prompt keeps the last ``Smax`` tokens at slots ``0..Smax-1``, as the
+reference does. MLA and cross attention are not ported (ROADMAP Queue 1,
+item 15) and raise.
 """
 
 from __future__ import annotations
@@ -65,18 +71,20 @@ def full_attention(q, k, v, *, causal=True, window=0, q_offset=0):
     return torch.einsum("bhqk,bkhd->bqhd", probs.to(v.dtype), v)
 
 
-def decode_attention(q, k_cache, v_cache, *, pos, window=0):
+def decode_attention(q, k_cache, v_cache, *, pos, window=0, kv_positions=None):
     """One-token attention against a cache. q [B,1,Hq,D]; k_cache/v_cache
-    [B,Smax,Hkv,D]; pos [B] the query's absolute position, slot index =
-    absolute position (no ring buffer)."""
+    [B,Smax,Hkv,D]; pos [B] the query's absolute position. ``kv_positions``
+    [B,Smax] holds each slot's absolute position (-1 empty) for a ring;
+    when None the slot index is the absolute position."""
     B, _, Hq, D = q.shape
     Smax = k_cache.shape[1]
     scale = D ** -0.5
     k = repeat_kv(k_cache, Hq)
     v = repeat_kv(v_cache, Hq)
     s = torch.einsum("bqhd,bkhd->bhqk", q.float(), k.float()) * scale  # [B,Hq,1,Smax]
-    kv_positions = torch.arange(Smax, device=q.device)[None].expand(B, Smax)
-    valid = kv_positions <= pos[:, None]
+    if kv_positions is None:
+        kv_positions = torch.arange(Smax, device=q.device)[None].expand(B, Smax)
+    valid = (kv_positions <= pos[:, None]) & (kv_positions >= 0)
     if window and window > 0:
         valid &= pos[:, None] - kv_positions < window
     s = torch.where(valid[:, None, None, :], s, torch.full_like(s, NEG_INF))
@@ -133,10 +141,12 @@ def _out_proj(out, wo):
 def gqa_forward(cfg, p, x, *, positions=None, cache=None, decode=False, cross_kv=None):
     """Returns (out [B,S,d], cache_or_None).
 
-    - prefill: cache is None or an empty cache dict, whose k/v are filled in
-      place at slots 0..S-1.
-    - decode: x is [B,1,d]; cache holds k/v [B,Smax,Hkv,D] and pos [B]; the
-      new k/v are written in place at slot pos and pos advances by one.
+    - prefill: cache is None or an empty cache dict, whose k/v (and a
+      ring's kv_pos) are filled in place: slots 0..S-1 when the prompt
+      fits, else its last Smax tokens (see the module docstring).
+    - decode: x is [B,1,d]; cache holds k/v [B,Smax,Hkv,D], pos [B] and a
+      ring's kv_pos [B,Smax]; the new k/v are written in place at slot
+      ``pos % Smax`` on a ring, else ``min(pos, Smax-1)``, and pos advances.
     """
     if cross_kv is not None:
         raise _not_ported("cross attention (encoder-decoder)")
@@ -148,11 +158,7 @@ def gqa_forward(cfg, p, x, *, positions=None, cache=None, decode=False, cross_kv
         q, k, v = _project_qkv(cfg, p, x, positions)
         new_cache = None
         if cache is not None:
-            Smax = cache["k"].shape[1]
-            if Smax < S:
-                raise _not_ported("prefill into a cache shorter than the prompt")
-            cache["k"][:, :S] = k.to(cache["k"].dtype)
-            cache["v"][:, :S] = v.to(cache["v"].dtype)
+            _prefill_cache(cache, k, v, positions)
             new_cache = cache
         out = ops.flash_attention(q, k, v, causal=cfg.causal, window=cfg.sliding_window)
         return _out_proj(out, p["wo"]), new_cache
@@ -161,29 +167,58 @@ def gqa_forward(cfg, p, x, *, positions=None, cache=None, decode=False, cross_kv
     pos = cache["pos"]  # [B] absolute position of this query token
     q, k, v = _project_qkv(cfg, p, x, positions=pos[:, None])
     Smax = cache["k"].shape[1]
-    slot = torch.clamp(pos, max=Smax - 1).long()
+    ring = bool(cfg.sliding_window) and Smax <= cfg.sliding_window
+    slot = (pos % Smax if ring else torch.clamp(pos, max=Smax - 1)).long()
     rows = torch.arange(B, device=x.device)
     cache["k"][rows, slot] = k[:, 0].to(cache["k"].dtype)
     cache["v"][rows, slot] = v[:, 0].to(cache["v"].dtype)
-    out = decode_attention(q, cache["k"], cache["v"], pos=pos, window=cfg.sliding_window)
+    kv_pos = cache.get("kv_pos")
+    if kv_pos is not None:
+        kv_pos[rows, slot] = pos.to(kv_pos.dtype)
+    out = decode_attention(q, cache["k"], cache["v"], pos=pos, window=cfg.sliding_window,
+                           kv_positions=kv_pos)
     new_cache = dict(cache)
     new_cache["pos"] = pos + 1
     return _out_proj(out, p["wo"]), new_cache
 
 
+def _prefill_cache(cache, k, v, positions):
+    """Write a prompt's k / v (and positions, on a ring) into an empty
+    cache in place."""
+    B, S = k.shape[:2]
+    Smax = cache["k"].shape[1]
+    pw = positions.to(torch.int32).expand(B, S)
+    if S > Smax:
+        # the last Smax tokens; on a ring each at slot p % Smax, which rolls
+        # them by S % Smax (the reference's layout when that is 0)
+        shift = S % Smax if "kv_pos" in cache else 0
+        k, v, pw = (torch.roll(t[:, -Smax:], shift, dims=1) for t in (k, v, pw))
+        S = Smax
+    cache["k"][:, :S] = k.to(cache["k"].dtype)
+    cache["v"][:, :S] = v.to(cache["v"].dtype)
+    if "kv_pos" in cache:
+        cache["kv_pos"][:, :S] = pw
+
+
 def gqa_cache_spec(cfg, batch: int, max_len: int, stacked: int):
-    """{name: (shape, dtype)} of the stacked-by-layer GQA cache."""
-    if cfg.sliding_window:  # the reference's cache is then a ring of min(max_len, window)
-        raise _not_ported("the sliding-window ring cache")
+    """{name: (shape, dtype)} of the stacked-by-layer GQA cache: a ring of
+    ``min(max_len, window)`` slots with ``kv_pos`` for a sliding window."""
     hd = cfg.resolved_head_dim
+    Smax = min(max_len, cfg.sliding_window) if cfg.sliding_window else max_len
     dt = dtype_of(cfg.dtype)
-    return {
-        "k": ((stacked, batch, max_len, cfg.n_kv_heads, hd), dt),
-        "v": ((stacked, batch, max_len, cfg.n_kv_heads, hd), dt),
+    spec = {
+        "k": ((stacked, batch, Smax, cfg.n_kv_heads, hd), dt),
+        "v": ((stacked, batch, Smax, cfg.n_kv_heads, hd), dt),
         "pos": ((stacked, batch), torch.int32),
     }
+    if cfg.sliding_window and Smax <= cfg.sliding_window:
+        spec["kv_pos"] = ((stacked, batch, Smax), torch.int32)
+    return spec
 
 
 def gqa_cache_init(cfg, batch: int, max_len: int, stacked: int, device=None):
     spec = gqa_cache_spec(cfg, batch, max_len, stacked)
-    return {k: torch.zeros(shape, dtype=dt, device=device) for k, (shape, dt) in spec.items()}
+    out = {k: torch.zeros(shape, dtype=dt, device=device) for k, (shape, dt) in spec.items()}
+    if "kv_pos" in out:
+        out["kv_pos"].fill_(-1)  # -1 = empty slot
+    return out

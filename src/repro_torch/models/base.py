@@ -27,6 +27,7 @@ import torch.nn.functional as F
 Axes = Tuple[Optional[str], ...]
 
 DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
+WHOLE_DRAW_MAX = 2**31  # elements of a leaf drawn in one call (see Ctx._scaled_randn)
 
 
 def dtype_of(name: str) -> torch.dtype:
@@ -47,6 +48,18 @@ class Ctx:
         return torch.randn(shape, generator=self.generator, device=self.device,
                            dtype=torch.float32)
 
+    def _scaled_randn(self, shape, s: float, dtype):
+        """``randn * s`` cast to ``dtype``. A leaf of more than
+        ``WHOLE_DRAW_MAX`` elements is drawn one leading slice at a time into
+        its output, so that its f32 draws never stand beside it whole (two
+        f32 copies of Mixtral's stacked experts at 16 layers are 60 GB)."""
+        if math.prod(shape) <= WHOLE_DRAW_MAX or len(shape) < 2:
+            return (self._randn(shape) * s).to(dtype)
+        out = torch.empty(shape, dtype=dtype, device=self.device)
+        for i in range(shape[0]):
+            out[i] = self._randn(shape[1:]) * s
+        return out
+
     def param(
         self,
         shape: Sequence[int],
@@ -64,14 +77,14 @@ class Ctx:
             return torch.ones(shape, dtype=dtype, device=self.device)
         if init == "normal":
             s = 0.02 if scale is None else scale
-            return (self._randn(shape) * s).to(dtype)
+            return self._scaled_randn(shape, s, dtype)
         if init == "fan_in":
             # fan_in = product of all dims except the last (stacked-layer dim
             # excluded by convention when axes[0] == "layers").
             dims = shape[1:] if axes and axes[0] == "layers" else shape
             fan_in = math.prod(dims[:-1]) if len(dims) > 1 else dims[0]
             s = (scale if scale is not None else 1.0) / max(math.sqrt(fan_in), 1.0)
-            return (self._randn(shape) * s).to(dtype)
+            return self._scaled_randn(shape, s, dtype)
         if init == "uniform":
             s = 1.0 if scale is None else scale
             u = torch.rand(shape, generator=self.generator, device=self.device,

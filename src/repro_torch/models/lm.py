@@ -1,19 +1,29 @@
-"""Decoder-LM assembly for training and serving (the port of the dense
+"""Decoder-LM assembly for training and serving (the port of the GQA
 part of ``repro/models/lm.py``).
 
 The layer stack is organized as *segments*, runs of structurally identical
 blocks whose params are stacked on a leading layer axis, as in the
 reference; the port runs a segment as a Python loop over layers and takes
 each stacked leaf apart with one ``unbind`` (whose backward stacks the
-layers' gradients once). Only the dense GQA block is ported, with RMSNorm
-or LayerNorm and a SwiGLU or GELU MLP: MoE, MLA, RWKV and the vision stub
-raise (ROADMAP Queue 1, item 15).
+layers' gradients once). The GQA blocks are ported, full or sliding-window,
+with RMSNorm or LayerNorm and a SwiGLU or GELU MLP or a mixture of experts
+(after ``first_k_dense`` dense blocks of ``dense_d_ff``); each block
+returns its router's load-balance loss, summed over the layers, and
+``lm_loss`` adds ``router_aux_weight * aux / n_layers``. MLA, RWKV and the
+vision stub raise (ROADMAP Queue 1, item 15).
 
-Training differentiates ``lm_loss`` with autograd. With ``cfg.remat`` other
-than "none" each block runs under ``torch.utils.checkpoint`` (the
-reference's ``jax.checkpoint`` per block): its activations are recomputed
-in the backward pass, so the flash-attention and SwiGLU kernels launch
-twice per layer and step. Values are unchanged.
+Training differentiates ``lm_loss`` with autograd. ``cfg.remat`` is the
+reference's ``_remat`` per block, through ``torch.utils.checkpoint``:
+"none" keeps every activation; "full" saves nothing, so the block's forward
+runs again in the backward pass; "block" (the default) saves what
+``dots_with_no_batch_dims_saveable`` saves, the outputs of the products
+without a batch dimension: here the 2-D ``aten.mm``s (the q / k / v / o
+projections, the router, the MoE's one-hot dispatch and combine) and the
+SwiGLU kernel's output (its three products are such dots in the
+reference's ``mlp_forward``). The attention core, the experts' batched
+products and the norms are recomputed, so under "block" the flash kernel
+launches twice per layer and step and the SwiGLU kernel once; under
+"full" both twice. Values are the same at every setting.
 
 Caches are updated IN PLACE: ``lm_prefill`` and ``lm_decode_step`` return
 the cache they were given (or built), written through, where the
@@ -24,8 +34,10 @@ from __future__ import annotations
 
 from typing import Any, Dict, List, Tuple
 
+import functools
+
 import torch
-from torch.utils.checkpoint import checkpoint
+from torch.utils.checkpoint import CheckpointPolicy, checkpoint, create_selective_checkpoint_contexts
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models import attention as attn
@@ -47,33 +59,62 @@ def segments(cfg: ModelConfig) -> List[Tuple[str, int]]:
     """Return [(block_kind, count), ...] covering cfg.n_layers."""
     if cfg.ssm is not None:
         raise _not_ported(f"the {cfg.ssm.kind} block")
-    if cfg.moe is not None and cfg.moe.num_experts > 0:
-        raise _not_ported("mixture of experts")
     if cfg.attn_kind != "gqa":
         raise _not_ported(f"attention kind '{cfg.attn_kind}'")
     if cfg.frontend != "none":
         raise _not_ported(f"the '{cfg.frontend}' frontend")
+    if cfg.moe is not None and cfg.moe.num_experts > 0:
+        k = cfg.moe.first_k_dense
+        return ([("dense", k)] if k else []) + [("moe", cfg.n_layers - k)]
     return [("dense", cfg.n_layers)]
 
 
 def _block_params(ctx: Ctx, cfg: ModelConfig, kind: str, count: int):
-    return {
+    p = {
         "ln1": norm_params(ctx, cfg, cfg.d_model, stacked=count),
         "ln2": norm_params(ctx, cfg, cfg.d_model, stacked=count),
         "attn": attn.gqa_params(ctx, cfg, stacked=count),
-        "mlp": mlp_mod.mlp_params(ctx, cfg, d_ff=cfg.d_ff, stacked=count),
     }
+    if kind == "moe":
+        p["mlp"] = mlp_mod.moe_params(ctx, cfg, stacked=count)
+    else:
+        d_ff = cfg.d_ff
+        if cfg.moe is not None and cfg.moe.dense_d_ff:
+            d_ff = cfg.moe.dense_d_ff
+        p["mlp"] = mlp_mod.mlp_params(ctx, cfg, d_ff=d_ff, stacked=count)
+    return p
 
 
 def _block_apply(cfg, kind, p, x, cache, *, decode, positions):
-    """One dense block. Returns (x, new_cache)."""
+    """One block. Returns (x, new_cache, aux); aux is None for a dense
+    block (the reference's 0)."""
     h = apply_norm(cfg, x, p["ln1"])
     y, new_cache = attn.gqa_forward(cfg, p["attn"], h, positions=positions, cache=cache,
                                     decode=decode)
     x = x + y
     h = apply_norm(cfg, x, p["ln2"])
-    x = x + mlp_mod.mlp_forward(cfg, p["mlp"], h)
-    return x, new_cache
+    aux = None
+    if kind == "moe":
+        y, aux = mlp_mod.moe_forward(cfg, p["mlp"], h)
+    else:
+        y = mlp_mod.mlp_forward(cfg, p["mlp"], h)
+    return x + y, new_cache, aux
+
+
+def _saved_under_block(ctx, op, *args, **kwargs):
+    """The selective-checkpoint policy of ``remat="block"``: keep the
+    outputs of the products without a batch dimension (see the module
+    docstring), recompute the rest."""
+    if op in (torch.ops.aten.mm.default, torch.ops.repro_torch.swiglu.default):
+        return CheckpointPolicy.MUST_SAVE
+    return CheckpointPolicy.PREFER_RECOMPUTE
+
+
+def _remat_kwargs(cfg):
+    if cfg.remat == "full":
+        return {}
+    return {"context_fn": functools.partial(create_selective_checkpoint_contexts,
+                                            _saved_under_block)}
 
 
 def _index(tree, i):
@@ -83,29 +124,35 @@ def _index(tree, i):
 
 
 def _run_segment(cfg, kind, params, x, caches, *, decode, positions):
-    """Run one segment layer by layer. ``caches`` (stacked by layer, or
-    None) is written in place: each layer's view is filled by the block,
-    and a leaf the block replaces (decode's ``pos``) is copied back.
+    """Run one segment layer by layer; returns (x, caches, aux summed over
+    its layers, None for a dense segment). ``caches`` (stacked by layer,
+    or None) is written in place: each layer's view is filled by the
+    block, and a leaf the block replaces (decode's ``pos``) is copied back.
     Without caches, under autograd and ``cfg.remat != "none"``, each block
-    is checkpointed."""
+    is checkpointed (see the module docstring)."""
     layers = tree_unstack(params)
     remat = caches is None and cfg.remat != "none" and torch.is_grad_enabled()
+    aux_total = None
     for i, layer_p in enumerate(layers):
         if remat:
-            x = checkpoint(_block_train, cfg, kind, layer_p, x, positions, use_reentrant=False)
-            continue
-        layer_cache = _index(caches, i) if caches is not None else None
-        x, new_cache = _block_apply(cfg, kind, layer_p, x, layer_cache,
-                                    decode=decode, positions=positions)
-        if caches is not None:
-            for key, val in new_cache.items():
-                if val is not layer_cache[key]:
-                    caches[key][i] = val
-    return x, caches
+            x, aux = checkpoint(_block_train, cfg, kind, layer_p, x, positions,
+                                use_reentrant=False, **_remat_kwargs(cfg))
+        else:
+            layer_cache = _index(caches, i) if caches is not None else None
+            x, new_cache, aux = _block_apply(cfg, kind, layer_p, x, layer_cache,
+                                             decode=decode, positions=positions)
+            if caches is not None:
+                for key, val in new_cache.items():
+                    if val is not layer_cache[key]:
+                        caches[key][i] = val
+        if aux is not None:
+            aux_total = aux if aux_total is None else aux_total + aux
+    return x, caches, aux_total
 
 
 def _block_train(cfg, kind, p, x, positions):
-    return _block_apply(cfg, kind, p, x, None, decode=False, positions=positions)[0]
+    x, _, aux = _block_apply(cfg, kind, p, x, None, decode=False, positions=positions)
+    return x, aux
 
 
 # ---------------------------------------------------------------------------
@@ -135,16 +182,20 @@ def _embed_inputs(cfg, params, batch):
 
 
 def lm_forward(cfg, params, batch, *, caches=None, decode=False):
-    """Returns (hidden [B,S,d], caches); caches are written in place."""
+    """Returns (hidden [B,S,d], caches, aux f32 scalar); caches are written
+    in place."""
     x = _embed_inputs(cfg, params, batch)
     B, S, _ = x.shape
     positions = None if decode else torch.arange(S, device=x.device)[None, :]
+    aux_total = torch.zeros((), dtype=torch.float32, device=x.device)
     for i, (kind, count) in enumerate(segments(cfg)):
         seg_cache = caches.get(f"seg{i}") if caches is not None else None
-        x, _ = _run_segment(cfg, kind, params[f"seg{i}"], x, seg_cache, decode=decode,
-                            positions=positions)
+        x, _, aux = _run_segment(cfg, kind, params[f"seg{i}"], x, seg_cache, decode=decode,
+                                 positions=positions)
+        if aux is not None:
+            aux_total = aux_total + aux
     x = apply_norm(cfg, x, params["final_norm"])
-    return x, caches
+    return x, caches, aux_total
 
 
 def _unembed_weight(cfg, params, dtype):
@@ -216,11 +267,11 @@ def loss_from_hidden(cfg, params, h, batch):
 
 
 def lm_loss(cfg, params, batch):
-    """Full LM training loss (forward + chunked cross entropy). The MoE
-    auxiliary term has no ported family to come from: ``aux`` is 0."""
-    h, _ = lm_forward(cfg, params, batch)
+    """Full LM training loss (forward + chunked cross entropy + MoE aux)."""
+    h, _, aux = lm_forward(cfg, params, batch)
     loss, metrics = loss_from_hidden(cfg, params, h, batch)
-    aux = torch.zeros((), dtype=torch.float32, device=h.device)
+    if cfg.moe is not None and cfg.moe.num_experts:
+        loss = loss + cfg.moe.router_aux_weight * aux / max(cfg.n_layers, 1)
     return loss, dict(metrics, loss=loss, aux=aux)
 
 
@@ -240,7 +291,7 @@ def lm_prefill(cfg, params, batch, max_len: int):
     """Run the prompt, fill caches, return (last_logits [B,V] f32, caches)."""
     B, S = batch["tokens"].shape
     caches = lm_cache(cfg, B, max_len, device=params["embed"].device)
-    h, caches = lm_forward(cfg, params, batch, caches=caches)
+    h, caches, _ = lm_forward(cfg, params, batch, caches=caches)
     for c in caches.values():
         c["pos"].fill_(S)
     logits = unembed(cfg, params, h[:, -1:])[:, 0]
@@ -249,6 +300,6 @@ def lm_prefill(cfg, params, batch, max_len: int):
 
 def lm_decode_step(cfg, params, caches, tokens):
     """tokens [B,1] -> (logits [B,V] f32, caches updated in place)."""
-    h, caches = lm_forward(cfg, params, {"tokens": tokens}, caches=caches, decode=True)
+    h, caches, _ = lm_forward(cfg, params, {"tokens": tokens}, caches=caches, decode=True)
     logits = unembed(cfg, params, h)[:, 0]
     return logits, caches

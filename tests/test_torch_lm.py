@@ -24,7 +24,7 @@ from repro.models import base as r_base
 from repro.models import mlp as r_mlp
 from repro.models.base import Ctx as RCtx
 from repro_torch import configs as p_configs
-from repro_torch.configs import MoEConfig
+from repro_torch.configs import SSMConfig
 from repro_torch.convert import params_from_numpy, params_to_numpy
 from repro_torch.models import Model
 from repro_torch.models import attention as p_attn
@@ -79,7 +79,8 @@ def test_config_is_the_reference_config():
     assert full.padded_vocab == 152_064 and full.resolved_head_dim == 128
 
 
-@pytest.mark.parametrize("arch", ["mixtral-8x7b", "deepseek-v2-236b", "zamba2-7b", "whisper-base"])
+@pytest.mark.parametrize("arch", ["rwkv6-1.6b", "phi-3-vision-4.2b", "deepseek-v2-236b",
+                                  "zamba2-7b", "whisper-base"])
 def test_unported_archs_raise(arch):
     with pytest.raises(NotImplementedError, match="item 15"):
         p_configs.get_config(arch)
@@ -89,9 +90,9 @@ def test_unported_archs_raise(arch):
 
 @pytest.mark.parametrize(
     "change",
-    [dict(moe=MoEConfig(num_experts=4, expert_d_ff=64)), dict(attn_kind="mla"),
-     dict(enc_dec=True), dict(sliding_window=16), dict(frontend="vision_stub")],
-    ids=["moe", "mla", "encdec", "ring_cache", "vision"],
+    [dict(ssm=SSMConfig(kind="rwkv6", head_dim=32, chunk_len=16)), dict(attn_kind="mla"),
+     dict(enc_dec=True), dict(frontend="vision_stub")],
+    ids=["rwkv", "mla", "encdec", "vision"],
 )
 def test_unported_families_raise(change):
     cfg = p_configs.get_reduced("qwen3-8b").replace(**change)
@@ -179,14 +180,22 @@ def test_gqa_forward_prefill_and_decode_match_with_cache():
 
 
 def test_gqa_forward_refuses_a_cache_shorter_than_the_prompt():
-    _, pcfg = _cfgs()
-    p = Model(pcfg).init(torch.Generator().manual_seed(0))
-    cache = p_lm._index(p_attn.gqa_cache_init(pcfg, 1, 4, 1), 0)
+    """(The name is kept from when the port refused such a cache.) A dense
+    cache shorter than the prompt keeps the prompt's last Smax tokens at
+    slots 0..Smax-1, as the reference's does; cross attention still
+    raises."""
+    rcfg, pcfg = _cfgs()
+    rp, pp = _carried()
+    r_layer, p_layer = _layer(rp["seg0"]["attn"], 0), p_lm._index(pp["seg0"]["attn"], 0)
+    x = _x((2, 8, pcfg.d_model), seed=10)
+    rc = _layer(r_attn.gqa_cache_init(rcfg, 2, 4, 1), 0)
+    pc = p_lm._index(p_attn.gqa_cache_init(pcfg, 2, 4, 1), 0)
+    r_out, rc = r_attn.gqa_forward(rcfg, r_layer, jnp.asarray(x), cache=rc)
+    p_out, pc = p_attn.gqa_forward(pcfg, p_layer, torch.from_numpy(x), cache=pc)
+    assert max_abs_diff(r_out, p_out) < F32_TOL
+    assert max_abs_diff({k: rc[k] for k in ("k", "v")}, {k: pc[k] for k in ("k", "v")}) < F32_TOL
     with pytest.raises(NotImplementedError, match="item 15"):
-        p_attn.gqa_forward(pcfg, p_lm._index(p["seg0"]["attn"], 0),
-                           torch.zeros(1, 8, pcfg.d_model), cache=cache)
-    with pytest.raises(NotImplementedError, match="item 15"):
-        p_attn.gqa_forward(pcfg, p_lm._index(p["seg0"]["attn"], 0), torch.zeros(1, 8, pcfg.d_model),
+        p_attn.gqa_forward(pcfg, p_layer, torch.zeros(1, 8, pcfg.d_model),
                            cross_kv=(torch.zeros(1), torch.zeros(1)))
 
 

@@ -1,6 +1,6 @@
 """Port parity for LM training on the CPU: the dense configs, LayerNorm,
 the loss and its gradients, the flash-attention and SwiGLU autograd
-Functions, AdamW / Adafactor, the schedules and the token stream, held
+ops, AdamW / Adafactor, the schedules and the token stream, held
 against ``repro`` on seeded numpy inputs at the reduced configs in f32.
 The reference's params are carried across by ``repro_torch.convert``.
 
@@ -224,7 +224,7 @@ def test_swiglu_backward_matches_jax_grad(M, d, F):
 
 
 def test_autograd_functions_launch_nothing_on_the_cpu():
-    """On CPU tensors the Functions run the plain versions forward and the
+    """On CPU tensors the autograd ops run the plain versions forward and the
     plain backward: no kernel launch and no counted backward pass."""
     from repro_torch.kernels import flash_attention as fa
     from repro_torch.kernels import swiglu as sw

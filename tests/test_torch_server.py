@@ -67,11 +67,12 @@ def test_rec3_min_fit_under_90pct_failure_on_the_port():
     "build,item",
     [
         (lambda: p_configs.get_reduced("deepseek-v2-236b"), 15),
-        (lambda: p_configs.get_config("mixtral-8x7b"), 15),
+        (lambda: p_configs.get_config("rwkv6-1.6b"), 15),
+        (lambda: p_configs.get_reduced("phi-3-vision-4.2b"), 15),
         (lambda: p_train.train("qwen3-8b", steps=1, mesh_kind="prod", device="cpu"), 16),
         (lambda: p_steps.build_outer_sync(p_configs.get_reduced("qwen3-8b"), None, None), 16),
     ],
-    ids=["deepseek-v2-236b", "mixtral-8x7b", "train-prod-mesh", "outer-sync"],
+    ids=["deepseek-v2-236b", "rwkv6-1.6b", "phi-3-vision-4.2b", "train-prod-mesh", "outer-sync"],
 )
 def test_configs_outside_the_slice_raise(build, item):
     with pytest.raises(NotImplementedError, match=rf"ROADMAP Queue 1, item {item}\)"):
