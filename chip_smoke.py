@@ -9,8 +9,8 @@ Run from the repository root. Phases, each printing one JSON line:
              defaults: the port's CNN task turns TF32 off in its own scope);
 2. build     every ``src/repro_torch/kernels/csrc/*.cu``, one nvcc each, in
              parallel, into ``build/repro_torch/``; registers, shared memory
-             and spill bytes of the bf16 flash_attention and swiglu kernels,
-             which must not spill;
+             and spill bytes of the bf16 flash_attention (each of its 14
+             (D, Dv) instances) and swiglu kernels, which must not spill;
 3. kernel    fedavg_reduce against its plain PyTorch version on the card, at
              the reference test shapes and as the main path calls it (one
              grouped launch over the CNN's 8 leaves), with device time,
@@ -138,7 +138,12 @@ Run from the repository root. Phases, each printing one JSON line:
              sides of the GQA packing boundary (G * Sq = 64, 65), the
              serving shape (B = 4, S = 16, 32 / 8 heads, D = 128), one
              S = 4096 prefill, Mixtral's windowed prefill (S = 5,016,
-             window 4,096; SDPA with a boolean mask beside it), and swiglu
+             window 4,096; SDPA with a boolean mask beside it), MLA's
+             prefill at D 192 / Dv 128 (B = 4 x S = 16 and B = 1 x S =
+             4,096, 128 heads) and Phi-3-vision's at D 96 (B = 4 x S = 272,
+             32 heads) in f32 and bf16, timed, with the custom op's backward
+             at mla_train's shape (B = 2 x S = 256) and Phi-3-vision's
+             against autograd through the plain version, and swiglu
              at Qwen3-8B's widths for
              M = 1, 4, 7, 44, 56, 64, with the same timing fields as
              ``kernel`` and one PyTorch call's time; the share of the bf16
@@ -207,8 +212,35 @@ Run from the repository root. Phases, each printing one JSON line:
              kernel and through the plain version (loss 1e-3, gradient norm
              2e-3; the kernel zeroed must fail), then ``train()`` for 3
              steps: losses finite, aux > 0, s/step, tokens/s, peak memory,
-             launches per step; then ``lm_phases``, the seconds of phases
-             23-30 against their budget.
+             launches per step;
+31. mla_serving
+             ``Server("deepseek-v2-236b", reduced=False, n_layers=6)``: full
+             width (d 5,120, 128 heads, MLA, 160 experts of d_ff 1,536,
+             top-6, 2 shared, capacity 1.25), layer 0 dense and 5 MoE layers
+             (21.25 B params, 42.49 GB); serve.py:main's 8 requests:
+             flash_attention 6 a prefill and 0 a decode step (the absorbed
+             decode is plain torch), swiglu 1 each; prefill ms, decode ms
+             per step, tokens/s, peak, the tokens dropped per call; then
+             the same params at capacity 27 (drop-free), B = 1: a 512-token
+             prompt and 8 teacher-forced decode steps, each within 3e-2 of
+             max |logit| of one forward over all 520 tokens;
+32. mla_train
+             DeepSeek-V2 at full width, layer 0 and one MoE layer (5.36 B),
+             Adafactor, 2 x 256 tokens: loss, gradient norm and the six MLA
+             weights' gradient norms through the kernels against the plain
+             versions (``TRAIN_RTOL``; each kernel zeroed must fail), then
+             ``train()`` for 3 steps: s/step, tokens/s, peak, launches;
+33. vlm_serving
+             Phi-3-vision whole (32 layers, 3.83 B), B = 4: 256 random patch
+             embeddings before serve.py:main's first 4 prompts, 12 greedy
+             decode steps in bf16 (timed) and in f32, each step against one
+             forward over the patches, the prompt and the decoded tokens:
+             within 1e-4 of max |logit| in f32 (the cache position after
+             patches, C6); the bf16 gap read at 2, 8, 16 and 32 layers;
+             flash_attention at D 96 32 a prefill, swiglu 32 a prefill and
+             a step; then
+             ``lm_phases``, the seconds of phases 23-33 against their
+             budget.
 
 Then the kernels line, the card's name and power limit as nvidia-smi gives
 them, and the final ``{"ok": true, ...}`` line. A failed phase raises: the
@@ -1796,11 +1828,13 @@ def attention_pairs(Sq: int, Skv: int, causal: bool, window: int) -> int:
     return n
 
 
-def flash_work(B, Sq, Skv, Hq, Hkv, D, itemsize, causal=True, window=0) -> tuple:
-    """(bytes, flops): q, k, v read once and the output written once; a
-    multiply-add for q.k and for p.v per unmasked pair and head dim."""
-    bytes_moved = (2 * B * Hq * Sq * D + 2 * B * Hkv * Skv * D) * itemsize
-    return bytes_moved, 4 * D * B * Hq * attention_pairs(Sq, Skv, causal, window)
+def flash_work(B, Sq, Skv, Hq, Hkv, D, itemsize, causal=True, window=0, Dv=None) -> tuple:
+    """(bytes, flops): q, k (head dim D), v (Dv, D by default) read once and
+    the output (Dv) written once; a multiply-add per unmasked pair for each
+    of q.k's D and p.v's Dv."""
+    Dv = D if Dv is None else Dv
+    bytes_moved = (B * Hq * Sq * (D + Dv) + B * Hkv * Skv * (D + Dv)) * itemsize
+    return bytes_moved, 2 * (D + Dv) * B * Hq * attention_pairs(Sq, Skv, causal, window)
 
 
 def swiglu_work(M, d, F, itemsize) -> tuple:
@@ -1812,12 +1846,21 @@ def swiglu_work(M, d, F, itemsize) -> tuple:
 # the redesigned bf16 kernels (flash_attention: wgmma + TMA; swiglu: cp.async
 # ring + mma.sync, and its cast launch), held to zero spills at build time
 NEW_KERNELS = ("flash_kernel_wgmma", "swiglu_kernel_mma", "swiglu_cast_kernel")
+# every (D, Dv) flash_attention takes (csrc/flash_attention.cu's FLASH_PAIRS)
+FLASH_HEAD_PAIRS = ((32, 32), (64, 32), (64, 64), (96, 32), (96, 64), (96, 96), (128, 32),
+                    (128, 64), (128, 96), (128, 128), (192, 32), (192, 64), (192, 96), (192, 128))
+# MLA's prefill heads (DeepSeek-V2: 128 heads, q/k 128 + 64 rope, v 128) and
+# Phi-3-vision's (32 heads of 96; 256 patches before a 16-token prompt)
+MLA_HEADS, MLA_D, MLA_DV = 128, 192, 128
+VLM_HEADS, VLM_D, VLM_PATCHES = 32, 96, 256
+VLM_PREFILL_S = VLM_PATCHES + 16
 KNOWN_ENTRIES = NEW_KERNELS + ("flash_kernel_simt", "swiglu_kernel_simt")
 
 
 def ptxas_entries(report: str) -> list:
     """Registers, static shared memory and spill bytes of each entry function
-    in an ``nvcc -Xptxas -v`` report, by kernel name (and template D)."""
+    in an ``nvcc -Xptxas -v`` report, by kernel name (and template arguments:
+    flash's D and Dv)."""
     import re
 
     entries, cur = [], None
@@ -1826,8 +1869,9 @@ def ptxas_entries(report: str) -> list:
         if m:
             mangled = m.group(1)
             kernel = next((k for k in KNOWN_ENTRIES if k in mangled), mangled)
-            d = re.search(re.escape(kernel) + r"ILi(\d+)E", mangled)
-            cur = {"entry": kernel + (f"<{d.group(1)}>" if d else ""), "kernel": kernel}
+            t = re.search(re.escape(kernel) + r"I((?:Li\d+E)+)E", mangled)
+            args = ",".join(re.findall(r"Li(\d+)E", t.group(1))) if t else ""
+            cur = {"entry": kernel + (f"<{args}>" if args else ""), "kernel": kernel}
             entries.append(cur)
             continue
         if cur is None:
@@ -1848,7 +1892,7 @@ def redesigned_smem() -> dict:
     from repro_torch.kernels.build import load_library
 
     fa = load_library("flash_attention").flash_attention_bf16_smem_bytes
-    return {**{f"flash_kernel_wgmma<{D}>": fa(D) for D in (32, 64, 128)},
+    return {**{f"flash_kernel_wgmma<{D},{Dv}>": fa(D, Dv) for D, Dv in FLASH_HEAD_PAIRS},
             "swiglu_kernel_mma": load_library("swiglu").swiglu_bf16_smem_bytes()}
 
 
@@ -1904,6 +1948,63 @@ def _timings(torch, kernel, plain, library, work, dtype, *, iters=100, reps=7):
     }
 
 
+# the attention backward at MLA's training shape (mla_train: B = 2 x S =
+# 256, 128 heads, D 192 / Dv 128) and Phi-3-vision's prefill (D 96):
+# (B, S, Hq, Hkv, D, Dv)
+HEAD_DIM_BACKWARD = (("mla_train", (2, 256, MLA_HEADS, MLA_HEADS, MLA_D, MLA_DV)),
+                     ("vlm_prefill", (4, VLM_PREFILL_S, VLM_HEADS, VLM_HEADS, VLM_D, VLM_D)))
+
+
+def head_dim_backward(torch, gen) -> dict:
+    """flash_attention's custom op at the new head dims, f32 and bf16: the
+    output and every input gradient against autograd through the plain
+    version, relative to its max |value| (``GRAD_RTOL``); bf16 forward and
+    backward timed beside the bound, the plain version and SDPA's."""
+    import torch.nn.functional as F
+
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels.ref import flash_attention_ref
+
+    out = {}
+    for group, (B, S, Hq, Hkv, D, Dv) in HEAD_DIM_BACKWARD:
+        for dt in (torch.float32, torch.bfloat16):
+            name = str(dt).removeprefix("torch.")
+            q = torch.randn(B * Hq, S, D, generator=gen, device="cuda").to(dt)
+            k = torch.randn(B * Hkv, S, D, generator=gen, device="cuda").to(dt)
+            v = torch.randn(B * Hkv, S, Dv, generator=gen, device="cuda").to(dt)
+            gaps = grad_gaps(torch, fa.flash_attention_grad, flash_attention_ref, [q, k, v], 3)
+            check(max(gaps) < GRAD_RTOL[name],
+                  f"lm_kernels backward {group} {name}: rel errs {gaps} >= {GRAD_RTOL[name]}")
+            row = {"kernel": "flash_attention", "group": f"{group}_backward",
+                   "shape": [B, S, S, Hq, Hkv, D, Dv], "dtype": name,
+                   "rel_err": dict(zip(("out", "dq", "dk", "dv"), gaps)), "rtol": GRAD_RTOL[name]}
+            if dt == torch.bfloat16:
+                o = fa.flash_attention_bhsd(q, k, v)
+                dout = torch.randn(o.shape, generator=gen, device="cuda").to(dt)
+                qs, ks, vs = (t.detach().requires_grad_(True) for t in (q, k, v))
+                ref_out = flash_attention_ref(qs, ks, vs)
+                lib_out = F.scaled_dot_product_attention(
+                    qs.view(B, Hq, S, D), ks.view(B, Hkv, S, D), vs.view(B, Hkv, S, Dv),
+                    is_causal=True, enable_gqa=True)
+                row["forward"] = _timings(
+                    torch, lambda: fa.flash_attention_bhsd(q, k, v),
+                    lambda: flash_attention_ref(q, k, v),
+                    lambda: F.scaled_dot_product_attention(
+                        q.view(B, Hq, S, D), k.view(B, Hkv, S, D), v.view(B, Hkv, S, Dv),
+                        is_causal=True, enable_gqa=True),
+                    flash_work(B, S, S, Hq, Hkv, D, 2, Dv=Dv), dt, iters=20, reps=5)
+                row["backward"] = _timings(
+                    torch, lambda: fa._flash_backward(q, k, v, o, dout, True, 0, D ** -0.5),
+                    lambda: torch.autograd.grad(ref_out, (qs, ks, vs), dout, retain_graph=True),
+                    lambda: torch.autograd.grad(lib_out, (qs, ks, vs), dout.view(B, Hq, S, Dv),
+                                                retain_graph=True),
+                    flash_backward_work(B, S, Hq, Hkv, D, 2, Dv=Dv), dt, iters=10, reps=5)
+                out[group] = row
+            emit("lm_kernels", **row)
+    torch.cuda.empty_cache()
+    return out
+
+
 def phase_lm_kernels(torch):
     """flash_attention and swiglu against their plain versions on the card;
     timed at the serving shapes, the S = 4096 prefill and full width."""
@@ -1933,15 +2034,26 @@ def phase_lm_kernels(torch):
                     # Mixtral's windowed prefill: moe_long_prompt's 5,016 tokens
                     ((1, MIXTRAL_LONG_S, MIXTRAL_LONG_S, 32, 8, 128), bf16, MIXTRAL_WINDOW,
                      "window_prefill")]
+    # MLA's prefill at D 192 / Dv 128 (serve.py:main's batch, then one long
+    # causal prompt) and Phi-3-vision's at D 96: (B, Sq, Skv, Hq, Hkv, D, Dv)
+    head_dim_cases = [((4, 16, 16, MLA_HEADS, MLA_HEADS, MLA_D, MLA_DV), "mla_prefill"),
+                      ((1, 4096, 4096, MLA_HEADS, MLA_HEADS, MLA_D, MLA_DV), "mla_long_prefill"),
+                      ((4, VLM_PREFILL_S, VLM_PREFILL_S, VLM_HEADS, VLM_HEADS, VLM_D, VLM_D),
+                       "vlm_prefill")]
+    flash_cases += [(shape, dt, 0, group) for shape, group in head_dim_cases for dt in (f32, bf16)]
+    timed_groups = ("serving", "long_prefill", "window_prefill", "mla_prefill",
+                    "mla_long_prefill", "vlm_prefill")
     tol = {f32: 2e-5, bf16: 5e-2}
     # per query row, relative to that row's max |plain|: a late row of the
     # S = 4096 prefill averages ~1,500 keys and is only ~0.02 in size, below
     # the absolute bf16 tolerance; bf16 rounds each output once (2**-8)
     row_tol = {f32: 1e-3, bf16: 1e-2}
-    for (B, Sq, Skv, Hq, Hkv, D), dt, window, group in flash_cases:
+    for shape, dt, window, group in flash_cases:
+        B, Sq, Skv, Hq, Hkv, D, *rest = shape
+        Dv = rest[0] if rest else D
         q = torch.randn(B * Hq, Sq, D, generator=gen, device=dev).to(dt)
         k = torch.randn(B * Hkv, Skv, D, generator=gen, device=dev).to(dt)
-        v = torch.randn(B * Hkv, Skv, D, generator=gen, device=dev).to(dt)
+        v = torch.randn(B * Hkv, Skv, Dv, generator=gen, device=dev).to(dt)
         kernel = lambda: fa.flash_attention_bhsd(q, k, v, causal=True, window=window)
         plain = lambda: flash_attention_ref(q, k, v, causal=True, window=window)
         got, want = kernel(), plain()
@@ -1950,19 +2062,19 @@ def phase_lm_kernels(torch):
         scale = float(torch.max(torch.abs(want.float())))
         row_err = float(torch.max(torch.amax(torch.abs(got.float() - want.float()), -1)
                                   / torch.amax(torch.abs(want.float()), -1).clamp_min(1e-30)))
-        check(got.dtype == dt and got.shape == q.shape, f"flash_attention {group} output")
-        check(err < tol[dt], f"flash_attention {(B, Sq, Skv, Hq, Hkv, D)} {dt} w={window}: "
+        check(got.dtype == dt and got.shape == (B * Hq, Sq, Dv), f"flash_attention {group} output")
+        check(err < tol[dt], f"flash_attention {shape} {dt} w={window}: "
                              f"max err {err} >= {tol[dt]}")
-        check(row_err < row_tol[dt], f"flash_attention {(B, Sq, Skv, Hq, Hkv, D)} {dt} "
+        check(row_err < row_tol[dt], f"flash_attention {shape} {dt} "
                                      f"w={window}: row-relative err {row_err} >= {row_tol[dt]}")
         acc = out["flash_attention"]
         acc["max_abs_err"] = max(acc["max_abs_err"], err)
         acc["max_rel_err"] = max(acc["max_rel_err"], err / max(scale, 1e-30))
         acc["max_row_rel_err"] = max(acc["max_row_rel_err"], row_err)
-        row = {"kernel": "flash_attention", "shape": [B, Sq, Skv, Hq, Hkv, D], "dtype": name[dt],
+        row = {"kernel": "flash_attention", "shape": list(shape), "dtype": name[dt],
                "window": window, "group": group, "max_abs_err": err, "max_abs_ref": scale,
                "max_row_rel_err": row_err, "row_rtol": row_tol[dt]}
-        if group in ("serving", "long_prefill", "window_prefill"):
+        if group in timed_groups:
             if window:  # SDPA takes a window as a boolean mask (True: attend)
                 i = torch.arange(Sq, device=dev)[:, None]
                 j = torch.arange(Skv, device=dev)[None, :]
@@ -1970,15 +2082,17 @@ def phase_lm_kernels(torch):
             else:
                 sdpa_kw = {"is_causal": True}
             library = lambda: F.scaled_dot_product_attention(
-                q.view(B, Hq, Sq, D), k.view(B, Hkv, Skv, D), v.view(B, Hkv, Skv, D),
+                q.view(B, Hq, Sq, D), k.view(B, Hkv, Skv, D), v.view(B, Hkv, Skv, Dv),
                 enable_gqa=True, **sdpa_kw)
-            n = 100 if group == "serving" else 5
+            n = 100 if Sq <= 16 else 5
             row.update(_timings(torch, kernel, plain, library,
                                 flash_work(B, Sq, Skv, Hq, Hkv, D, q.element_size(),
-                                           window=window), dt,
+                                           window=window, Dv=Dv), dt,
                                 iters=n, reps=7 if n == 100 else 3))
-            acc["timed"][group] = row
+            acc["timed"][group if dt == bf16 else f"{group}_f32"] = row
         emit("lm_kernels", **row)
+        del q, k, v, got, want
+    out["flash_attention"]["head_dim_backward"] = head_dim_backward(torch, gen)
 
     swiglu_cases = [((M, d, F_), dt, "reference") for M, d, F_ in (
         (64, 32, 128), (128, 64, 256), (256, 128, 512)) for dt in (f32, bf16)]
@@ -2184,7 +2298,7 @@ def phase_full_width(torch, server):
 # LM training (phases 23-27)
 # --------------------------------------------------------------------------
 
-LM_BUDGET_S = 240.0  # phases 23-30 together
+LM_BUDGET_S = 240.0  # phases 23-33 together
 TRAIN_B, TRAIN_S = 2, 256  # the training batch: 2 sequences of 256 tokens
 # kernel Function vs autograd through the plain version, relative to the
 # largest |value|: f32 sums in another order; bf16 also rounds P (flash) or
@@ -2203,12 +2317,14 @@ RESUME_TOL = 1e-4  # StarCoder2's resumed losses against the uninterrupted run's
 REMAT_TURNS = ("block", "full", "block", "full")  # lm_train_qwen's turns of 3 steps
 
 
-def flash_backward_work(B, S, Hq, Hkv, D, itemsize, window=0) -> tuple:
+def flash_backward_work(B, S, Hq, Hkv, D, itemsize, window=0, Dv=None) -> tuple:
     """(bytes, flops) of the attention backward: q, k, v, out and dO read
-    once, dq, dk, dv written once; per unmasked pair and head dim a
-    multiply-add for each of S = q k^T, dV, dP, dQ and dK."""
-    bytes_moved = (4 * B * Hq * S * D + 4 * B * Hkv * S * D) * itemsize
-    return bytes_moved, 10 * D * B * Hq * attention_pairs(S, S, True, window)
+    once, dq, dk, dv written once; per unmasked pair a multiply-add for each
+    head dim of S = q k^T, dQ and dK (D) and of dV and dP (Dv, D by
+    default)."""
+    Dv = D if Dv is None else Dv
+    bytes_moved = (2 * B * Hq * S * (D + Dv) + 2 * B * Hkv * S * (D + Dv)) * itemsize
+    return bytes_moved, 2 * (3 * D + 2 * Dv) * B * Hq * attention_pairs(S, S, True, window)
 
 
 def swiglu_backward_work(M, d, F, itemsize) -> tuple:
@@ -2383,16 +2499,14 @@ def phase_lm_train_qwen(torch):
     check(launches["flash_attention"] == 2 * L and launches["swiglu"] == L
           and launches["flash_attention_backward"] == launches["swiglu_backward"] == L,
           f"lm_train: one loss+grad launched {launches}")
-    plain = swapped(lambda q, k, v, *, causal, window: flash_attention_ref(
-        q, k, v, causal=causal, window=window), swiglu_ref)
+    plain = swapped(lambda q, k, v, **kw: flash_attention_ref(q, k, v, **kw), swiglu_ref)
     gaps = _train_gaps(kern, plain)
     check(_train_within(gaps), f"lm_train: kernels vs plain gaps {gaps} over {TRAIN_RTOL}")
     # a faulted kernel (its output zeroed) must fail the same check
     flash, swiglu = ops.flash_attention_grad, ops.swiglu_grad
     faulted = {
         "flash_attention": _train_gaps(swapped(
-            lambda q, k, v, *, causal, window: flash(q, k, v, causal=causal, window=window) * 0,
-            swiglu), plain),
+            lambda q, k, v, **kw: flash(q, k, v, **kw) * 0, swiglu), plain),
         "swiglu": _train_gaps(swapped(flash, lambda *a: swiglu(*a) * 0), plain)}
     for name, g in faulted.items():
         check(not _train_within(g), f"lm_train: {name} zeroed passes the check: {g}")
@@ -2730,23 +2844,14 @@ class RouteRecorder:
         return out
 
 
-def phase_moe_serving(torch):
-    """``Server("mixtral-8x7b", reduced=False, n_layers=16)`` on the card:
-    serve.py:main's 8 requests (batch 4, 12 greedy tokens); per prefill
-    flash_attention once per layer, per decode step never; prefill ms,
-    decode ms per step, tokens/s, peak memory and the tokens the published
-    capacity (1.25) drops in each call (a 4-row decode step has C = 1)."""
-    from repro_torch.launch import Server
+def _traced_serving(torch, server, phase, per_prefill, per_decode):
+    """serve.py:main's 8 requests on ``server``, once with the router recorded
+    (tokens dropped per call) and once timed with the launches counted; each
+    prefill must launch (flash_attention, swiglu) ``per_prefill`` times and
+    each decode step ``per_decode``."""
     from repro_torch.launch.serve import example_requests
 
-    t0 = time.perf_counter()
-    server = Server("mixtral-8x7b", reduced=False, n_layers=MIXTRAL_SERVE_LAYERS, device="cuda")
-    torch.cuda.synchronize()
-    init_s = time.perf_counter() - t0
-    cfg, L = server.cfg, server.cfg.n_layers
-    check(cfg.d_model == 4096 and cfg.moe.num_experts == 8 and cfg.moe.expert_d_ff == 14336
-          and cfg.sliding_window == MIXTRAL_WINDOW and cfg.moe.capacity_factor == 1.25,
-          f"moe_serving: config {cfg}")
+    cfg = server.cfg
     prefill, decode = server._prefill, server._decode
     calls = []
 
@@ -2760,15 +2865,13 @@ def phase_moe_serving(torch):
             ms = (time.perf_counter() - t) * 1e3
             after = read_launches()
             check(logits.dtype == torch.float32 and logits.shape == (server.batch, cfg.padded_vocab),
-                  f"moe_serving {kind}: logits {logits.dtype} {tuple(logits.shape)}")
-            check(bool(torch.isfinite(logits).all()), f"moe_serving {kind}: non-finite logits")
+                  f"{phase} {kind}: logits {logits.dtype} {tuple(logits.shape)}")
+            check(bool(torch.isfinite(logits).all()), f"{phase} {kind}: non-finite logits")
             calls.append((kind, ms, after["flash_attention"] - before["flash_attention"],
                           after["swiglu"] - before["swiglu"]))
             return logits, cache
         return call
 
-    # warm-up with the router recorded: the tokens dropped per call (the
-    # timed run serves the same requests with the same greedy tokens)
     drops = {"prefill": [], "decode": []}
     with RouteRecorder(torch, cfg) as rec:
         server._prefill = traced("prefill", _recorded(prefill, rec, drops["prefill"]))
@@ -2778,40 +2881,62 @@ def phase_moe_serving(torch):
     calls.clear()
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
-    done, wall, launches = counted(torch, lambda: server.run(example_requests(cfg.vocab_size)))
+    try:
+        done, wall, launches = counted(torch, lambda: server.run(example_requests(cfg.vocab_size)))
+    finally:
+        server._prefill, server._decode = prefill, decode
     peak = torch.cuda.max_memory_allocated()
     n_tok = sum(len(r.generated) for r in done)
     check(len(done) == 8 and all(len(r.generated) == 12 for r in done),
-          f"moe_serving: generated {[len(r.generated) for r in done]}")
-    check(all(0 <= t < cfg.padded_vocab for r in done for t in r.generated),
-          "moe_serving: token range")
+          f"{phase}: generated {[len(r.generated) for r in done]}")
+    check(all(0 <= t < cfg.padded_vocab for r in done for t in r.generated), f"{phase}: tokens")
+    moe_layers = cfg.n_layers - cfg.moe.first_k_dense
+    check(all(len(d) == moe_layers for d in drops["prefill"] + drops["decode"]),
+          f"{phase}: router calls per step {[len(d) for d in drops['decode']]}")
     pre = [c for c in calls if c[0] == "prefill"]
     dec = [c for c in calls if c[0] == "decode"]
-    check(all(c[2:] == (L, 0) for c in pre), f"moe_serving: per-prefill launches {pre}")
-    check(all(c[2:] == (0, 0) for c in dec), f"moe_serving: per-decode launches {dec}")
-    check(launches["flash_attention"] == L * len(pre) and launches["swiglu"] == 0,
-          f"moe_serving: launches {launches}")
-    check(all(len(d) == L for d in drops["prefill"] + drops["decode"]),
-          f"moe_serving: router calls per step {[len(d) for d in drops['decode']]}")
+    check(all(c[2:] == per_prefill for c in pre), f"{phase}: per-prefill launches {pre}")
+    check(all(c[2:] == per_decode for c in dec), f"{phase}: per-decode launches {dec}")
+    check(launches["flash_attention"] == per_prefill[0] * len(pre)
+          and launches["swiglu"] == per_prefill[1] * len(pre) + per_decode[1] * len(dec),
+          f"{phase}: launches {launches}")
     decode_ms = [c[1] for c in dec]
+    return {"requests": len(done), "tokens": n_tok, "wall_s": wall, "tokens_per_s": n_tok / wall,
+            "prefills": len(pre), "decode_steps": len(dec), "prefill_ms": [c[1] for c in pre],
+            "decode_ms_per_step": statistics.mean(decode_ms),
+            "decode_ms_median": statistics.median(decode_ms), "peak_memory_bytes": peak,
+            "launches": {k: launches[k] for k in ("flash_attention", "swiglu")},
+            "launches_per_prefill": list(per_prefill), "launches_per_decode_step": list(per_decode),
+            "prefill_capacity": [d[0][1] for d in drops["prefill"]],
+            "decode_capacity": drops["decode"][0][0][1],
+            "dropped_per_prefill": [sum(x[2] for x in d) for d in drops["prefill"]],
+            "dropped_per_decode_step": [sum(x[2] for x in d) for d in drops["decode"]],
+            "prompt_lengths": [len(r.prompt) for r in done],
+            "first_tokens": [r.generated[:4] for r in done]}
+
+
+def phase_moe_serving(torch):
+    """``Server("mixtral-8x7b", reduced=False, n_layers=16)`` on the card:
+    serve.py:main's 8 requests (batch 4, 12 greedy tokens); per prefill
+    flash_attention once per layer, per decode step never; prefill ms,
+    decode ms per step, tokens/s, peak memory and the tokens the published
+    capacity (1.25) drops in each call (a 4-row decode step has C = 1)."""
+    from repro_torch.launch import Server
+
+    t0 = time.perf_counter()
+    server = Server("mixtral-8x7b", reduced=False, n_layers=MIXTRAL_SERVE_LAYERS, device="cuda")
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    cfg, L = server.cfg, server.cfg.n_layers
+    check(cfg.d_model == 4096 and cfg.moe.num_experts == 8 and cfg.moe.expert_d_ff == 14336
+          and cfg.sliding_window == MIXTRAL_WINDOW and cfg.moe.capacity_factor == 1.25,
+          f"moe_serving: config {cfg}")
+    served = _traced_serving(torch, server, "moe_serving", (L, 0), (0, 0))
     row = {"arch": cfg.name, "n_layers": L, "published_layers": 32, "d_model": cfg.d_model,
            "params": cfg.param_count(), "active_params": cfg.param_count(active_only=True),
-           "init_s": init_s, "requests": len(done), "tokens": n_tok, "wall_s": wall,
-           "tokens_per_s": n_tok / wall, "prefills": len(pre), "decode_steps": len(dec),
-           "prefill_ms": [c[1] for c in pre], "decode_ms_per_step": statistics.mean(decode_ms),
-           "decode_ms_median": statistics.median(decode_ms), "peak_memory_bytes": peak,
-           "launches": {k: launches[k] for k in ("flash_attention", "swiglu")},
-           "flash_launches_per_prefill": pre[0][2], "flash_launches_per_decode_step": dec[0][2],
-           "capacity_factor": cfg.moe.capacity_factor,
-           "prefill_capacity": [d[0][1] for d in drops["prefill"]],
-           "decode_capacity": drops["decode"][0][0][1],
-           "dropped_per_prefill": [sum(x[2] for x in d) for d in drops["prefill"]],
-           "dropped_per_decode_step": [sum(x[2] for x in d) for d in drops["decode"]],
-           "routed_per_decode_step": L * server.batch * cfg.moe.top_k,
-           "prompt_lengths": [len(r.prompt) for r in done],
-           "first_tokens": [r.generated[:4] for r in done]}
+           "init_s": init_s, **served, "capacity_factor": cfg.moe.capacity_factor,
+           "routed_per_decode_step": L * server.batch * cfg.moe.top_k}
     emit("moe_serving", **row)
-    server._prefill, server._decode = prefill, decode
     return server, row
 
 
@@ -2941,13 +3066,12 @@ def phase_moe_train(torch):
     check(launches["flash_attention"] == 2 * L and launches["swiglu"] == 0
           and launches["flash_attention_backward"] == L,
           f"moe_train: one loss+grad launched {launches}")
-    plain = with_flash(lambda q, k, v, *, causal, window: flash_attention_ref(
-        q, k, v, causal=causal, window=window))
+    plain = with_flash(lambda q, k, v, **kw: flash_attention_ref(q, k, v, **kw))
     gaps = _train_gaps(kern, plain)
     check(within(gaps), f"moe_train: kernels vs plain gaps {gaps} over {MOE_TRAIN_RTOL}")
     flash = ops.flash_attention_grad
     faulted = _train_gaps(with_flash(
-        lambda q, k, v, *, causal, window: flash(q, k, v, causal=causal, window=window) * 0), plain)
+        lambda q, k, v, **kw: flash(q, k, v, **kw) * 0), plain)
     check(not within(faulted), f"moe_train: flash zeroed passes the check: {faulted}")
     del params
     torch.cuda.empty_cache()
@@ -2999,6 +3123,337 @@ def phase_moe_train(torch):
     return row
 
 
+# --------------------------------------------------------------------------
+# DeepSeek-V2 (MLA) and Phi-3-vision (the vision stub)
+# --------------------------------------------------------------------------
+
+# DeepSeek-V2 is 471.5 GB in bf16 whole: full width, depth cut to layer 0
+# (dense) and 5 MoE layers for serving (21.25 B params, 42.49 GB) and to
+# layer 0 and one MoE layer for training (5.36 B)
+DEEPSEEK_SERVE_LAYERS, DEEPSEEK_TRAIN_LAYERS = 6, 2
+# capacity >= E / k = 160 / 6 makes C >= T: no token dropped
+DEEPSEEK_DROP_FREE = 27.0
+DEEPSEEK_PROMPT, DEEPSEEK_DECODE = 512, 8
+VLM_DECODE = 12
+# Phi-3-vision's decode against its full forward in f32: the same sums in
+# another order through 32 layers (1e-5 of max |logit| read on the card)
+VLM_F32_RTOL = 1e-4
+VLM_BF16_DEPTHS = (2, 8, 16)  # the bf16 gap read again on the first layers only
+VLM_BF16_NOTE = ("bf16 decode-vs-forward gaps of a random-weight model grow with depth "
+                 "(bf16_gap_by_depth), with patches or without and with the kernel or the plain "
+                 "version alike, so they are read, not checked; f32 holds C6")
+MLA_TRAIN_LEAVES = tuple(("attn", n) for n in ("w_dq", "w_uq", "w_dkv", "w_uk", "w_uv", "wo"))
+
+
+def _decode_vs_forward(torch, model, params, batch, n_decode, max_len, tokens=None):
+    """Prefill ``batch``, then ``n_decode`` decode steps, teacher-forced on
+    ``tokens`` [B, n_decode] or greedy; every step's logits (and the
+    prefill's) against the same positions of one forward over the prompt
+    and the decoded tokens, relative to max |logit|. Returns the row and the
+    (flash_attention, swiglu) launches of the prefill and of each decode
+    step."""
+    from repro_torch.models import lm as lm_mod
+
+    cfg = model.cfg
+    steps, fed, launches = [], [], []
+
+    def kernels(n):
+        return n["flash_attention"], n["swiglu"]
+
+    (logits, cache), prefill_s, pre = counted(torch, lambda: model.prefill(params, batch, max_len))
+    steps.append(logits.float())
+    decode_s = []
+    for j in range(n_decode):
+        cur = tokens[:, j:j + 1] if tokens is not None else \
+            logits.argmax(-1)[:, None].to(torch.int32)
+        fed.append(cur)
+        (logits, cache), s, n = counted(torch, lambda: model.decode_step(params, cache, cur))
+        decode_s.append(s)
+        launches.append(kernels(n))
+        steps.append(logits.float())
+    whole = dict(batch, tokens=torch.cat([batch["tokens"], *fed], dim=1))
+    t = time.perf_counter()
+    h, _, _ = lm_mod.lm_forward(cfg, params, whole)
+    full = lm_mod.unembed(cfg, params, h[:, h.shape[1] - n_decode - 1:])
+    torch.cuda.synchronize()
+    full_s = time.perf_counter() - t
+    errs, scales, agree = [], [], 0
+    for i, got in enumerate(steps):
+        want = full[:, i]
+        check(bool(torch.isfinite(got).all()), f"decode step {i}: non-finite logits")
+        errs.append(float((got - want).abs().max()))
+        scales.append(float(want.abs().max()))
+        agree += int((got.argmax(-1) == want.argmax(-1)).sum())
+    rel = [e / sc for e, sc in zip(errs, scales)]
+    row = {"prefill_s": prefill_s, "decode_ms_per_step": 1e3 * statistics.mean(decode_s),
+           "full_forward_s": full_s, "rel_err": rel, "max_rel_err": max(rel),
+           "rtol": SERVE_LOGIT_RTOL, "max_abs_logit": max(scales), "greedy_agree": agree,
+           "greedy_total": len(steps) * full.shape[0]}
+    return row, kernels(pre), launches
+
+
+def _swiglu_gaps(torch, gen, d, F_, rows) -> dict:
+    """The bf16 swiglu kernel against its plain version at widths (d, F) for
+    each row count, relative to max |plain|."""
+    from repro_torch.kernels import swiglu as sw
+    from repro_torch.kernels.ref import swiglu_ref
+
+    errs = {}
+    for M in rows:
+        x = torch.randn(M, d, generator=gen, device="cuda").bfloat16()
+        ws = [(torch.randn(s, generator=gen, device="cuda") * s[0] ** -0.5).bfloat16()
+              for s in ((d, F_), (d, F_), (F_, d))]
+        got, want = sw.swiglu_fused(x, *ws).float(), swiglu_ref(x, *ws).float()
+        errs[f"swiglu_M{M}"] = float((got - want).abs().max() / want.abs().max())
+        check(errs[f"swiglu_M{M}"] <= 2e-2, f"swiglu ({M}, {d}, {F_}): rel err {errs}")
+    return errs
+
+
+def phase_mla_serving(torch):
+    """``Server("deepseek-v2-236b", reduced=False, n_layers=6)``: full width
+    (d 5120, 128 heads, MLA ranks 1,536 / 512, 160 experts of d_ff 1,536,
+    top-6, 2 shared, capacity 1.25), layer 0 dense and 5 MoE layers.
+    serve.py:main's 8 requests: flash_attention (D 192 / Dv 128) 6 a
+    prefill and 0 a decode step (the absorbed decode is plain torch), swiglu
+    1 each (layer 0); prefill ms, decode ms a step, tokens/s, peak, drops.
+    Then the same params at a drop-free capacity (27), B = 1: a 512-token
+    prompt and 8 teacher-forced decode steps against one forward over all
+    520 tokens, within 3e-2 of max |logit|: the absorbed decode against the
+    naive prefill at full width."""
+    import dataclasses
+
+    from repro_torch.launch import Server
+    from repro_torch.models import Model
+    from repro_torch.utils import tree_leaves
+
+    t0 = time.perf_counter()
+    server = Server("deepseek-v2-236b", reduced=False, n_layers=DEEPSEEK_SERVE_LAYERS,
+                    device="cuda")
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    cfg, L = server.cfg, server.cfg.n_layers
+    m = cfg.moe
+    check(cfg.d_model == 5120 and cfg.n_heads == MLA_HEADS and cfg.attn_kind == "mla"
+          and m.num_experts == 160 and m.top_k == 6 and m.num_shared == 2
+          and m.expert_d_ff == 1536 and m.first_k_dense == 1, f"mla_serving: config {cfg}")
+    served = _traced_serving(torch, server, "mla_serving", (L, 1), (0, 1))
+
+    drop_free = cfg.replace(moe=dataclasses.replace(m, capacity_factor=DEEPSEEK_DROP_FREE))
+    gen = torch.Generator(device="cuda").manual_seed(19)
+    toks = torch.randint(0, cfg.vocab_size, (1, DEEPSEEK_PROMPT + DEEPSEEK_DECODE), generator=gen,
+                         device="cuda", dtype=torch.int32)
+    with torch.no_grad(), RouteRecorder(torch, drop_free) as rec:
+        long, pre, dec = _decode_vs_forward(
+            torch, Model(drop_free), server.params, {"tokens": toks[:, :DEEPSEEK_PROMPT]},
+            DEEPSEEK_DECODE, DEEPSEEK_PROMPT + DEEPSEEK_DECODE + 8, toks[:, DEEPSEEK_PROMPT:])
+        dropped = sum(x[2] for x in rec.take())
+    check(dropped == 0, f"mla_serving: {dropped} tokens dropped at capacity {DEEPSEEK_DROP_FREE}")
+    check(pre == (L, 1) and all(n == (0, 1) for n in dec),
+          f"mla_serving: launches prefill {pre}, decode {dec}")
+    check(long["max_rel_err"] <= SERVE_LOGIT_RTOL,
+          f"mla_serving: decode vs full forward {long['max_rel_err']} of max |logit|")
+    # layer 0's swiglu at a 16-token batch's prefill rows and a decode step's
+    errs = _swiglu_gaps(torch, gen, cfg.d_model, m.dense_d_ff, (4 * 16, 4))
+    row = {"arch": cfg.name, "n_layers": L, "published_layers": 60, "d_model": cfg.d_model,
+           "params": sum(t.numel() for t in tree_leaves(server.params)), "init_s": init_s,
+           **served, "capacity_factor": m.capacity_factor,
+           "long_prompt": dict(long, prompt=DEEPSEEK_PROMPT, decode_steps=DEEPSEEK_DECODE,
+                               capacity_factor=DEEPSEEK_DROP_FREE, dropped=dropped,
+                               launches_prefill=list(pre)),
+           "swiglu_rel_err": errs}
+    emit("mla_serving", **row)
+    del server
+    gc.collect()  # the traced steps hold the server in a cycle
+    torch.cuda.empty_cache()
+    return row
+
+
+def phase_mla_train(torch):
+    """DeepSeek-V2 at full width, layer 0 (dense) and one MoE layer (5.36 B
+    params), bf16, Adafactor, 2 x 256 tokens: one loss and gradient through
+    the kernels and through the plain versions (loss, gradient norm and the
+    six MLA weights' gradient norms within ``TRAIN_RTOL``; each kernel's
+    output zeroed must fail that check), then ``train()`` for 3 steps:
+    losses finite, aux > 0, s/step, tokens/s, peak memory, launches a
+    step."""
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import ops
+    from repro_torch.kernels.ref import flash_attention_ref, swiglu_ref
+    from repro_torch.launch import train as tr
+    from repro_torch.models import Model
+    from repro_torch.utils import tree_leaves, tree_map, tree_unflatten
+
+    cfg = get_config("deepseek-v2-236b").replace(n_layers=DEEPSEEK_TRAIN_LAYERS)
+    L = cfg.n_layers
+    model = Model(cfg)
+    params = model.init(torch.Generator(device="cuda").manual_seed(0))
+    n_params = sum(p.numel() for p in tree_leaves(params))
+
+    def loss_and_norms():
+        ps = tree_map(lambda p: p.detach().requires_grad_(True), params)
+        loss, metrics = model.loss(ps, _batch(torch, cfg, 0))
+        grads = torch.autograd.grad(loss, tree_leaves(ps))
+        gnorm = torch.sqrt(sum(torch.sum(torch.square(g.float())) for g in grads))
+        tree = tree_unflatten(ps, grads)
+        leaves = {f"{a}.{b}": float(torch.sqrt(sum(torch.sum(torch.square(tree[seg][a][b].float()))
+                                                   for seg in ("seg0", "seg1"))))
+                  for a, b in MLA_TRAIN_LEAVES}
+        return float(loss.detach()), float(gnorm), leaves, float(metrics["aux"])
+
+    def swapped(flash, swiglu):
+        saved = ops.flash_attention_grad, ops.swiglu_grad
+        ops.flash_attention_grad, ops.swiglu_grad = flash, swiglu
+        try:
+            return loss_and_norms()
+        finally:
+            ops.flash_attention_grad, ops.swiglu_grad = saved
+
+    kern, _, launches = counted(torch, loss_and_norms)
+    check(launches["flash_attention"] == 2 * L and launches["swiglu"] == 1
+          and launches["flash_attention_backward"] == L and launches["swiglu_backward"] == 1,
+          f"mla_train: one loss+grad launched {launches}")
+    plain = swapped(lambda q, k, v, **kw: flash_attention_ref(q, k, v, **kw), swiglu_ref)
+    gaps = _train_gaps(kern, plain)
+    check(_train_within(gaps), f"mla_train: kernels vs plain gaps {gaps} over {TRAIN_RTOL}")
+    flash, swiglu = ops.flash_attention_grad, ops.swiglu_grad
+    faulted = {
+        "flash_attention": _train_gaps(swapped(
+            lambda q, k, v, **kw: flash(q, k, v, **kw) * 0, swiglu), plain),
+        "swiglu": _train_gaps(swapped(flash, lambda *a: swiglu(*a) * 0), plain)}
+    for name, g in faulted.items():
+        check(not _train_within(g), f"mla_train: {name} zeroed passes the check: {g}")
+    del params
+    torch.cuda.empty_cache()
+
+    walls, build = [], tr.build_train_step
+
+    def timed_build(cfg, tcfg, **kw):
+        fn = build(cfg, tcfg, **kw)
+
+        def timed(state, batch):
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            out = fn(state, batch)
+            torch.cuda.synchronize()
+            walls.append(time.perf_counter() - t)
+            return out
+
+        return timed
+
+    tr.build_train_step = timed_build
+    try:
+        torch.cuda.reset_peak_memory_stats()
+        out, _, launches = counted(torch, lambda: tr.train(
+            "deepseek-v2-236b", reduced=False, n_layers=L, optimizer="adafactor", steps=3,
+            batch=TRAIN_B, seq=TRAIN_S, log_every=100))
+        peak = torch.cuda.max_memory_allocated()
+    finally:
+        tr.build_train_step = build
+    losses, auxes = out["losses"], out["aux"]
+    check(len(losses) == 3 and all(math.isfinite(x) for x in losses), f"mla_train: losses {losses}")
+    check(all(a > 0 for a in auxes), f"mla_train: aux {auxes}")
+    # remat "block": flash forward and recomputed per layer, swiglu (layer 0) kept
+    check(launches["flash_attention"] == 3 * 2 * L and launches["swiglu"] == 3
+          and launches["flash_attention_backward"] == 3 * L and launches["swiglu_backward"] == 3,
+          f"mla_train: 3 steps launched {launches}")
+    check(peak < 80e9, f"mla_train: peak {peak}")
+    s_per_step = statistics.median(walls[1:])
+    row = {"arch": cfg.name, "n_layers": L, "published_layers": 60, "params": n_params,
+           "optimizer": "adafactor", "dtype": cfg.dtype, "remat": cfg.remat, "batch": TRAIN_B,
+           "seq": TRAIN_S, "kernels_loss": kern[0], "plain_loss": plain[0],
+           "kernels_grad_norm": kern[1], "plain_grad_norm": plain[1], "kernels_aux": kern[3],
+           "plain_leaf_grad_norms": plain[2], "rel_err": gaps, "rtol": TRAIN_RTOL,
+           "faulted_rel_err": faulted, "losses": losses, "aux": auxes, "step_walls_s": walls,
+           "s_per_step": s_per_step, "tokens_per_s": TRAIN_B * TRAIN_S / s_per_step,
+           "peak_memory_bytes": peak,
+           "launches_per_step": {k: launches[k] // 3 for k in ("flash_attention", "swiglu")},
+           "backward_calls_per_step": launches["flash_attention_backward"] // 3}
+    emit("mla_train", **row)
+    torch.cuda.empty_cache()
+    return row
+
+
+def phase_vlm_serving(torch):
+    """Phi-3-vision whole (32 layers, 3.83 B params) on the card, B = 4: 256
+    random patch embeddings before serve.py:main's first 4 prompts
+    (left-padded as ``Server`` pads them), prefilled with the flash kernel
+    at D = 96, then 12 greedy decode steps, in bf16 (timed; flash_attention
+    32 a prefill and 0 a decode step, swiglu 32 each) and again with the
+    same params in f32. Every step's logits (and the prefill's) against one
+    forward over the patches, the prompt and the decoded tokens: in f32
+    within ``VLM_F32_RTOL`` of max |logit|, which holds the cache position
+    after a prefill with patches (C6) on the card; in bf16 the gap is
+    reported, not checked, beside the same gap over the first 2, 8 and 16
+    layers: bf16 rounding alone grows it with depth (``VLM_BF16_NOTE``)."""
+    import numpy as np
+
+    from repro_torch.configs import get_config
+    from repro_torch.launch.serve import example_requests
+    from repro_torch.models import Model
+    from repro_torch.utils import tree_leaves, tree_map
+
+    cfg = get_config("phi-3-vision-4.2b")
+    L, B = cfg.n_layers, 4
+    check(cfg.frontend == "vision_stub" and cfg.resolved_head_dim == VLM_D
+          and cfg.n_heads == VLM_HEADS, f"vlm_serving: config {cfg}")
+    t0 = time.perf_counter()
+    params = Model(cfg).init(torch.Generator(device="cuda").manual_seed(0))
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    reqs = example_requests(cfg.vocab_size)[:B]
+    S = max(8, max(len(r.prompt) for r in reqs))
+    toks = np.zeros((B, S), np.int32)
+    for i, r in enumerate(reqs):
+        toks[i, S - len(r.prompt):] = r.prompt
+    gen = torch.Generator(device="cuda").manual_seed(23)
+    patches = torch.randn(B, VLM_PATCHES, cfg.d_model, generator=gen, device="cuda")
+    max_len = VLM_PATCHES + S + VLM_DECODE + 4
+    runs = {}
+    for name, dt in (("bfloat16", torch.bfloat16), ("float32", torch.float32)):
+        c = cfg.replace(dtype=name, param_dtype=name)
+        model = Model(c)
+        ps = params if dt == torch.bfloat16 else tree_map(lambda t: t.float(), params)
+        batch = {"tokens": torch.from_numpy(toks).cuda(), "patch_embed": patches.to(dt)}
+        with torch.no_grad():  # warm-up: a prefill and a decode step
+            model.decode_step(ps, model.prefill(ps, batch, max_len)[1], batch["tokens"][:, -1:])
+            torch.cuda.reset_peak_memory_stats()
+            row, pre, dec = _decode_vs_forward(torch, model, ps, batch, VLM_DECODE, max_len)
+            row["peak_memory_bytes"] = torch.cuda.max_memory_allocated()
+        check(pre == (L, L) and all(n == (0, L) for n in dec),
+              f"vlm_serving {name}: launches prefill {pre}, decode {dec}")
+        decode_s = row["decode_ms_per_step"] * VLM_DECODE / 1e3
+        row.update(tokens=B * VLM_DECODE,
+                   tokens_per_s=B * VLM_DECODE / (row["prefill_s"] + decode_s),
+                   launches_per_prefill=list(pre), launches_per_decode_step=list(dec[0]))
+        runs[name] = row
+        del ps
+    f32 = runs["float32"]
+    f32["rtol"] = VLM_F32_RTOL
+    check(f32["max_rel_err"] <= VLM_F32_RTOL,
+          f"vlm_serving: f32 decode vs full forward {f32['max_rel_err']} of max |logit|")
+    runs["bfloat16"]["rtol"] = None
+    by_depth = {}
+    batch = {"tokens": torch.from_numpy(toks).cuda(), "patch_embed": patches.bfloat16()}
+    with torch.no_grad():
+        for depth in VLM_BF16_DEPTHS:
+            cut = {k: tree_map(lambda t: t[:depth], v) if k.startswith("seg") else v
+                   for k, v in params.items()}
+            by_depth[depth] = _decode_vs_forward(torch, Model(cfg.replace(n_layers=depth)), cut,
+                                                 batch, VLM_DECODE, max_len)[0]["max_rel_err"]
+    by_depth[L] = runs["bfloat16"]["max_rel_err"]
+    errs = _swiglu_gaps(torch, gen, cfg.d_model, cfg.d_ff, (B * (VLM_PATCHES + S), B))
+    row = {"arch": cfg.name, "n_layers": L, "d_model": cfg.d_model,
+           "params": sum(t.numel() for t in tree_leaves(params)), "init_s": init_s, "batch": B,
+           "patches": VLM_PATCHES, "prompt": S, "decode_steps": VLM_DECODE,
+           **runs["bfloat16"], "runs": runs, "bf16_gap_by_depth": by_depth,
+           "bf16_note": VLM_BF16_NOTE,
+           "swiglu_rel_err": errs, "prompt_lengths": [len(r.prompt) for r in reqs]}
+    emit("vlm_serving", **row)
+    del params
+    torch.cuda.empty_cache()
+    return row
+
+
 FL_DESIGN = {
     "fedavg_reduce": "one launch over a leaf table passed by value; 16-byte loads where a "
                      "leaf is aligned, clients unrolled 16 deep, weights in shared memory",
@@ -3015,14 +3470,18 @@ FL_DESIGN = {
 }
 
 
-def lm_rows(lm, served, grad, qwen, moe_launches):
+def lm_rows(lm, served, grad, qwen, moe_launches, head_launches):
     """The kernels-line rows of flash_attention (at the serving prefill
     shape, with the S = 4096 prefill beside it) and swiglu (at decode,
     M = 4, with the M = 64 prefill beside it), launches from the serve run;
     then each kernel at the training shape (bf16, B = 2 x S = 256: forward
     and the autograd op's backward) with its launches and backward passes
     per Qwen3-8B train step; flash_attention also at Mixtral's windowed
-    5,016-token prefill, with its launches in the Mixtral phases."""
+    5,016-token prefill, with its launches in the Mixtral phases; at MLA's
+    D 192 / Dv 128 (B = 4 x S = 16 and one S = 4096 prompt, 128 heads; the
+    backward at mla_train's shape) and Phi-3-vision's D 96 (B = 4 x S = 272,
+    32 heads, forward and backward), with their launches in the DeepSeek
+    and Phi-3-vision phases."""
     launches, n_pre, n_dec = served["launches"], served["prefills"], served["decode_steps"]
     per_pre, per_dec = served["per_prefill"], served["per_decode"]
 
@@ -3064,10 +3523,19 @@ def lm_rows(lm, served, grad, qwen, moe_launches):
          "max_row_rel_err": fa["max_row_rel_err"],
          **ms(fa["timed"]["serving"]), **ms(fa["timed"]["long_prefill"], "long_prefill_"),
          **ms(fa["timed"]["window_prefill"], "window_prefill_"),
-         **moe_launches,
+         **ms(fa["timed"]["mla_prefill"], "mla_prefill_"),
+         **ms(fa["timed"]["mla_long_prefill"], "mla_long_prefill_"),
+         **ms(fa["timed"]["vlm_prefill"], "vlm_prefill_"),
+         **{f"{g}_f32_ms": fa["timed"][f"{g}_f32"]["us"] / 1e3
+            for g in ("mla_prefill", "mla_long_prefill", "vlm_prefill")},
+         **{k: v for g, row in fa["head_dim_backward"].items()
+            for part in ("forward", "backward")
+            for k, v in ms(dict(row[part], shape=row["shape"]), f"{g}_{part}_").items()},
+         **moe_launches, **head_launches,
          "library_note": "F.scaled_dot_product_attention(is_causal=True, enable_gqa=True); "
                          "window_prefill_library_ms: with a boolean window mask; "
-                         "train_backward_library_ms: its autograd backward",
+                         "train_backward_library_ms and *_backward_library_ms: its autograd "
+                         "backward",
          **train("flash_attention")},
         {"name": "swiglu", "route": "cuda", "source": "src/repro_torch/kernels/csrc/swiglu.cu",
          "replaces": "src/repro/kernels/swiglu.py:46",
@@ -3205,12 +3673,29 @@ def main() -> int:
     moe_train = phase_moe_train(torch)
     lm_s["moe_train"] = time.perf_counter() - t
     moe_launches = {"moe_serving_launches": moe_served["launches"]["flash_attention"],
-                    "moe_serving_launches_per_prefill": moe_served["flash_launches_per_prefill"],
+                    "moe_serving_launches_per_prefill": moe_served["launches_per_prefill"][0],
                     "moe_serving_launches_per_decode_step":
-                        moe_served["flash_launches_per_decode_step"],
+                        moe_served["launches_per_decode_step"][0],
                     "moe_long_prompt_launches_prefill": moe_long["flash_launches_prefill"],
                     "moe_train_launches_per_step": moe_train["launches_per_step"]["flash_attention"],
                     "moe_train_backward_calls_per_step": moe_train["backward_calls_per_step"]}
+    t = time.perf_counter()
+    mla = phase_mla_serving(torch)
+    lm_s["mla_serving"] = time.perf_counter() - t
+    t = time.perf_counter()
+    mla_train = phase_mla_train(torch)
+    lm_s["mla_train"] = time.perf_counter() - t
+    t = time.perf_counter()
+    vlm = phase_vlm_serving(torch)
+    lm_s["vlm_serving"] = time.perf_counter() - t
+    head_launches = {
+        "mla_serving_launches": mla["launches"]["flash_attention"],
+        "mla_serving_launches_per_prefill": mla["launches_per_prefill"][0],
+        "mla_serving_launches_per_decode_step": mla["launches_per_decode_step"][0],
+        "mla_train_launches_per_step": mla_train["launches_per_step"]["flash_attention"],
+        "mla_train_backward_calls_per_step": mla_train["backward_calls_per_step"],
+        "vlm_serving_launches_per_prefill": vlm["launches_per_prefill"][0],
+        "vlm_serving_launches_per_decode_step": vlm["launches_per_decode_step"][0]}
     emit("lm_phases", seconds=sum(lm_s.values()), budget_s=LM_BUDGET_S,
          within_budget=sum(lm_s.values()) <= LM_BUDGET_S, by_phase=lm_s)
 
@@ -3321,7 +3806,7 @@ def main() -> int:
                   grid["compressed"]["bf16 dense"]),
         # the whole flattened CNN (N = 206,922), as ops.quantize_tree feeds it
         quant_row("quantize_stochastic", None, "src/repro/kernels/quantize.py:44", NO_LIBRARY),
-        *lm_rows(lm, served, grad, qwen, moe_launches),
+        *lm_rows(lm, served, grad, qwen, moe_launches, head_launches),
     ]}), flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {

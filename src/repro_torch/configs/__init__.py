@@ -3,8 +3,9 @@
 The port knows the architectures whose families it implements: the dense
 GQA LMs ``qwen3-8b``, ``phi3-medium-14b``, ``minitron-8b`` and
 ``starcoder2-3b`` (LayerNorm, GELU MLP), the mixture of experts with a
-sliding window ``mixtral-8x7b``, and the paper's MNIST CNN
-(``paper-mnist-cnn``, metadata only). Every other architecture of
+sliding window ``mixtral-8x7b``, MLA with a mixture of shared and routed
+experts ``deepseek-v2-236b``, the vision stub ``phi-3-vision-4.2b``, and
+the paper's MNIST CNN (``paper-mnist-cnn``, metadata only). Every other architecture of
 ``repro.configs`` raises ``NotImplementedError`` until its family is
 ported (ROADMAP Queue 1, item 15); an unknown name raises ``KeyError``.
 """
@@ -44,6 +45,8 @@ _MODULES: Dict[str, str] = {
     "qwen3-8b": "qwen3_8b",
     "minitron-8b": "minitron_8b",
     "mixtral-8x7b": "mixtral_8x7b",
+    "deepseek-v2-236b": "deepseek_v2_236b",
+    "phi-3-vision-4.2b": "phi3_vision_4p2b",
     "paper-mnist-cnn": "paper_mnist",
 }
 

@@ -5,10 +5,11 @@
 Every assigned architecture is expressed as a ``ModelConfig``. The same
 dataclass covers dense GQA transformers, MLA (DeepSeek), MoE, RWKV6,
 Mamba2 hybrids, and encoder-decoder (Whisper) — family-specific fields are
-simply unused elsewhere. The port's models implement the GQA families
-(RMSNorm or LayerNorm, SwiGLU or GELU MLP, or a mixture of experts; full
-or sliding-window attention) only (ROADMAP Queue 1, item 15); the other
-fields are kept so a config reads the same in both packages.
+simply unused elsewhere. The port's models implement the GQA and MLA
+families (RMSNorm or LayerNorm, SwiGLU or GELU MLP, or a mixture of
+experts; full or sliding-window attention; the vision stub) only (ROADMAP
+Queue 1, item 15); the other fields are kept so a config reads the same in
+both packages.
 """
 
 from __future__ import annotations

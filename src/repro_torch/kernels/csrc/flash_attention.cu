@@ -1,10 +1,12 @@
 // Flash attention, causal / sliding-window / GQA, with an online softmax.
 //
 // Replaces the TPU kernel repro/kernels/flash_attention.py::_flash_kernel
-// (pallas_call in flash_attention_bhsd). q is [BH, Sq, D], k and v are
-// [BKV, Skv, D], all contiguous, float32 or bfloat16; query head bh reads kv
-// head bh / G with G = BH / BKV (GQA, no repeated copy). out is [BH, Sq, D]
-// in q's dtype. Masks, as in the Pallas body: kpos < Skv; causal keeps
+// (pallas_call in flash_attention_bhsd). q is [BH, Sq, D], k is [BKV, Skv, D]
+// and v is [BKV, Skv, Dv], all contiguous, float32 or bfloat16; query head
+// bh reads kv head bh / G with G = BH / BKV (GQA, no repeated copy). out is
+// [BH, Sq, Dv] in q's dtype. D is one of 32, 64, 96, 128, 192 and Dv one of
+// 32, 64, 96, 128 with Dv <= D (FLASH_PAIRS below): MLA's prefill is
+// D = 192 (128 + 64 rope) with Dv = 128, Phi-3-vision's D = Dv = 96. Masks, as in the Pallas body: kpos < Skv; causal keeps
 // qpos >= kpos (top-left aligned, no query offset); a window > 0 keeps
 // qpos - kpos < window. Masked scores are -1e30, not -inf, m and l are
 // float32, and the result is acc / max(l, 1e-30) (the bf16 kernel multiplies
@@ -16,7 +18,9 @@
 // Bound on an H100: at the serving shape (B = 4, S = 16, 32 q heads, 8 kv
 // heads, D = 128, bf16) the kernel moves ~1.3 MB, ~0.4 us at 3.35 TB/s,
 // below the launch floor. A long causal prefill (S = 4096) does ~137 GFLOP
-// and is bound by operations: 139 us on the bf16 tensor cores.
+// and is bound by operations: 139 us on the bf16 tensor cores. At MLA's
+// D = 192 / Dv = 128 the products do (192 + 128) / 256 = 1.25x the work of
+// D = 128 for each pair of query and key.
 //
 // bfloat16 (the serving path): flash_kernel_wgmma, in FA3's shape.
 //   * Both products run on the tensor cores as wgmma with f32 accumulators
@@ -31,13 +35,16 @@
 //     while one consumer warpgroup (64 query rows) computes; two blocks
 //     share an SM (141 registers a thread and 83 KB of shared memory at
 //     D = 128), so one block's products run beside the other's softmax.
-//     TMA zero-fills keys past Skv. Rows of 128 B (D >= 64) use the 128-byte
-//     swizzle, D = 32 rows of 64 B the 64-byte one; D = 128 loads as two
-//     64-column boxes. The tensor maps are encoded per call on the host
+//     TMA zero-fills keys past Skv. A width that is a multiple of 64 columns
+//     loads as 64-column boxes of 128 B rows under the 128-byte swizzle (D =
+//     128 two boxes, D = 192 three); any other width, 32 or 96, as 32-column
+//     boxes of 64 B rows under the 64-byte swizzle (a 96-column row, 192 B,
+//     is no multiple of the 128-byte span). K (D columns) and V (Dv) have
+//     their own maps and boxes: S = Q K^T runs D / 16 steps of k16 (12 at
+//     D = 192), O += P V keeps a Dv-wide accumulator. The tensor maps are encoded per call on the host
 //     through the runtime's driver entry point, so the library needs no
 //     -lcuda.
-//   * The consumers store Q into shared memory themselves, in the same
-//     swizzle; so when G * Sq <= 64 (a short prompt: 4 x 14 = 56 at the
+//   * The consumers store Q into shared memory themselves, in K's swizzle; so when G * Sq <= 64 (a short prompt: 4 x 14 = 56 at the
 //     serving shape) the G query heads of one kv head are packed into one
 //     64-row tile (row r is head r / Sq at position r % Sq) and K / V are
 //     loaded once per kv head: 32 blocks there instead of 128 mostly empty
@@ -50,11 +57,19 @@
 // TF32: the f32 tolerance, 2e-5, rules it out). One block of 256 threads
 // per (bh, 64-row query tile); 32-key K and V tiles staged in shared memory
 // as float32; scores, softmax and P @ V in float32 on the CUDA cores.
+//
+// Both kernels are instantiated for every (D, Dv) of FLASH_PAIRS; the entry
+// points return cudaErrorInvalidValue for any other pair.
 
 #include <cuda.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+// every (D, Dv) the kernels take
+#define FLASH_PAIRS(X)                                                                       \
+  X(32, 32) X(64, 32) X(64, 64) X(96, 32) X(96, 64) X(96, 96) X(128, 32) X(128, 64)         \
+  X(128, 96) X(128, 128) X(192, 32) X(192, 64) X(192, 96) X(192, 128)
 
 namespace {
 
@@ -87,26 +102,27 @@ constexpr int kSimtThreads = 256;
 
 // shared memory layout, in floats; rows padded by one float so that threads
 // reading down a column hit different banks
-template <int D>
+template <int D, int Dv>
 struct SimtSmem {
   static constexpr int kQ = kBQ * (D + 1);
   static constexpr int kK = kSimtBKV * (D + 1);
-  static constexpr int kV = kSimtBKV * D;
+  static constexpr int kV = kSimtBKV * Dv;
   static constexpr int kP = kBQ * (kSimtBKV + 1);
   static constexpr size_t kBytes = sizeof(float) * (kQ + kK + kV + kP + 3 * kBQ);
 };
 
-template <int D>
+template <int D, int Dv>
 __global__ void __launch_bounds__(kSimtThreads)
 flash_kernel_simt(const float* __restrict__ q, const float* __restrict__ k,
                   const float* __restrict__ v, float* __restrict__ o, int G, int Sq, int Skv,
                   int causal, int window, float scale) {
   extern __shared__ float smem[];
+  using L = SimtSmem<D, Dv>;
   float* Qs = smem;                      // [kBQ][D + 1]
-  float* Ks = Qs + SimtSmem<D>::kQ;      // [kSimtBKV][D + 1]
-  float* Vs = Ks + SimtSmem<D>::kK;      // [kSimtBKV][D]
-  float* Ps = Vs + SimtSmem<D>::kV;      // [kBQ][kSimtBKV + 1]
-  float* m_s = Ps + SimtSmem<D>::kP;     // [kBQ] running max
+  float* Ks = Qs + L::kQ;                // [kSimtBKV][D + 1]
+  float* Vs = Ks + L::kK;                // [kSimtBKV][Dv]
+  float* Ps = Vs + L::kV;                // [kBQ][kSimtBKV + 1]
+  float* m_s = Ps + L::kP;               // [kBQ] running max
   float* l_s = m_s + kBQ;                // [kBQ] running sum
   float* c_s = l_s + kBQ;                // [kBQ] this tile's correction
 
@@ -115,8 +131,8 @@ flash_kernel_simt(const float* __restrict__ q, const float* __restrict__ k,
   const int q0 = blockIdx.x * kBQ;
   const float* qb = q + (long long)bh * Sq * D;
   const float* kb = k + (long long)(bh / G) * Skv * D;
-  const float* vb = v + (long long)(bh / G) * Skv * D;
-  float* ob = o + (long long)bh * Sq * D;
+  const float* vb = v + (long long)(bh / G) * Skv * Dv;
+  float* ob = o + (long long)bh * Sq * Dv;
 
   for (int idx = tid; idx < kBQ * D; idx += kSimtThreads) {
     const int r = idx / D, c = idx % D;
@@ -128,9 +144,9 @@ flash_kernel_simt(const float* __restrict__ q, const float* __restrict__ k,
   }
 
   // Each thread owns rows tr + 16 i (i < 4) of the tile: score columns
-  // tc + 16 j (j < 2) and output columns tc + 16 j (j < D / 16).
+  // tc + 16 j (j < 2) and output columns tc + 16 j (j < Dv / 16).
   const int tr = tid / 16, tc = tid % 16;
-  constexpr int kCols = D / 16;
+  constexpr int kCols = Dv / 16;
   float acc[4][kCols];
 #pragma unroll
   for (int i = 0; i < 4; ++i)
@@ -147,10 +163,11 @@ flash_kernel_simt(const float* __restrict__ q, const float* __restrict__ k,
     __syncthreads();  // the previous tile's Ks / Vs / Ps are no longer read
     for (int idx = tid; idx < kSimtBKV * D; idx += kSimtThreads) {
       const int r = idx / D, c = idx % D;
-      const bool in = k0 + r < Skv;
-      const long long at = (long long)(k0 + r) * D + c;
-      Ks[r * (D + 1) + c] = in ? kb[at] : 0.f;
-      Vs[r * D + c] = in ? vb[at] : 0.f;
+      Ks[r * (D + 1) + c] = k0 + r < Skv ? kb[(long long)(k0 + r) * D + c] : 0.f;
+    }
+    for (int idx = tid; idx < kSimtBKV * Dv; idx += kSimtThreads) {
+      const int r = idx / Dv, c = idx % Dv;
+      Vs[r * Dv + c] = k0 + r < Skv ? vb[(long long)(k0 + r) * Dv + c] : 0.f;
     }
     __syncthreads();
 
@@ -220,7 +237,7 @@ flash_kernel_simt(const float* __restrict__ q, const float* __restrict__ k,
       for (int i = 0; i < 4; ++i) p[i] = Ps[(tr + 16 * i) * (kSimtBKV + 1) + c];
 #pragma unroll
       for (int j = 0; j < kCols; ++j) {
-        const float vv = Vs[c * D + tc + 16 * j];
+        const float vv = Vs[c * Dv + tc + 16 * j];
 #pragma unroll
         for (int i = 0; i < 4; ++i) acc[i][j] = fmaf(p[i], vv, acc[i][j]);
       }
@@ -234,19 +251,19 @@ flash_kernel_simt(const float* __restrict__ q, const float* __restrict__ k,
     if (q0 + row >= Sq) continue;
     const float l = fmaxf(l_s[row], 1e-30f);
 #pragma unroll
-    for (int j = 0; j < kCols; ++j) ob[(long long)(q0 + row) * D + tc + 16 * j] = acc[i][j] / l;
+    for (int j = 0; j < kCols; ++j) ob[(long long)(q0 + row) * Dv + tc + 16 * j] = acc[i][j] / l;
   }
 }
 
-template <int D>
+template <int D, int Dv>
 int launch_simt(const void* q, const void* k, const void* v, void* o, int BH, int BKV, int Sq,
                 int Skv, int causal, int window, float scale, cudaStream_t stream) {
   static bool opted_in[kMaxDevices] = {};
-  const size_t bytes = SimtSmem<D>::kBytes;
-  cudaError_t err = opt_in_smem(flash_kernel_simt<D>, bytes, opted_in);
+  const size_t bytes = SimtSmem<D, Dv>::kBytes;
+  cudaError_t err = opt_in_smem(flash_kernel_simt<D, Dv>, bytes, opted_in);
   if (err != cudaSuccess) return static_cast<int>(err);
   dim3 grid((Sq + kBQ - 1) / kBQ, BH);
-  flash_kernel_simt<D><<<grid, kSimtThreads, bytes, stream>>>(
+  flash_kernel_simt<D, Dv><<<grid, kSimtThreads, bytes, stream>>>(
       static_cast<const float*>(q), static_cast<const float*>(k), static_cast<const float*>(v),
       static_cast<float*>(o), BH / BKV, Sq, Skv, causal, window, scale);
   return static_cast<int>(cudaGetLastError());
@@ -382,6 +399,26 @@ __device__ __forceinline__ void wgmma_rs_m64n64(float (&d)[32], const uint32_t (
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
 }
 
+// RS: A from registers, B from shared memory MN-major (transposed); D += A B, m64n96k16, f32 accumulators
+__device__ __forceinline__ void wgmma_rs_m64n96(float (&d)[48], const uint32_t (&a)[4], uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %53, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n96k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47}, "
+      "{%48, %49, %50, %51}, %52, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]),
+        "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]),
+        "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]),
+        "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
+        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]),
+        "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]),
+        "+f"(d[37]), "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]), "+f"(d[42]),
+        "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
+
 // RS: A from registers, B from shared memory MN-major (transposed); D += A B, m64n128k16, f32 accumulators
 __device__ __forceinline__ void wgmma_rs_m64n128(float (&d)[64], const uint32_t (&a)[4], uint64_t db) {
   asm volatile(
@@ -407,36 +444,45 @@ __device__ __forceinline__ void wgmma_rs_m64n128(float (&d)[64], const uint32_t 
 }
 
 
-// One operand tile of R rows x D columns in shared memory: column boxes of
+// One operand tile of R rows x W columns in shared memory: column boxes of
 // kW elements (one swizzle row of kRowBytes bytes), each box R rows deep, as
-// TMA writes them; every box starts on a 1024-byte boundary.
-template <int D>
+// TMA writes them; every box starts on a 1024-byte boundary. A multiple of
+// 64 columns takes the 128-byte swizzle, 32 or 96 columns the 64-byte one.
+template <int W>
 struct Tile {
-  static constexpr int kRowBytes = D >= 64 ? 128 : 64;
+  static constexpr bool kWide = W % 64 == 0;
+  static constexpr int kRowBytes = kWide ? 128 : 64;
   static constexpr int kW = kRowBytes / 2;
-  static constexpr int kBoxes = D / kW;
-  static constexpr uint64_t kLayout = D >= 64 ? 1 : 2;  // descriptor: 128 / 64-byte swizzle
-  static constexpr uint32_t kSwizzleMask = D >= 64 ? 7 : 3;
-  static constexpr int kSbo = 8 * kRowBytes;             // next group of 8 rows
+  static constexpr int kBoxes = W / kW;
+  static constexpr uint64_t kLayout = kWide ? 1 : 2;  // descriptor: 128 / 64-byte swizzle
+  static constexpr uint32_t kSwizzleMask = kWide ? 7 : 3;
+  static constexpr int kSbo = 8 * kRowBytes;          // next group of 8 rows
   static constexpr int kQBoxBytes = kBQ * kRowBytes;
   static constexpr int kKVBoxBytes = kBKV * kRowBytes;
-  static constexpr int kQBytes = kBQ * D * 2;
-  static constexpr int kKVBytes = kBKV * D * 2;          // one K or V tile
-  static constexpr size_t kSmem = 1024 + kQBytes + 2 * kStages * kKVBytes + 2 * kStages * 8;
+  static constexpr int kQBytes = kBQ * W * 2;
+  static constexpr int kKVBytes = kBKV * W * 2;       // one K or V tile
 };
+
+// Q, the K ring and the V ring, 1024-byte aligned, and the ring's mbarriers
+template <int D, int Dv>
+constexpr size_t wgmma_smem_bytes() {
+  return 1024 + Tile<D>::kQBytes + kStages * (Tile<D>::kKVBytes + Tile<Dv>::kKVBytes) +
+         2 * kStages * 8;
+}
 
 // the byte offset within a swizzled box at which TMA puts logical offset off
 __device__ __forceinline__ uint32_t swizzle(uint32_t off, uint32_t mask) {
   return off ^ (((off >> 7) & mask) << 4);
 }
 
-template <int D>
+template <int D, int Dv>
 __global__ void __launch_bounds__(kThreads, 1)
 flash_kernel_wgmma(const __grid_constant__ CUtensorMap k_map,
                    const __grid_constant__ CUtensorMap v_map,
                    const __nv_bfloat16* __restrict__ q, __nv_bfloat16* __restrict__ o, int G,
                    int Sq, int Skv, int causal, int window, float scale_log2) {
-  using L = Tile<D>;
+  using L = Tile<D>;    // Q and K
+  using LV = Tile<Dv>;  // V
   extern __shared__ uint8_t smem_raw[];
   const uint32_t raw = smem_addr(smem_raw);
   const uint32_t base = (raw + 1023u) & ~1023u;
@@ -444,7 +490,7 @@ flash_kernel_wgmma(const __grid_constant__ CUtensorMap k_map,
   const uint32_t q_s = base;
   const uint32_t k_s = q_s + L::kQBytes;                 // [kStages] K tiles
   const uint32_t v_s = k_s + kStages * L::kKVBytes;      // [kStages] V tiles
-  const uint32_t bars = v_s + kStages * L::kKVBytes;     // full[kStages], empty[kStages]
+  const uint32_t bars = v_s + kStages * LV::kKVBytes;    // full[kStages], empty[kStages]
   auto full = [&](int s) { return bars + 8u * s; };
   auto empty = [&](int s) { return bars + 8u * (kStages + s); };
 
@@ -491,13 +537,15 @@ flash_kernel_wgmma(const __grid_constant__ CUtensorMap k_map,
       for (int t = 0; t < n_tiles; ++t) {
         const int k0 = kv_begin + t * kBKV;
         mbar_wait(empty(stage), phase ^ 1u);
-        mbar_expect_tx(full(stage), 2 * L::kKVBytes);
+        mbar_expect_tx(full(stage), L::kKVBytes + LV::kKVBytes);
 #pragma unroll
-        for (int c = 0; c < L::kBoxes; ++c) {
-          const uint32_t at = stage * L::kKVBytes + c * L::kKVBoxBytes;
-          tma_load_3d(k_s + at, &k_map, full(stage), c * L::kW, k0, kvh);
-          tma_load_3d(v_s + at, &v_map, full(stage), c * L::kW, k0, kvh);
-        }
+        for (int c = 0; c < L::kBoxes; ++c)
+          tma_load_3d(k_s + stage * L::kKVBytes + c * L::kKVBoxBytes, &k_map, full(stage),
+                      c * L::kW, k0, kvh);
+#pragma unroll
+        for (int c = 0; c < LV::kBoxes; ++c)
+          tma_load_3d(v_s + stage * LV::kKVBytes + c * LV::kKVBoxBytes, &v_map, full(stage),
+                      c * LV::kW, k0, kvh);
         if (++stage == kStages) {
           stage = 0;
           phase ^= 1u;
@@ -539,9 +587,9 @@ flash_kernel_wgmma(const __grid_constant__ CUtensorMap k_map,
   const int qp0 = pos0 + r0 % per, qp1 = pos0 + r1 % per;
   const int col = 2 * (lane % 4);
 
-  float acc[D / 2];
+  float acc[Dv / 2];
 #pragma unroll
-  for (int j = 0; j < D / 2; ++j) acc[j] = 0.f;
+  for (int j = 0; j < Dv / 2; ++j) acc[j] = 0.f;
   float m0 = kNegInf, m1 = kNegInf, l0 = 0.f, l1 = 0.f;  // l: this lane's part of the row sum
 
   int stage = 0;
@@ -549,7 +597,7 @@ flash_kernel_wgmma(const __grid_constant__ CUtensorMap k_map,
   for (int t = 0; t < n_tiles; ++t) {
     const int k0 = kv_begin + t * kBKV;
     mbar_wait(full(stage), phase);
-    const uint32_t k_tile = k_s + stage * L::kKVBytes, v_tile = v_s + stage * L::kKVBytes;
+    const uint32_t k_tile = k_s + stage * L::kKVBytes, v_tile = v_s + stage * LV::kKVBytes;
 
     // S = Q K^T, D / 16 steps of 16 along the head dimension
     float s[kBKV / 2];
@@ -607,7 +655,7 @@ flash_kernel_wgmma(const __grid_constant__ CUtensorMap k_map,
     l0 = l0 * c0 + sum0;
     l1 = l1 * c1 + sum1;
 #pragma unroll
-    for (int j = 0; j < D / 2; ++j) acc[j] *= (j & 2) ? c1 : c0;
+    for (int j = 0; j < Dv / 2; ++j) acc[j] *= (j & 2) ? c1 : c0;
 
     // P in bf16: the score fragment of keys 16 kk .. 16 kk + 15 is the A
     // fragment of the kk-th step of P V
@@ -621,10 +669,11 @@ flash_kernel_wgmma(const __grid_constant__ CUtensorMap k_map,
     wgmma_fence();
 #pragma unroll
     for (int kk = 0; kk < kBKV / 16; ++kk) {
-      const uint64_t db = smem_desc(v_tile + kk * 16 * L::kRowBytes, L::kKVBoxBytes, L::kSbo,
-                                    L::kLayout);
-      if constexpr (D == 128) wgmma_rs_m64n128(acc, a[kk], db);
-      else if constexpr (D == 64) wgmma_rs_m64n64(acc, a[kk], db);
+      const uint64_t db = smem_desc(v_tile + kk * 16 * LV::kRowBytes, LV::kKVBoxBytes, LV::kSbo,
+                                    LV::kLayout);
+      if constexpr (Dv == 128) wgmma_rs_m64n128(acc, a[kk], db);
+      else if constexpr (Dv == 96) wgmma_rs_m64n96(acc, a[kk], db);
+      else if constexpr (Dv == 64) wgmma_rs_m64n64(acc, a[kk], db);
       else wgmma_rs_m64n32(acc, a[kk], db);
     }
     wgmma_commit();
@@ -649,9 +698,9 @@ flash_kernel_wgmma(const __grid_constant__ CUtensorMap k_map,
     const int r = h ? r1 : r0;
     if (r >= nrows) continue;
     const float inv_l = 1.f / (h ? l1 : l0);
-    __nv_bfloat16* out = o + ((long long)(head0 + r / per) * Sq + pos0 + r % per) * D + col;
+    __nv_bfloat16* out = o + ((long long)(head0 + r / per) * Sq + pos0 + r % per) * Dv + col;
 #pragma unroll
-    for (int i = 0; i < D / 8; ++i)
+    for (int i = 0; i < Dv / 8; ++i)
       *reinterpret_cast<__nv_bfloat162*>(out + 8 * i) =
           __floats2bfloat162_rn(acc[4 * i + 2 * h] * inv_l, acc[4 * i + 2 * h + 1] * inv_l);
   }
@@ -682,36 +731,36 @@ EncodeTiled encode_tiled() {
   return fn;
 }
 
-// [heads, Skv, D] bf16 as a 3-d map of (kW columns x kBKV keys x 1 head)
+// [heads, Skv, W] bf16 as a 3-d map of (kW columns x kBKV keys x 1 head)
 // boxes, swizzled as wgmma reads them; keys past Skv read as zeros
-template <int D>
+template <int W>
 bool encode_kv_map(CUtensorMap* map, const void* ptr, int heads, int Skv) {
-  using L = Tile<D>;
+  using L = Tile<W>;
   EncodeTiled fn = encode_tiled();
   if (fn == nullptr) return false;
-  const cuuint64_t dims[3] = {(cuuint64_t)D, (cuuint64_t)Skv, (cuuint64_t)heads};
-  const cuuint64_t strides[2] = {(cuuint64_t)D * 2, (cuuint64_t)Skv * D * 2};
+  const cuuint64_t dims[3] = {(cuuint64_t)W, (cuuint64_t)Skv, (cuuint64_t)heads};
+  const cuuint64_t strides[2] = {(cuuint64_t)W * 2, (cuuint64_t)Skv * W * 2};
   const cuuint32_t box[3] = {(cuuint32_t)L::kW, (cuuint32_t)kBKV, 1};
   const cuuint32_t elem[3] = {1, 1, 1};
   return fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 3, const_cast<void*>(ptr), dims, strides, box,
             elem, CU_TENSOR_MAP_INTERLEAVE_NONE,
-            D >= 64 ? CU_TENSOR_MAP_SWIZZLE_128B : CU_TENSOR_MAP_SWIZZLE_64B,
+            L::kWide ? CU_TENSOR_MAP_SWIZZLE_128B : CU_TENSOR_MAP_SWIZZLE_64B,
             CU_TENSOR_MAP_L2_PROMOTION_L2_128B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
 }
 
-template <int D>
+template <int D, int Dv>
 int launch_wgmma(const void* q, const void* k, const void* v, void* o, int BH, int BKV, int Sq,
                  int Skv, int causal, int window, float scale, cudaStream_t stream) {
   static bool opted_in[kMaxDevices] = {};
-  const size_t bytes = Tile<D>::kSmem;
-  cudaError_t err = opt_in_smem(flash_kernel_wgmma<D>, bytes, opted_in);
+  const size_t bytes = wgmma_smem_bytes<D, Dv>();
+  cudaError_t err = opt_in_smem(flash_kernel_wgmma<D, Dv>, bytes, opted_in);
   if (err != cudaSuccess) return static_cast<int>(err);
   CUtensorMap k_map, v_map;
-  if (!encode_kv_map<D>(&k_map, k, BKV, Skv) || !encode_kv_map<D>(&v_map, v, BKV, Skv))
+  if (!encode_kv_map<D>(&k_map, k, BKV, Skv) || !encode_kv_map<Dv>(&v_map, v, BKV, Skv))
     return static_cast<int>(cudaErrorInvalidValue);
   const int G = BH / BKV;
   const dim3 grid = G * Sq <= kBQ ? dim3(BKV) : dim3(BH, (Sq + kBQ - 1) / kBQ);
-  flash_kernel_wgmma<D><<<grid, kThreads, bytes, stream>>>(
+  flash_kernel_wgmma<D, Dv><<<grid, kThreads, bytes, stream>>>(
       k_map, v_map, static_cast<const __nv_bfloat16*>(q), static_cast<__nv_bfloat16*>(o), G, Sq,
       Skv, causal, window, scale * 1.4426950408889634f);
   return static_cast<int>(cudaGetLastError());
@@ -719,37 +768,33 @@ int launch_wgmma(const void* q, const void* k, const void* v, void* o, int BH, i
 
 }  // namespace
 
+#define FLASH_CASE(launch, D_, DV_)                                                    \
+  if (D == D_ && Dv == DV_)                                                          \
+    return launch<D_, DV_>(q, k, v, o, BH, BKV, Sq, Skv, causal, window, scale,      \
+                           static_cast<cudaStream_t>(stream));
+#define SIMT_CASE(D_, DV_) FLASH_CASE(launch_simt, D_, DV_)
+#define WGMMA_CASE(D_, DV_) FLASH_CASE(launch_wgmma, D_, DV_)
+#define SMEM_CASE(D_, DV_) \
+  if (D == D_ && Dv == DV_) return (int)wgmma_smem_bytes<D_, DV_>();
+
 extern "C" int flash_attention_f32(const void* q, const void* k, const void* v, void* o,
-                                   int BH, int BKV, int Sq, int Skv, int D, int causal,
+                                   int BH, int BKV, int Sq, int Skv, int D, int Dv, int causal,
                                    int window, float scale, void* stream) {
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  switch (D) {
-    case 32: return launch_simt<32>(q, k, v, o, BH, BKV, Sq, Skv, causal, window, scale, s);
-    case 64: return launch_simt<64>(q, k, v, o, BH, BKV, Sq, Skv, causal, window, scale, s);
-    case 128: return launch_simt<128>(q, k, v, o, BH, BKV, Sq, Skv, causal, window, scale, s);
-    default: return static_cast<int>(cudaErrorInvalidValue);
-  }
+  FLASH_PAIRS(SIMT_CASE)
+  return static_cast<int>(cudaErrorInvalidValue);
 }
 
 // q, k, v 16-byte aligned; Skv >= 1
 extern "C" int flash_attention_bf16(const void* q, const void* k, const void* v, void* o,
-                                    int BH, int BKV, int Sq, int Skv, int D, int causal,
+                                    int BH, int BKV, int Sq, int Skv, int D, int Dv, int causal,
                                     int window, float scale, void* stream) {
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  switch (D) {
-    case 32: return launch_wgmma<32>(q, k, v, o, BH, BKV, Sq, Skv, causal, window, scale, s);
-    case 64: return launch_wgmma<64>(q, k, v, o, BH, BKV, Sq, Skv, causal, window, scale, s);
-    case 128: return launch_wgmma<128>(q, k, v, o, BH, BKV, Sq, Skv, causal, window, scale, s);
-    default: return static_cast<int>(cudaErrorInvalidValue);
-  }
+  FLASH_PAIRS(WGMMA_CASE)
+  return static_cast<int>(cudaErrorInvalidValue);
 }
 
-// dynamic shared memory of the bf16 kernel at head dimension D (build report)
-extern "C" int flash_attention_bf16_smem_bytes(int D) {
-  switch (D) {
-    case 32: return (int)Tile<32>::kSmem;
-    case 64: return (int)Tile<64>::kSmem;
-    case 128: return (int)Tile<128>::kSmem;
-    default: return -1;
-  }
+// dynamic shared memory of the bf16 kernel at (D, Dv) (build report); -1 for
+// a pair it does not take
+extern "C" int flash_attention_bf16_smem_bytes(int D, int Dv) {
+  FLASH_PAIRS(SMEM_CASE)
+  return -1;
 }

@@ -2,10 +2,13 @@
 ``repro/kernels/flash_attention.py``).
 
 ``flash_attention_bhsd`` takes the reference kernel's layout: q [BH, Sq, D],
-k/v [BKV, Skv, D], query head bh reading kv head bh // G. On a CUDA tensor
-it launches a hand-written sm_90a kernel in ``csrc/flash_attention.cu``
-(online softmax, m / l / accumulator in f32, fully masked kv tiles
-skipped; any Sq; D of 32, 64 or 128): bfloat16 runs on the tensor cores
+k [BKV, Skv, D], v [BKV, Skv, Dv], query head bh reading kv head bh // G;
+the output is [BH, Sq, Dv]. On a CUDA tensor it launches a hand-written
+sm_90a kernel in ``csrc/flash_attention.cu`` (online softmax, m / l /
+accumulator in f32, fully masked kv tiles skipped; any Sq; D of 32, 64, 96,
+128 or 192 and Dv of 32, 64, 96 or 128 with Dv <= D: MLA's prefill takes
+D = 192 with Dv = 128, Phi-3-vision's D = Dv = 96, the GQA models Dv = D
+of 32 to 128): bfloat16 runs on the tensor cores
 (``flash_kernel_wgmma``: wgmma, TMA loads of K / V, P rounded to bf16
 before P V, GQA rows packed into one tile when G * Sq <= 64) and needs
 Skv >= 1 and 16-byte aligned tensors; float32 runs on the CUDA cores
@@ -27,8 +30,9 @@ this is the port of its gradient; a hand-written backward kernel is
 performance work. The backward recomputes the scores S = q k^T * scale and
 P = softmax(S) under the masks in f32, then dV = P^T dO,
 dS = P * (dO V^T - rowsum(dO * O)), dQ = dS K * scale and
-dK = dS^T Q * scale, each query head's contributions to dK and dV summed
-over the group of its kv head (GQA). It materializes P, [BH, Sq, Skv] in
+dK = dS^T Q * scale (dQ and dK in D, dV and rowsum(dO * O) in Dv), each
+query head's contributions to dK and dV summed over the group of its kv
+head (GQA). It materializes P, [BH, Sq, Skv] in
 f32, which bounds the lengths it suits. ``backward_calls`` counts backward
 passes on CUDA tensors.
 """
@@ -46,12 +50,13 @@ from repro_torch.kernels.ref import NEG_INF, flash_attention_ref
 launches = 0
 backward_calls = 0
 
-HEAD_DIMS = (32, 64, 128)
+HEAD_DIMS = (32, 64, 96, 128, 192)  # D, of q and k
+V_HEAD_DIMS = (32, 64, 96, 128)  # Dv, of v and the output; Dv <= D
 MAX_HEADS = 65535  # BH indexes the grid's y dimension
 _DTYPES = {torch.float32: "flash_attention_f32", torch.bfloat16: "flash_attention_bf16"}
 _P = ctypes.c_void_p
 _I = ctypes.c_int
-_ARGTYPES = [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, ctypes.c_float, _P]
+_ARGTYPES = [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, ctypes.c_float, _P]
 _entries: Dict[torch.dtype, Callable] = {}
 
 
@@ -65,18 +70,24 @@ def _entry(dtype: torch.dtype):
     return fn
 
 
-def flash_attention_bhsd(q, k, v, *, causal=True, window=0, scale=None):
-    """q [BH, Sq, D]; k/v [BKV, Skv, D]; BH = G * BKV (grouped heads).
-
-    Returns [BH, Sq, D] in q's dtype."""
-    global launches
-    if q.ndim != 3 or k.ndim != 3 or v.shape != k.shape or q.shape[2] != k.shape[2]:
+def _check_shapes(q, k, v):
+    if (q.ndim != 3 or k.ndim != 3 or v.ndim != 3 or v.shape[:2] != k.shape[:2]
+            or q.shape[2] != k.shape[2]):
         raise ValueError(
-            f"flash_attention_bhsd: need q [BH, Sq, D] and k, v [BKV, Skv, D], got "
-            f"{tuple(q.shape)}, {tuple(k.shape)}, {tuple(v.shape)}"
+            f"flash_attention_bhsd: need q [BH, Sq, D], k [BKV, Skv, D] and v [BKV, Skv, Dv], "
+            f"got {tuple(q.shape)}, {tuple(k.shape)}, {tuple(v.shape)}"
         )
+
+
+def flash_attention_bhsd(q, k, v, *, causal=True, window=0, scale=None):
+    """q [BH, Sq, D]; k [BKV, Skv, D]; v [BKV, Skv, Dv]; BH = G * BKV
+    (grouped heads).
+
+    Returns [BH, Sq, Dv] in q's dtype."""
+    global launches
+    _check_shapes(q, k, v)
     BH, Sq, D = q.shape
-    BKV, Skv, _ = k.shape
+    BKV, Skv, Dv = v.shape
     if BKV == 0 or BH % BKV:
         raise ValueError(f"flash_attention_bhsd: BH={BH} is not a multiple of BKV={BKV}")
     scale = scale if scale is not None else D ** -0.5
@@ -92,20 +103,22 @@ def flash_attention_bhsd(q, k, v, *, causal=True, window=0, scale=None):
         )
     if not all(t.device == dev and t.is_contiguous() for t in (q, k, v)):
         raise ValueError("flash_attention_bhsd: q, k, v must be contiguous on one device")
-    if D not in HEAD_DIMS or BH > MAX_HEADS or max(Sq, Skv) * D >= 2**31:
-        raise ValueError(f"flash_attention_bhsd: D={D}, BH={BH}, Sq={Sq}, Skv={Skv} out of range")
+    if (D not in HEAD_DIMS or Dv not in V_HEAD_DIMS or Dv > D or BH > MAX_HEADS
+            or max(Sq, Skv) * D >= 2**31):
+        raise ValueError(f"flash_attention_bhsd: D={D}, Dv={Dv}, BH={BH}, Sq={Sq}, Skv={Skv} "
+                         f"out of range")
     if q.dtype == torch.bfloat16 and q.numel() and (
             Skv == 0 or any(t.data_ptr() % 16 for t in (q, k, v))):
         raise ValueError("flash_attention_bhsd: the bf16 kernel needs Skv >= 1 and 16-byte "
                          "aligned q, k, v")
-    out = torch.empty_like(q)
+    out = q.new_empty((BH, Sq, Dv))
     if out.numel() == 0:
         return out
     fn = _entry(q.dtype)
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), BH, BKV, Sq, Skv, D,
-                 int(bool(causal)), int(window or 0), float(scale), stream)
+                 Dv, int(bool(causal)), int(window or 0), float(scale), stream)
     if err != 0:
         raise RuntimeError(f"flash_attention kernel launch failed: cudaError {err}")
     launches += 1
@@ -117,11 +130,11 @@ def _flash_backward(q, k, v, out, dout, causal, window, scale):
     scores and probabilities recomputed from q and k, the kv-head sums of
     GQA taken over a [BKV, G, ...] view (no repeated copy of k and v)."""
     BH, Sq, D = q.shape
-    BKV, Skv, _ = k.shape
+    BKV, Skv, Dv = v.shape
     G = BH // BKV
     qf = q.float().reshape(BKV, G, Sq, D)
     kf, vf = k.float(), v.float()
-    do = dout.float().reshape(BKV, G, Sq, D)
+    do = dout.float().reshape(BKV, G, Sq, Dv)
     s = torch.einsum("kgqd,ksd->kgqs", qf, kf) * scale
     qpos = torch.arange(Sq, device=q.device)[:, None]
     kpos = torch.arange(Skv, device=q.device)[None, :]
@@ -133,7 +146,7 @@ def _flash_backward(q, k, v, out, dout, causal, window, scale):
     p = torch.softmax(torch.where(mask, s, torch.full_like(s, NEG_INF)), dim=-1)
     dv = torch.einsum("kgqs,kgqd->ksd", p, do)
     dp = torch.einsum("kgqd,ksd->kgqs", do, vf)
-    delta = torch.sum(do * out.float().reshape(BKV, G, Sq, D), dim=-1, keepdim=True)
+    delta = torch.sum(do * out.float().reshape(BKV, G, Sq, Dv), dim=-1, keepdim=True)
     ds = p * (dp - delta)
     dq = torch.einsum("kgqs,ksd->kgqd", ds, kf) * scale
     dk = torch.einsum("kgqs,kgqd->ksd", ds, qf) * scale
@@ -150,7 +163,8 @@ def flash_attention_op(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, causal
 
 @flash_attention_op.register_fake
 def _(q, k, v, causal, window, scale):
-    return torch.empty_like(q)
+    _check_shapes(q, k, v)
+    return q.new_empty((q.shape[0], q.shape[1], v.shape[2]))
 
 
 def _setup_context(ctx, inputs, output):
@@ -171,7 +185,7 @@ flash_attention_op.register_autograd(_backward, setup_context=_setup_context)
 
 
 def flash_attention_grad(q, k, v, *, causal=True, window=0, scale=None):
-    """``flash_attention_bhsd`` under autograd: q [BH, Sq, D]; k/v
-    [BKV, Skv, D] -> [BH, Sq, D] in q's dtype, differentiable in q, k, v."""
+    """``flash_attention_bhsd`` under autograd: q [BH, Sq, D]; k [BKV, Skv, D];
+    v [BKV, Skv, Dv] -> [BH, Sq, Dv] in q's dtype, differentiable in q, k, v."""
     scale = scale if scale is not None else q.shape[-1] ** -0.5
     return flash_attention_op(q, k, v, bool(causal), int(window or 0), float(scale))

@@ -106,7 +106,8 @@ def dequantize_tree(payload, template):
 
 
 def flash_attention(q, k, v, *, causal=True, window=0):
-    """q [B, Sq, Hq, D]; k/v [B, Skv, Hkv, D] -> [B, Sq, Hq, D].
+    """q [B, Sq, Hq, D]; k [B, Skv, Hkv, D]; v [B, Skv, Hkv, Dv] ->
+    [B, Sq, Hq, Dv], scores scaled by D^-0.5.
 
     GQA by head-major flattening: [B, S, H, D] -> [B*H, S, D], the kernel
     reading kv head bh // G (no repeated copy of k and v). Differentiable

@@ -22,6 +22,8 @@ from repro_torch.models import lm as lm_mod
 from repro_torch.models.base import Ctx, dtype_of
 from repro_torch.utils import resolve_device
 
+VLM_PATCH_TOKENS = 256  # vision-stub prefix length
+
 
 def _family(cfg: ModelConfig) -> str:
     if cfg.enc_dec:

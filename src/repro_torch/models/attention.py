@@ -1,5 +1,5 @@
-"""GQA attention for serving and training (the port of the GQA half of
-``repro/models/attention.py``).
+"""GQA and MLA attention for serving and training (the port of
+``repro/models/attention.py`` without cross attention).
 
 - Prefill runs ``kernels.ops.flash_attention``: the hand-written flash
   kernel on the card, its plain version on the CPU. It computes exactly the
@@ -22,8 +22,20 @@ which agrees with its own decode only when ``S % Smax == 0``, so its decode
 then overwrites a token still inside the window; the port keeps the ring's
 rule (ROADMAP Queue 3, C5). A cache without a ring that is shorter than
 the prompt keeps the last ``Smax`` tokens at slots ``0..Smax-1``, as the
-reference does. MLA and cross attention are not ported (ROADMAP Queue 1,
-item 15) and raise.
+reference does.
+
+MLA (DeepSeek-V2) keeps the reference's two paths. Prefill and training
+run the naive form: the compressed ``c_kv`` is expanded to per-head k_nope
+and v, k_pe (one rope head shared by all heads) is broadcast beside it,
+and the flash kernel runs at D = qk_nope + qk_rope (192) with Dv =
+v_head_dim (128), scale D^-0.5. Every MLA projection is one 2-D product
+(``aten.mm``), so remat "block" keeps them all. Its cache holds the normed
+``c_kv`` and the roped ``k_pe`` per position, written in place. Decode is
+the absorbed form in plain torch, in the reference's rounding order:
+``q_abs = q_nope W_uk`` in the activation dtype, the scores against
+``c_kv`` and ``k_pe`` in f32, the probabilities cast to the activation
+dtype before the product with ``c_kv``, then ``W_uv`` and ``wo``. Cross
+attention is not ported (ROADMAP Queue 1, item 15) and raises.
 """
 
 from __future__ import annotations
@@ -33,7 +45,7 @@ from typing import Optional
 import torch
 
 from repro_torch.kernels import ops
-from repro_torch.models.base import Ctx, apply_rope, dtype_of, rms_norm
+from repro_torch.models.base import Ctx, apply_rope, dtype_of, linear, rms_norm
 
 NEG_INF = -1e30
 
@@ -222,3 +234,105 @@ def gqa_cache_init(cfg, batch: int, max_len: int, stacked: int, device=None):
     if "kv_pos" in out:
         out["kv_pos"].fill_(-1)  # -1 = empty slot
     return out
+
+
+# ---------------------------------------------------------------------------
+# MLA block (DeepSeek-V2): naive prefill / training path + absorbed decode
+# ---------------------------------------------------------------------------
+
+
+def mla_params(ctx: Ctx, cfg, stacked: Optional[int] = None):
+    m, d, H = cfg.mla, cfg.d_model, cfg.n_heads
+    lead = () if stacked is None else (stacked,)
+    la = () if stacked is None else ("layers",)
+    qk = m.qk_nope_dim + m.qk_rope_dim
+    return {
+        "w_dq": ctx.param(lead + (d, m.q_lora_rank), la + ("embed", "lora")),
+        "q_norm": ctx.param(lead + (m.q_lora_rank,), la + ("lora",), init="ones"),
+        "w_uq": ctx.param(lead + (m.q_lora_rank, H, qk), la + ("lora", "heads", "qk_dim")),
+        "w_dkv": ctx.param(lead + (d, m.kv_lora_rank + m.qk_rope_dim), la + ("embed", "lora")),
+        "kv_norm": ctx.param(lead + (m.kv_lora_rank,), la + ("lora",), init="ones"),
+        "w_uk": ctx.param(lead + (m.kv_lora_rank, H, m.qk_nope_dim),
+                          la + ("lora", "heads", "qk_dim")),
+        "w_uv": ctx.param(lead + (m.kv_lora_rank, H, m.v_head_dim),
+                          la + ("lora", "heads", "head_dim")),
+        "wo": ctx.param(lead + (H, m.v_head_dim, d), la + ("heads", "head_dim", "embed")),
+    }
+
+
+def mla_forward(cfg, p, x, *, positions=None, cache=None, decode=False):
+    """Returns (out [B,S,d], cache_or_None).
+
+    - prefill: the naive form through the flash kernel; an empty cache's
+      ``c_kv`` [B,Smax,kv_lora] and ``k_pe`` [B,Smax,rope] get slots
+      0..S-1 in place.
+    - decode: x is [B,1,d]; the new ``c_kv`` and roped ``k_pe`` are written
+      in place at slot ``min(pos, Smax-1)``, the absorbed form attends to
+      slots 0..pos, and pos advances.
+    """
+    m = cfg.mla
+    B, S, d = x.shape
+    H = cfg.n_heads
+    scale = (m.qk_nope_dim + m.qk_rope_dim) ** -0.5
+    if positions is None:
+        positions = torch.arange(S, device=x.device)[None, :]
+
+    cq = rms_norm(linear(x, p["w_dq"]), p["q_norm"], cfg.norm_eps)
+    q = _heads(cq, p["w_uq"])
+    q_nope, q_pe = q[..., : m.qk_nope_dim], q[..., m.qk_nope_dim:]
+    kv_a = linear(x, p["w_dkv"])  # [B,S,kv_lora+rope]
+    c_kv = rms_norm(kv_a[..., : m.kv_lora_rank], p["kv_norm"], cfg.norm_eps)
+    k_pe = kv_a[..., m.kv_lora_rank:][:, :, None, :]  # [B,S,1,rope], shared by the heads
+
+    if not decode:
+        q_pe = apply_rope(q_pe, positions, cfg.rope_theta)
+        k_pe = apply_rope(k_pe, positions, cfg.rope_theta)
+        k_nope = _heads(c_kv, p["w_uk"])
+        v = _heads(c_kv, p["w_uv"])
+        k_full = torch.cat([k_nope, k_pe.expand(B, S, H, m.qk_rope_dim)], dim=-1)
+        q_full = torch.cat([q_nope, q_pe], dim=-1)
+        out = ops.flash_attention(q_full, k_full, v, causal=True)  # scale: D^-0.5 of q_full
+        if cache is not None:
+            cache["c_kv"][:, :S] = c_kv.to(cache["c_kv"].dtype)
+            cache["k_pe"][:, :S] = k_pe[:, :, 0].to(cache["k_pe"].dtype)
+        return _out_proj(out, p["wo"]), cache
+
+    # ---- absorbed decode
+    pos = cache["pos"]  # [B] absolute position of this query token
+    q_pe = apply_rope(q_pe, pos[:, None], cfg.rope_theta)
+    k_pe = apply_rope(k_pe, pos[:, None], cfg.rope_theta)
+    Smax = cache["c_kv"].shape[1]
+    slot = torch.clamp(pos, max=Smax - 1).long()
+    rows = torch.arange(B, device=x.device)
+    cache["c_kv"][rows, slot] = c_kv[:, 0].to(cache["c_kv"].dtype)
+    cache["k_pe"][rows, slot] = k_pe[:, 0, 0].to(cache["k_pe"].dtype)
+    dt = x.dtype
+    c_all = cache["c_kv"].to(dt)
+    q_abs = torch.einsum("bshk,lhk->bshl", q_nope, p["w_uk"].to(dt))  # [B,1,H,kv_lora]
+    s_nope = torch.einsum("bshl,bkl->bhsk", q_abs.float(), c_all.float())
+    s_pe = torch.einsum("bshr,bkr->bhsk", q_pe.float(), cache["k_pe"].float())
+    s = (s_nope + s_pe) * scale  # [B,H,1,Smax]
+    valid = torch.arange(Smax, device=x.device)[None] <= pos[:, None]
+    s = torch.where(valid[:, None, None, :], s, torch.full_like(s, NEG_INF))
+    prob = torch.softmax(s, dim=-1)
+    ctx_l = torch.einsum("bhsk,bkl->bshl", prob.to(dt), c_all)
+    out = torch.einsum("bshl,lhk->bshk", ctx_l, p["w_uv"].to(dt))
+    new_cache = dict(cache)
+    new_cache["pos"] = pos + 1
+    return _out_proj(out, p["wo"]), new_cache
+
+
+def mla_cache_spec(cfg, batch: int, max_len: int, stacked: int):
+    """{name: (shape, dtype)} of the stacked-by-layer MLA cache."""
+    m = cfg.mla
+    dt = dtype_of(cfg.dtype)
+    return {
+        "c_kv": ((stacked, batch, max_len, m.kv_lora_rank), dt),
+        "k_pe": ((stacked, batch, max_len, m.qk_rope_dim), dt),
+        "pos": ((stacked, batch), torch.int32),
+    }
+
+
+def mla_cache_init(cfg, batch: int, max_len: int, stacked: int, device=None):
+    return {k: torch.zeros(shape, dtype=dt, device=device)
+            for k, (shape, dt) in mla_cache_spec(cfg, batch, max_len, stacked).items()}

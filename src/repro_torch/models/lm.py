@@ -1,16 +1,25 @@
-"""Decoder-LM assembly for training and serving (the port of the GQA
-part of ``repro/models/lm.py``).
+"""Decoder-LM assembly for training and serving (the port of
+``repro/models/lm.py`` without RWKV).
 
 The layer stack is organized as *segments*, runs of structurally identical
 blocks whose params are stacked on a leading layer axis, as in the
 reference; the port runs a segment as a Python loop over layers and takes
 each stacked leaf apart with one ``unbind`` (whose backward stacks the
-layers' gradients once). The GQA blocks are ported, full or sliding-window,
-with RMSNorm or LayerNorm and a SwiGLU or GELU MLP or a mixture of experts
-(after ``first_k_dense`` dense blocks of ``dense_d_ff``); each block
+layers' gradients once). The GQA blocks (full or sliding-window) and the
+MLA blocks (DeepSeek-V2) are ported, with RMSNorm or LayerNorm and a
+SwiGLU or GELU MLP or a mixture of experts (after ``first_k_dense`` dense
+blocks of ``dense_d_ff``, each kind a segment of its own); each block
 returns its router's load-balance loss, summed over the layers, and
-``lm_loss`` adds ``router_aux_weight * aux / n_layers``. MLA, RWKV and the
-vision stub raise (ROADMAP Queue 1, item 15).
+``lm_loss`` adds ``router_aux_weight * aux / n_layers``. RWKV raises
+(ROADMAP Queue 1, item 15).
+
+The vision stub (Phi-3-vision) prepends ``patch_embed @ patch_proj`` to the
+token embeddings; the patch positions carry no loss. ``lm_prefill`` sets
+each cache's ``pos`` to the length it prefilled, patches included, so the
+first decode step writes and ropes at P + S. The reference sets ``pos`` to
+the token count S, so its first decode step after P patches overwrites a
+live cache slot and ropes the query P positions early (ROADMAP Queue 3,
+C6); the two agree wherever there are no patches.
 
 Training differentiates ``lm_loss`` with autograd. ``cfg.remat`` is the
 reference's ``_remat`` per block, through ``torch.utils.checkpoint``:
@@ -20,7 +29,8 @@ runs again in the backward pass; "block" (the default) saves what
 without a batch dimension: here the 2-D ``aten.mm``s (the q / k / v / o
 projections, the router, the MoE's one-hot dispatch and combine) and the
 SwiGLU kernel's output (its three products are such dots in the
-reference's ``mlp_forward``). The attention core, the experts' batched
+reference's ``mlp_forward``); an MLA block's six projections are such
+products too. The attention core, the experts' batched
 products and the norms are recomputed, so under "block" the flash kernel
 launches twice per layer and step and the SwiGLU kernel once; under
 "full" both twice. Values are the same at every setting.
@@ -42,7 +52,7 @@ from torch.utils.checkpoint import CheckpointPolicy, checkpoint, create_selectiv
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models import attention as attn
 from repro_torch.models import mlp as mlp_mod
-from repro_torch.models.base import Ctx, apply_norm, dtype_of, norm_params
+from repro_torch.models.base import Ctx, apply_norm, dtype_of, linear, norm_params
 from repro_torch.utils import tree_unstack
 
 
@@ -59,9 +69,9 @@ def segments(cfg: ModelConfig) -> List[Tuple[str, int]]:
     """Return [(block_kind, count), ...] covering cfg.n_layers."""
     if cfg.ssm is not None:
         raise _not_ported(f"the {cfg.ssm.kind} block")
-    if cfg.attn_kind != "gqa":
+    if cfg.attn_kind not in ("gqa", "mla"):
         raise _not_ported(f"attention kind '{cfg.attn_kind}'")
-    if cfg.frontend != "none":
+    if cfg.frontend not in ("none", "vision_stub"):
         raise _not_ported(f"the '{cfg.frontend}' frontend")
     if cfg.moe is not None and cfg.moe.num_experts > 0:
         k = cfg.moe.first_k_dense
@@ -73,7 +83,8 @@ def _block_params(ctx: Ctx, cfg: ModelConfig, kind: str, count: int):
     p = {
         "ln1": norm_params(ctx, cfg, cfg.d_model, stacked=count),
         "ln2": norm_params(ctx, cfg, cfg.d_model, stacked=count),
-        "attn": attn.gqa_params(ctx, cfg, stacked=count),
+        "attn": (attn.mla_params if cfg.attn_kind == "mla" else attn.gqa_params)(
+            ctx, cfg, stacked=count),
     }
     if kind == "moe":
         p["mlp"] = mlp_mod.moe_params(ctx, cfg, stacked=count)
@@ -89,8 +100,8 @@ def _block_apply(cfg, kind, p, x, cache, *, decode, positions):
     """One block. Returns (x, new_cache, aux); aux is None for a dense
     block (the reference's 0)."""
     h = apply_norm(cfg, x, p["ln1"])
-    y, new_cache = attn.gqa_forward(cfg, p["attn"], h, positions=positions, cache=cache,
-                                    decode=decode)
+    forward = attn.mla_forward if cfg.attn_kind == "mla" else attn.gqa_forward
+    y, new_cache = forward(cfg, p["attn"], h, positions=positions, cache=cache, decode=decode)
     x = x + y
     h = apply_norm(cfg, x, p["ln2"])
     aux = None
@@ -168,17 +179,22 @@ def lm_params(ctx: Ctx, cfg: ModelConfig):
     }
     if not cfg.tie_embeddings:
         p["unembed"] = ctx.param((d, V), ("embed", "vocab"))
+    if cfg.frontend == "vision_stub":
+        p["patch_proj"] = ctx.param((d, d), ("embed", "embed2"))
     for i, (kind, count) in enumerate(segments(cfg)):
         p[f"seg{i}"] = _block_params(ctx, cfg, kind, count)
     return p
 
 
 def _embed_inputs(cfg, params, batch):
-    """Token embedding. Returns x [B,S,d] in the activation dtype."""
-    if "patch_embed" in batch:
-        raise _not_ported("the vision stub's patch embeddings")
+    """Token (and, for the vision stub, patch) embedding. Returns x
+    [B, P + S, d] in the activation dtype, the P patches first."""
     tokens = batch["tokens"].long()
-    return params["embed"][tokens].to(dtype_of(cfg.dtype))
+    x = params["embed"][tokens].to(dtype_of(cfg.dtype))
+    if cfg.frontend == "vision_stub" and "patch_embed" in batch:
+        patches = linear(batch["patch_embed"].to(x.dtype), params["patch_proj"])
+        x = torch.cat([patches, x], dim=1)
+    return x
 
 
 def lm_forward(cfg, params, batch, *, caches=None, decode=False):
@@ -281,19 +297,23 @@ def lm_loss(cfg, params, batch):
 
 
 def lm_cache(cfg, batch: int, max_len: int, device=None):
+    """Each segment's cache by attention kind (the reference's
+    ``_seg_cache_init``)."""
+    init = attn.mla_cache_init if cfg.attn_kind == "mla" else attn.gqa_cache_init
     return {
-        f"seg{i}": attn.gqa_cache_init(cfg, batch, max_len, count, device=device)
+        f"seg{i}": init(cfg, batch, max_len, count, device=device)
         for i, (kind, count) in enumerate(segments(cfg))
     }
 
 
 def lm_prefill(cfg, params, batch, max_len: int):
-    """Run the prompt, fill caches, return (last_logits [B,V] f32, caches)."""
-    B, S = batch["tokens"].shape
+    """Run the prompt, fill caches, return (last_logits [B,V] f32, caches).
+    ``pos`` becomes the prefilled length, patches included (C6)."""
+    B = batch["tokens"].shape[0]
     caches = lm_cache(cfg, B, max_len, device=params["embed"].device)
     h, caches, _ = lm_forward(cfg, params, batch, caches=caches)
     for c in caches.values():
-        c["pos"].fill_(S)
+        c["pos"].fill_(h.shape[1])
     logits = unembed(cfg, params, h[:, -1:])[:, 0]
     return logits, caches
 

@@ -433,6 +433,52 @@ def test_flash_attention_bf16_refuses_what_the_kernel_does_not_take(device):
             fa.flash_attention_bhsd(*args)
 
 
+# every (D, Dv) the kernels take (csrc/flash_attention.cu's FLASH_PAIRS)
+FLASH_HEAD_PAIRS = [(32, 32), (64, 32), (64, 64), (96, 32), (96, 64), (96, 96), (128, 32),
+                    (128, 64), (128, 96), (128, 128), (192, 32), (192, 64), (192, 96), (192, 128)]
+# MLA's prefill (D 192, Dv 128; 128 heads, no GQA): serving, past one tile,
+# packed; Phi-3-vision's (D = Dv = 96, 32 heads): 256 patches + 16 tokens;
+# (B, Sq, Skv, Hq, Hkv, D, Dv)
+FLASH_DV_SHAPES = [(4, 16, 16, 128, 128, 192, 128), (1, 300, 300, 8, 8, 192, 128),
+                   (1, 13, 13, 4, 1, 192, 128), (1, 65, 200, 4, 2, 192, 128),
+                   (4, 272, 272, 32, 32, 96, 96), (1, 100, 100, 4, 2, 96, 96),
+                   (2, 9, 9, 8, 1, 96, 96)]
+
+
+def _attn_inputs_dv(B, Sq, Skv, Hq, Hkv, D, Dv, dtype, device, seed=0):
+    g = torch.Generator(device=device).manual_seed(seed)
+    return [torch.randn(shape, generator=g, device=device).to(dtype)
+            for shape in ((B * Hq, Sq, D), (B * Hkv, Skv, D), (B * Hkv, Skv, Dv))]
+
+
+def _check_flash(q, k, v, dtype, **kw):
+    before = fa.launches
+    got = fa.flash_attention_bhsd(q, k, v, **kw)
+    torch.cuda.synchronize()
+    assert fa.launches == before + 1
+    assert got.dtype == dtype and got.shape == (q.shape[0], q.shape[1], v.shape[2])
+    want = flash_attention_ref(q, k, v, **kw)
+    assert torch.max(torch.abs(got.float() - want.float())).item() < FLASH_TOL[dtype]
+    if dtype == torch.bfloat16:
+        assert _row_rel_err(got, want) < FLASH_BF16_ROW_TOL
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("D,Dv", FLASH_HEAD_PAIRS)
+def test_flash_attention_every_head_dim_pair_matches_plain(device, D, Dv, dtype):
+    q, k, v = _attn_inputs_dv(1, 70, 70, 4, 2, D, Dv, dtype, device, seed=D + Dv)
+    _check_flash(q, k, v, dtype, causal=True)
+    _check_flash(q, k, v, dtype, causal=False, window=32)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("B,Sq,Skv,Hq,Hkv,D,Dv", FLASH_DV_SHAPES)
+def test_flash_attention_mla_and_vision_shapes_match_plain(device, B, Sq, Skv, Hq, Hkv, D, Dv,
+                                                          dtype):
+    q, k, v = _attn_inputs_dv(B, Sq, Skv, Hq, Hkv, D, Dv, dtype, device, seed=Sq)
+    _check_flash(q, k, v, dtype, causal=True)
+
+
 def test_flash_attention_bshd_wrapper_on_the_card(device):
     g = torch.Generator(device=device).manual_seed(3)
     q = torch.randn(2, 16, 8, 64, generator=g, device=device)
@@ -452,6 +498,11 @@ def test_flash_attention_refuses_bad_inputs(device):
                                 v[..., :48].contiguous())  # D = 48 has no kernel
     with pytest.raises(ValueError):
         fa.flash_attention_bhsd(q.transpose(1, 2), k, v)
+    q, k, v = _attn_inputs_dv(1, 16, 16, 2, 1, 96, 128, torch.bfloat16, device)
+    with pytest.raises(ValueError):
+        fa.flash_attention_bhsd(q, k, v)  # Dv > D
+    with pytest.raises(ValueError):
+        fa.flash_attention_bhsd(q, k, v[..., :48].contiguous())  # Dv = 48 has no kernel
 
 
 # swiglu: the reference sweep (weights x 0.1), then Qwen3-8B's widths at the
@@ -881,6 +932,21 @@ def test_flash_attention_grad_matches_plain_autograd(device, B, S, Hq, Hkv, D, w
     launches, backs = fa.launches, fa.backward_calls
     gaps = _grad_gaps(lambda *t: fa.flash_attention_grad(*t, causal=True, window=window),
                       lambda *t: flash_attention_ref(*t, causal=True, window=window), [q, k, v], 1)
+    torch.cuda.synchronize()
+    assert (fa.launches, fa.backward_calls) == (launches + 1, backs + 1)
+    assert max(gaps) < GRAD_RTOL[dtype], gaps
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("B,S,Hq,Hkv,D,Dv", [(2, 64, 16, 16, 192, 128), (1, 100, 8, 2, 192, 128),
+                                             (2, 272, 8, 8, 96, 96)])
+def test_flash_attention_grad_head_dims_match_plain_autograd(device, B, S, Hq, Hkv, D, Dv, dtype):
+    """MLA's (D 192, Dv 128) and Phi-3-vision's (D 96) heads through the
+    custom op: dq and dk in D, dv in Dv."""
+    q, k, v = _attn_inputs_dv(B, S, S, Hq, Hkv, D, Dv, dtype, device, seed=S)
+    launches, backs = fa.launches, fa.backward_calls
+    gaps = _grad_gaps(lambda *t: fa.flash_attention_grad(*t, causal=True),
+                      lambda *t: flash_attention_ref(*t, causal=True), [q, k, v], 1)
     torch.cuda.synchronize()
     assert (fa.launches, fa.backward_calls) == (launches + 1, backs + 1)
     assert max(gaps) < GRAD_RTOL[dtype], gaps

@@ -4,7 +4,8 @@
 reference's jnp oracles and its Pallas kernels in interpret mode, on the
 same numpy inputs. Shapes and tolerances are the reference's
 (``tests/test_kernels.py``): f32 2e-5 for attention and 1e-4 for SwiGLU,
-bf16 5e-2. The hand-written CUDA kernels are held to the plain versions on
+bf16 5e-2; at a v head dim apart from q's (MLA) and at D = 96, 1e-5 in f32
+with the gradients. The hand-written CUDA kernels are held to the plain versions on
 the card by ``tests/test_torch_cuda.py`` and ``chip_smoke.py``."""
 
 import functools
@@ -120,6 +121,58 @@ def test_flash_attention_any_length_matches_oracle(S, dtype):
     assert _err(got, _oracle(rq, rk, rv)) < FLASH_TOL[dtype]
 
 
+# q/k head dim D apart from v's Dv: MLA's prefill (D = 192 = 128 + 64 rope,
+# Dv = 128) at few heads and short lengths, with GQA and a query shorter
+# than the keys; Phi-3-vision's D = Dv = 96; (B, Sq, Skv, Hq, Hkv, D, Dv)
+DV_SHAPES = [(2, 16, 16, 4, 4, 192, 128), (1, 40, 40, 4, 1, 192, 128), (1, 24, 70, 2, 2, 192, 64),
+             (2, 33, 33, 4, 4, 96, 96), (1, 20, 20, 4, 2, 96, 32)]
+DV_TOL = 1e-5  # f32: the same sums in another order
+
+
+def _qkv_dv(B, Sq, Skv, Hq, Hkv, D, Dv, seed=0):
+    rng = np.random.default_rng(seed)
+    shapes = ((B, Sq, Hq, D), (B, Skv, Hkv, D), (B, Skv, Hkv, Dv))
+    return [_pair(rng.standard_normal(s).astype(np.float32), "float32") for s in shapes]
+
+
+def _oracle_bshd(q, k, v):
+    """The reference's jnp oracle (causal) on BSHD inputs with v's own Dv."""
+    B, Sq, Hq, _ = q.shape
+    Dv = v.shape[-1]
+    out = r_ref.flash_attention_ref(_bhsd(q), _bhsd(k), _bhsd(v), causal=True)
+    return out.reshape(B, Hq, Sq, Dv).transpose(0, 2, 1, 3)
+
+
+@pytest.mark.parametrize("B,Sq,Skv,Hq,Hkv,D,Dv", DV_SHAPES)
+def test_flash_attention_head_dims_match_reference_oracle(B, Sq, Skv, Hq, Hkv, D, Dv):
+    """The plain version at Dv != D and at D = 96 against the reference's
+    oracle: the output [B, Sq, Hq, Dv], and the gradients of the custom op
+    (plain torch on the CPU) against ``jax.grad`` of the oracle, each within
+    1e-5 of its max |value|."""
+    (rq, pq), (rk, pk), (rv, pv) = _qkv_dv(B, Sq, Skv, Hq, Hkv, D, Dv, seed=D + Dv)
+    got = p_ops.flash_attention(pq, pk, pv, causal=True)
+    oracle = jax.jit(_oracle_bshd)(rq, rk, rv)
+    assert got.dtype == torch.float32 and got.shape == (B, Sq, Hq, Dv)
+    assert _err(got, oracle) < DV_TOL
+    cot = np.random.default_rng(1).standard_normal((B, Sq, Hq, Dv)).astype(np.float32)
+    want = jax.jit(jax.grad(lambda q, k, v: jnp.sum(_oracle_bshd(q, k, v) * cot),
+                            argnums=(0, 1, 2)))(rq, rk, rv)
+    ts = [t.clone().requires_grad_(True) for t in (pq, pk, pv)]
+    out = p_ops.flash_attention(*ts, causal=True)
+    grads = torch.autograd.grad(out, ts, torch.from_numpy(cot))
+    for w, g in zip(want, grads):
+        assert g.shape == w.shape
+        assert _err(g, w) < DV_TOL * float(np.max(np.abs(np.asarray(w))))
+
+
+def test_flash_attention_head_dim_96_matches_pallas_interpret():
+    """D = Dv = 96 (Phi-3-vision's heads) through the Pallas kernel itself."""
+    (rq, pq), (rk, pk), (rv, pv) = _qkv_dv(1, 128, 128, 2, 2, 96, 96, seed=7)
+    got = p_ops.flash_attention(pq, pk, pv, causal=True)
+    pallas = r_ops.flash_attention(rq, rk, rv, causal=True, interpret=True)
+    assert _err(got, pallas) < DV_TOL
+
+
 def _swiglu_inputs(M, d, F, dtype, seed=0):
     rng = np.random.default_rng(seed)
     x = rng.standard_normal((M, d)).astype(np.float32)
@@ -164,12 +217,25 @@ def test_cpu_calls_do_not_count_as_launches():
     assert (p_fa.launches, p_sw.launches) == before
 
 
+@pytest.mark.parametrize("D,Dv", [(192, 128), (96, 96), (64, 64)])
+def test_flash_attention_op_fake_gives_the_v_head_dim(D, Dv):
+    """The custom op's shape rule (``register_fake``): [BH, Sq, Dv]."""
+    from torch._subclasses.fake_tensor import FakeTensorMode
+
+    with FakeTensorMode():
+        q, k, v = torch.empty(8, 5, D), torch.empty(4, 7, D), torch.empty(4, 7, Dv)
+        out = p_fa.flash_attention_op(q, k, v, True, 0, D ** -0.5)
+    assert tuple(out.shape) == (8, 5, Dv) and out.dtype == torch.float32
+
+
 def test_wrappers_refuse_bad_inputs():
     q = torch.zeros(4, 8, 32)
     with pytest.raises(ValueError):
         p_fa.flash_attention_bhsd(q, torch.zeros(3, 8, 32), torch.zeros(3, 8, 32))  # 4 % 3
     with pytest.raises(ValueError):
         p_fa.flash_attention_bhsd(q, torch.zeros(2, 8, 16), torch.zeros(2, 8, 16))  # D differs
+    with pytest.raises(ValueError):
+        p_fa.flash_attention_bhsd(q, torch.zeros(2, 8, 32), torch.zeros(2, 7, 16))  # Skv differs
     with pytest.raises(ValueError):
         p_sw.swiglu_fused(torch.zeros(4, 32), torch.zeros(32, 64), torch.zeros(32, 64),
                           torch.zeros(32, 64))  # w_down not [F, d]

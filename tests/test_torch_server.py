@@ -66,13 +66,13 @@ def test_rec3_min_fit_under_90pct_failure_on_the_port():
 @pytest.mark.parametrize(
     "build,item",
     [
-        (lambda: p_configs.get_reduced("deepseek-v2-236b"), 15),
+        (lambda: p_configs.get_reduced("zamba2-7b"), 15),
         (lambda: p_configs.get_config("rwkv6-1.6b"), 15),
-        (lambda: p_configs.get_reduced("phi-3-vision-4.2b"), 15),
+        (lambda: p_configs.get_reduced("whisper-base"), 15),
         (lambda: p_train.train("qwen3-8b", steps=1, mesh_kind="prod", device="cpu"), 16),
         (lambda: p_steps.build_outer_sync(p_configs.get_reduced("qwen3-8b"), None, None), 16),
     ],
-    ids=["deepseek-v2-236b", "rwkv6-1.6b", "phi-3-vision-4.2b", "train-prod-mesh", "outer-sync"],
+    ids=["zamba2-7b", "rwkv6-1.6b", "whisper-base", "train-prod-mesh", "outer-sync"],
 )
 def test_configs_outside_the_slice_raise(build, item):
     with pytest.raises(NotImplementedError, match=rf"ROADMAP Queue 1, item {item}\)"):
