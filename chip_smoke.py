@@ -9,7 +9,7 @@ Run from the repository root. Phases, each printing one JSON line:
              defaults: the port's CNN task turns TF32 off in its own scope);
 2. build     every ``src/repro_torch/kernels/csrc/*.cu``, one nvcc each, in
              parallel, into ``build/repro_torch/``; registers, shared memory
-             and spill bytes of the bf16 flash_attention (each of its 14
+             and spill bytes of the bf16 flash_attention (each of its 15
              (D, Dv) instances) and swiglu kernels, which must not spill;
 3. kernel    fedavg_reduce against its plain PyTorch version on the card, at
              the reference test shapes and as the main path calls it (one
@@ -140,9 +140,11 @@ Run from the repository root. Phases, each printing one JSON line:
              S = 4096 prefill, Mixtral's windowed prefill (S = 5,016,
              window 4,096; SDPA with a boolean mask beside it), MLA's
              prefill at D 192 / Dv 128 (B = 4 x S = 16 and B = 1 x S =
-             4,096, 128 heads) and Phi-3-vision's at D 96 (B = 4 x S = 272,
-             32 heads) in f32 and bf16, timed, with the custom op's backward
-             at mla_train's shape (B = 2 x S = 256) and Phi-3-vision's
+             4,096, 128 heads), Phi-3-vision's at D 96 (B = 4 x S = 272,
+             32 heads) and Zamba2's at D = Dv = 112 (B = 4 x S = 16 and
+             B = 1 x S = 4,096, 32 heads) in f32 and bf16, timed, with the
+             custom op's backward at mla_train's shape (B = 2 x S = 256),
+             Phi-3-vision's and hybrid_train's (B = 2 x S = 256, D 112)
              against autograd through the plain version, and swiglu
              at Qwen3-8B's widths for
              M = 1, 4, 7, 44, 56, 64, with the same timing fields as
@@ -178,11 +180,13 @@ Run from the repository root. Phases, each printing one JSON line:
              both 72) and backward passes (36), the device-idle share of
              one profiled step;
 25. lm_train_starcoder2
-             ``train("starcoder2-3b", reduced=False)`` under AdamW, 10 steps
-             checkpointing at step 8 (one 31.8 GB checkpoint: the machine
-             takes at most 45 GiB of disk writes a run), then a restart that
-             resumes from step 8: its losses against steps 9 and 10 of the
-             uninterrupted run, the loss falling, save / restore seconds;
+             ``train("starcoder2-3b", reduced=False, n_layers=15)`` under
+             AdamW (15 of 30 layers: the whole model's 31.8 GB checkpoint
+             took 133 s to write and read back), 10 steps checkpointing at
+             step 8 (the machine takes at most 45 GiB of disk writes a run),
+             then a restart that resumes from step 8: its losses against
+             steps 9 and 10 of the uninterrupted run, the loss falling,
+             save / restore seconds;
 26. lm_fl     ``FederatedServer`` on ``lm_task`` (reduced Qwen3), 4 clients,
              2 rounds, batched and sequential: fedavg_reduce once per round
              on the batched engine, the Histories equal by the CPU test's
@@ -238,8 +242,35 @@ Run from the repository root. Phases, each printing one JSON line:
              within 1e-4 of max |logit| in f32 (the cache position after
              patches, C6); the bf16 gap read at 2, 8, 16 and 32 layers;
              flash_attention at D 96 32 a prefill, swiglu 32 a prefill and
-             a step; then
-             ``lm_phases``, the seconds of phases 23-33 against their
+             a step;
+34. rwkv_serving
+             ``Server("rwkv6-1.6b", reduced=False)`` whole (24 layers, d
+             2,048, 1.58 B params) on serve.py:main's 8 requests (the
+             prompts pad to 8-15 tokens: the step-by-step time mix), no
+             kernel launched; then B = 1, a 512-token prompt (the chunked
+             form, 4 chunks of 128) and 8 teacher-forced decode steps
+             against one forward over 640 tokens (positions 511-519): in
+             bf16 timed, the gap read at 2, 8 and 24 layers
+             (``RECURRENT_BF16_NOTE``), and with the same params in f32
+             within ``RECURRENT_F32_RTOL`` of max |logit|;
+35. rwkv_train
+             RWKV6 whole, 2 x 256 tokens: one loss and gradient, every
+             gradient finite, then ``train()`` for 3 AdamW steps: s/step,
+             tokens/s, peak memory;
+36. hybrid_serving
+             ``Server("zamba2-7b", reduced=False)`` whole (81 Mamba2 layers,
+             the shared block applied 13 times, a 3-layer tail; 6.75 B
+             params) on the same 8 requests: flash_attention at D = Dv =
+             112 13 a prefill and 0 a decode step, swiglu 13 each; then the
+             same 512-token check, the bf16 gap read at 6, 24 and 81 layers;
+37. hybrid_train
+             Zamba2 whole, Adafactor, 2 x 256 tokens: loss, gradient norm
+             and the shared block's seven weights' gradient norms through the
+             kernels against the plain versions (``TRAIN_RTOL``; each
+             kernel zeroed must fail; every gradient finite: C7), then
+             ``train()`` for 3 steps: s/step, tokens/s, peak, launches a
+             step (flash 26, swiglu 13); then
+             ``lm_phases``, the seconds of phases 23-37 against their
              budget.
 
 Then the kernels line, the card's name and power limit as nvidia-smi gives
@@ -253,6 +284,7 @@ from __future__ import annotations
 import gc
 import json
 import math
+import os
 import statistics
 import subprocess
 import sys
@@ -1847,12 +1879,15 @@ def swiglu_work(M, d, F, itemsize) -> tuple:
 # ring + mma.sync, and its cast launch), held to zero spills at build time
 NEW_KERNELS = ("flash_kernel_wgmma", "swiglu_kernel_mma", "swiglu_cast_kernel")
 # every (D, Dv) flash_attention takes (csrc/flash_attention.cu's FLASH_PAIRS)
-FLASH_HEAD_PAIRS = ((32, 32), (64, 32), (64, 64), (96, 32), (96, 64), (96, 96), (128, 32),
-                    (128, 64), (128, 96), (128, 128), (192, 32), (192, 64), (192, 96), (192, 128))
+FLASH_HEAD_PAIRS = ((32, 32), (64, 32), (64, 64), (96, 32), (96, 64), (96, 96), (112, 112),
+                    (128, 32), (128, 64), (128, 96), (128, 128), (192, 32), (192, 64), (192, 96),
+                    (192, 128))
 # MLA's prefill heads (DeepSeek-V2: 128 heads, q/k 128 + 64 rope, v 128) and
-# Phi-3-vision's (32 heads of 96; 256 patches before a 16-token prompt)
+# Phi-3-vision's (32 heads of 96; 256 patches before a 16-token prompt) and
+# Zamba2's shared attention (32 heads of 3584 / 32 = 112)
 MLA_HEADS, MLA_D, MLA_DV = 128, 192, 128
 VLM_HEADS, VLM_D, VLM_PATCHES = 32, 96, 256
+ZAMBA_HEADS, ZAMBA_D = 32, 112
 VLM_PREFILL_S = VLM_PATCHES + 16
 KNOWN_ENTRIES = NEW_KERNELS + ("flash_kernel_simt", "swiglu_kernel_simt")
 
@@ -1949,14 +1984,16 @@ def _timings(torch, kernel, plain, library, work, dtype, *, iters=100, reps=7):
 
 
 # the attention backward at MLA's training shape (mla_train: B = 2 x S =
-# 256, 128 heads, D 192 / Dv 128) and Phi-3-vision's prefill (D 96):
+# 256, 128 heads, D 192 / Dv 128), Phi-3-vision's prefill (D 96) and
+# Zamba2's training shape (hybrid_train: B = 2 x S = 256, 32 heads, D 112):
 # (B, S, Hq, Hkv, D, Dv)
 HEAD_DIM_BACKWARD = (("mla_train", (2, 256, MLA_HEADS, MLA_HEADS, MLA_D, MLA_DV)),
                      ("vlm_prefill", (4, VLM_PREFILL_S, VLM_HEADS, VLM_HEADS, VLM_D, VLM_D)))
+ZAMBA_BACKWARD = (("zamba_train", (2, 256, ZAMBA_HEADS, ZAMBA_HEADS, ZAMBA_D, ZAMBA_D)),)
 
 
-def head_dim_backward(torch, gen) -> dict:
-    """flash_attention's custom op at the new head dims, f32 and bf16: the
+def head_dim_backward(torch, gen, groups) -> dict:
+    """flash_attention's custom op at the head dims of ``groups``, f32 and bf16: the
     output and every input gradient against autograd through the plain
     version, relative to its max |value| (``GRAD_RTOL``); bf16 forward and
     backward timed beside the bound, the plain version and SDPA's."""
@@ -1966,7 +2003,7 @@ def head_dim_backward(torch, gen) -> dict:
     from repro_torch.kernels.ref import flash_attention_ref
 
     out = {}
-    for group, (B, S, Hq, Hkv, D, Dv) in HEAD_DIM_BACKWARD:
+    for group, (B, S, Hq, Hkv, D, Dv) in groups:
         for dt in (torch.float32, torch.bfloat16):
             name = str(dt).removeprefix("torch.")
             q = torch.randn(B * Hq, S, D, generator=gen, device="cuda").to(dt)
@@ -2041,19 +2078,28 @@ def phase_lm_kernels(torch):
                       ((4, VLM_PREFILL_S, VLM_PREFILL_S, VLM_HEADS, VLM_HEADS, VLM_D, VLM_D),
                        "vlm_prefill")]
     flash_cases += [(shape, dt, 0, group) for shape, group in head_dim_cases for dt in (f32, bf16)]
+    # Zamba2's shared attention at D = Dv = 112: serve.py:main's batch, then
+    # one long causal prompt; drawn from a generator of their own, so that
+    # the cases before and after them keep their inputs
+    zgen = torch.Generator(device=dev).manual_seed(112)
+    zamba_cases = [((4, 16, 16, ZAMBA_HEADS, ZAMBA_HEADS, ZAMBA_D, ZAMBA_D), dt, 0, "zamba_prefill")
+                   for dt in (f32, bf16)]
+    zamba_cases += [((1, 4096, 4096, ZAMBA_HEADS, ZAMBA_HEADS, ZAMBA_D, ZAMBA_D), dt, 0,
+                     "zamba_long_prefill") for dt in (f32, bf16)]
     timed_groups = ("serving", "long_prefill", "window_prefill", "mla_prefill",
-                    "mla_long_prefill", "vlm_prefill")
+                    "mla_long_prefill", "vlm_prefill", "zamba_prefill", "zamba_long_prefill")
     tol = {f32: 2e-5, bf16: 5e-2}
     # per query row, relative to that row's max |plain|: a late row of the
     # S = 4096 prefill averages ~1,500 keys and is only ~0.02 in size, below
     # the absolute bf16 tolerance; bf16 rounds each output once (2**-8)
     row_tol = {f32: 1e-3, bf16: 1e-2}
-    for shape, dt, window, group in flash_cases:
+    for (shape, dt, window, group), g in ([(c, gen) for c in flash_cases]
+                                          + [(c, zgen) for c in zamba_cases]):
         B, Sq, Skv, Hq, Hkv, D, *rest = shape
         Dv = rest[0] if rest else D
-        q = torch.randn(B * Hq, Sq, D, generator=gen, device=dev).to(dt)
-        k = torch.randn(B * Hkv, Skv, D, generator=gen, device=dev).to(dt)
-        v = torch.randn(B * Hkv, Skv, Dv, generator=gen, device=dev).to(dt)
+        q = torch.randn(B * Hq, Sq, D, generator=g, device=dev).to(dt)
+        k = torch.randn(B * Hkv, Skv, D, generator=g, device=dev).to(dt)
+        v = torch.randn(B * Hkv, Skv, Dv, generator=g, device=dev).to(dt)
         kernel = lambda: fa.flash_attention_bhsd(q, k, v, causal=True, window=window)
         plain = lambda: flash_attention_ref(q, k, v, causal=True, window=window)
         got, want = kernel(), plain()
@@ -2092,7 +2138,9 @@ def phase_lm_kernels(torch):
             acc["timed"][group if dt == bf16 else f"{group}_f32"] = row
         emit("lm_kernels", **row)
         del q, k, v, got, want
-    out["flash_attention"]["head_dim_backward"] = head_dim_backward(torch, gen)
+    out["flash_attention"]["head_dim_backward"] = {
+        **head_dim_backward(torch, gen, HEAD_DIM_BACKWARD),
+        **head_dim_backward(torch, zgen, ZAMBA_BACKWARD)}
 
     swiglu_cases = [((M, d, F_), dt, "reference") for M, d, F_ in (
         (64, 32, 128), (128, 64, 256), (256, 128, 512)) for dt in (f32, bf16)]
@@ -2298,7 +2346,8 @@ def phase_full_width(torch, server):
 # LM training (phases 23-27)
 # --------------------------------------------------------------------------
 
-LM_BUDGET_S = 240.0  # phases 23-33 together
+LM_BUDGET_S = 300.0  # phases 23-37 together
+STARCODER_TRAIN_LAYERS = 15  # of 30 (see phase_lm_train_starcoder)
 TRAIN_B, TRAIN_S = 2, 256  # the training batch: 2 sequences of 256 tokens
 # kernel Function vs autograd through the plain version, relative to the
 # largest |value|: f32 sums in another order; bf16 also rounds P (flash) or
@@ -2581,12 +2630,15 @@ def phase_lm_train_qwen(torch):
 
 
 def phase_lm_train_starcoder(torch, tmp):
-    """``train("starcoder2-3b", reduced=False)`` under AdamW: a 10-step run
-    checkpointing at step 8, then a restart in the same directory that
-    resumes from step 8; its two losses against the uninterrupted run's
-    steps 9 and 10. One checkpoint (bf16 params, f32 moments) is 31.8 GB,
-    and the card's machine takes at most 45 GiB of disk writes a run, so the
-    run checkpoints once (``ckpt_every=8``)."""
+    """``train("starcoder2-3b", reduced=False, n_layers=15)`` under AdamW: a
+    10-step run checkpointing at step 8, then a restart in the same
+    directory that resumes from step 8; its two losses against the
+    uninterrupted run's steps 9 and 10. The card's machine takes at most
+    45 GiB of disk writes a run, so the run checkpoints once
+    (``ckpt_every=8``); the depth is cut to 15 of 30 layers to make room in
+    the script's time for the recurrent phases (the whole model's checkpoint,
+    bf16 params and f32 moments, is 31.8 GB and took 133 s to write and read
+    back)."""
     import shutil
 
     from repro_torch.launch import train as tr
@@ -2622,8 +2674,8 @@ def phase_lm_train_starcoder(torch, tmp):
             return out
 
     free_before = shutil.disk_usage(tmp).free
-    kw = dict(reduced=False, steps=10, batch=TRAIN_B, seq=TRAIN_S, ckpt_dir=tmp, ckpt_every=8,
-              log_every=100)
+    kw = dict(reduced=False, n_layers=STARCODER_TRAIN_LAYERS, steps=10, batch=TRAIN_B, seq=TRAIN_S,
+              ckpt_dir=tmp, ckpt_every=8, log_every=100)
     tr.build_train_step, tr.CheckpointManager = timed_build, TimedManager
     try:
         torch.cuda.reset_peak_memory_stats()
@@ -2635,7 +2687,7 @@ def phase_lm_train_starcoder(torch, tmp):
         resumed, _, resumed_launches = counted(torch, lambda: tr.train("starcoder2-3b", **kw))
     finally:
         tr.build_train_step, tr.CheckpointManager = build, manager
-    L = 30
+    L = STARCODER_TRAIN_LAYERS
     losses, tail = full["losses"], resumed["losses"]
     check(len(losses) == 10 and len(tail) == 2 and len(io["save_s"]) == 1
           and len(io["restore_s"]) == 1,
@@ -2648,7 +2700,8 @@ def phase_lm_train_starcoder(torch, tmp):
           and resumed_launches["flash_attention"] == 2 * 2 * L,
           f"lm_train starcoder2: launches {launches}, resumed {resumed_launches}")
     s_per_step = statistics.median(full_walls[1:])
-    row = {"arch": "starcoder2-3b", "optimizer": "adamw", "batch": TRAIN_B, "seq": TRAIN_S,
+    row = {"arch": "starcoder2-3b", "n_layers": L, "published_layers": 30, "optimizer": "adamw",
+           "batch": TRAIN_B, "seq": TRAIN_S,
            "losses": losses, "resumed_losses": tail, "resume_gap": gap, "resume_tol": RESUME_TOL,
            "resume_bitwise": tail == losses[8:], "step_walls_s": full_walls,
            "s_per_step": s_per_step, "tokens_per_s": TRAIN_B * TRAIN_S / s_per_step,
@@ -2845,13 +2898,16 @@ class RouteRecorder:
 
 
 def _traced_serving(torch, server, phase, per_prefill, per_decode):
-    """serve.py:main's 8 requests on ``server``, once with the router recorded
-    (tokens dropped per call) and once timed with the launches counted; each
-    prefill must launch (flash_attention, swiglu) ``per_prefill`` times and
-    each decode step ``per_decode``."""
+    """serve.py:main's 8 requests on ``server``, once with a MoE's router
+    recorded (tokens dropped per call) and once timed with the launches
+    counted; each prefill must launch (flash_attention, swiglu)
+    ``per_prefill`` times and each decode step ``per_decode``."""
+    import contextlib
+
     from repro_torch.launch.serve import example_requests
 
     cfg = server.cfg
+    moe = cfg.moe is not None and cfg.moe.num_experts > 0
     prefill, decode = server._prefill, server._decode
     calls = []
 
@@ -2873,9 +2929,12 @@ def _traced_serving(torch, server, phase, per_prefill, per_decode):
         return call
 
     drops = {"prefill": [], "decode": []}
-    with RouteRecorder(torch, cfg) as rec:
-        server._prefill = traced("prefill", _recorded(prefill, rec, drops["prefill"]))
-        server._decode = traced("decode", _recorded(decode, rec, drops["decode"]))
+    with RouteRecorder(torch, cfg) if moe else contextlib.nullcontext() as rec:
+        if moe:
+            server._prefill = traced("prefill", _recorded(prefill, rec, drops["prefill"]))
+            server._decode = traced("decode", _recorded(decode, rec, drops["decode"]))
+        else:  # the first run: a warm-up
+            server._prefill, server._decode = traced("prefill", prefill), traced("decode", decode)
         server.run(example_requests(cfg.vocab_size))
     server._prefill, server._decode = traced("prefill", prefill), traced("decode", decode)
     calls.clear()
@@ -2890,9 +2949,10 @@ def _traced_serving(torch, server, phase, per_prefill, per_decode):
     check(len(done) == 8 and all(len(r.generated) == 12 for r in done),
           f"{phase}: generated {[len(r.generated) for r in done]}")
     check(all(0 <= t < cfg.padded_vocab for r in done for t in r.generated), f"{phase}: tokens")
-    moe_layers = cfg.n_layers - cfg.moe.first_k_dense
-    check(all(len(d) == moe_layers for d in drops["prefill"] + drops["decode"]),
-          f"{phase}: router calls per step {[len(d) for d in drops['decode']]}")
+    if moe:
+        moe_layers = cfg.n_layers - cfg.moe.first_k_dense
+        check(all(len(d) == moe_layers for d in drops["prefill"] + drops["decode"]),
+              f"{phase}: router calls per step {[len(d) for d in drops['decode']]}")
     pre = [c for c in calls if c[0] == "prefill"]
     dec = [c for c in calls if c[0] == "decode"]
     check(all(c[2:] == per_prefill for c in pre), f"{phase}: per-prefill launches {pre}")
@@ -2901,18 +2961,20 @@ def _traced_serving(torch, server, phase, per_prefill, per_decode):
           and launches["swiglu"] == per_prefill[1] * len(pre) + per_decode[1] * len(dec),
           f"{phase}: launches {launches}")
     decode_ms = [c[1] for c in dec]
-    return {"requests": len(done), "tokens": n_tok, "wall_s": wall, "tokens_per_s": n_tok / wall,
-            "prefills": len(pre), "decode_steps": len(dec), "prefill_ms": [c[1] for c in pre],
-            "decode_ms_per_step": statistics.mean(decode_ms),
-            "decode_ms_median": statistics.median(decode_ms), "peak_memory_bytes": peak,
-            "launches": {k: launches[k] for k in ("flash_attention", "swiglu")},
-            "launches_per_prefill": list(per_prefill), "launches_per_decode_step": list(per_decode),
-            "prefill_capacity": [d[0][1] for d in drops["prefill"]],
-            "decode_capacity": drops["decode"][0][0][1],
-            "dropped_per_prefill": [sum(x[2] for x in d) for d in drops["prefill"]],
-            "dropped_per_decode_step": [sum(x[2] for x in d) for d in drops["decode"]],
-            "prompt_lengths": [len(r.prompt) for r in done],
-            "first_tokens": [r.generated[:4] for r in done]}
+    row = {"requests": len(done), "tokens": n_tok, "wall_s": wall, "tokens_per_s": n_tok / wall,
+           "prefills": len(pre), "decode_steps": len(dec), "prefill_ms": [c[1] for c in pre],
+           "decode_ms_per_step": statistics.mean(decode_ms),
+           "decode_ms_median": statistics.median(decode_ms), "peak_memory_bytes": peak,
+           "launches": {k: launches[k] for k in ("flash_attention", "swiglu")},
+           "launches_per_prefill": list(per_prefill), "launches_per_decode_step": list(per_decode),
+           "prompt_lengths": [len(r.prompt) for r in done],
+           "first_tokens": [r.generated[:4] for r in done]}
+    if moe:
+        row.update(prefill_capacity=[d[0][1] for d in drops["prefill"]],
+                   decode_capacity=drops["decode"][0][0][1],
+                   dropped_per_prefill=[sum(x[2] for x in d) for d in drops["prefill"]],
+                   dropped_per_decode_step=[sum(x[2] for x in d) for d in drops["decode"]])
+    return row
 
 
 def phase_moe_serving(torch):
@@ -3031,7 +3093,6 @@ def phase_moe_train(torch):
     from repro_torch.configs import get_config
     from repro_torch.kernels import ops
     from repro_torch.kernels.ref import flash_attention_ref
-    from repro_torch.launch import train as tr
     from repro_torch.models import Model
     from repro_torch.utils import tree_leaves, tree_map, tree_unflatten
 
@@ -3076,30 +3137,9 @@ def phase_moe_train(torch):
     del params
     torch.cuda.empty_cache()
 
-    walls, build = [], tr.build_train_step
-
-    def timed_build(cfg, tcfg, **kw):
-        fn = build(cfg, tcfg, **kw)
-
-        def timed(state, batch):
-            torch.cuda.synchronize()
-            t = time.perf_counter()
-            out = fn(state, batch)
-            torch.cuda.synchronize()
-            walls.append(time.perf_counter() - t)
-            return out
-
-        return timed
-
-    tr.build_train_step = timed_build
-    try:
-        torch.cuda.reset_peak_memory_stats()
-        out, _, launches = counted(torch, lambda: tr.train(
-            "mixtral-8x7b", reduced=False, n_layers=L, optimizer="adafactor", steps=3,
-            batch=TRAIN_B, seq=TRAIN_S, log_every=100))
-        peak = torch.cuda.max_memory_allocated()
-    finally:
-        tr.build_train_step = build
+    out, walls, launches, peak = _timed_train(torch, "mixtral-8x7b", n_layers=L,
+                                              optimizer="adafactor", steps=3, batch=TRAIN_B,
+                                              seq=TRAIN_S)
     losses, auxes = out["losses"], out["aux"]
     check(len(losses) == 3 and all(math.isfinite(x) for x in losses),
           f"moe_train: losses {losses}")
@@ -3145,13 +3185,16 @@ VLM_BF16_NOTE = ("bf16 decode-vs-forward gaps of a random-weight model grow with
 MLA_TRAIN_LEAVES = tuple(("attn", n) for n in ("w_dq", "w_uq", "w_dkv", "w_uk", "w_uv", "wo"))
 
 
-def _decode_vs_forward(torch, model, params, batch, n_decode, max_len, tokens=None):
+def _decode_vs_forward(torch, model, params, batch, n_decode, max_len, tokens=None, after=None):
     """Prefill ``batch``, then ``n_decode`` decode steps, teacher-forced on
     ``tokens`` [B, n_decode] or greedy; every step's logits (and the
-    prefill's) against the same positions of one forward over the prompt
-    and the decoded tokens, relative to max |logit|. Returns the row and the
-    (flash_attention, swiglu) launches of the prefill and of each decode
-    step."""
+    prefill's) against the same positions of one forward over the prompt,
+    the decoded tokens and ``after`` (tokens past the last step: causal
+    attention and scans leave the earlier positions as they are, and a
+    Mamba2 forward needs a multiple of its chunk), relative to max |logit|.
+    Returns the row and the (flash_attention, swiglu) launches of the
+    prefill and of each decode step."""
+    from repro_torch.models import hybrid as hybrid_mod
     from repro_torch.models import lm as lm_mod
 
     cfg = model.cfg
@@ -3171,10 +3214,13 @@ def _decode_vs_forward(torch, model, params, batch, n_decode, max_len, tokens=No
         decode_s.append(s)
         launches.append(kernels(n))
         steps.append(logits.float())
-    whole = dict(batch, tokens=torch.cat([batch["tokens"], *fed], dim=1))
+    extra = [] if after is None else [after]
+    whole = dict(batch, tokens=torch.cat([batch["tokens"], *fed, *extra], dim=1))
+    forward = hybrid_mod.hybrid_forward if model.family == "hybrid" else lm_mod.lm_forward
     t = time.perf_counter()
-    h, _, _ = lm_mod.lm_forward(cfg, params, whole)
-    full = lm_mod.unembed(cfg, params, h[:, h.shape[1] - n_decode - 1:])
+    h, _, _ = forward(cfg, params, whole)
+    end = h.shape[1] - sum(a.shape[1] for a in extra)
+    full = lm_mod.unembed(cfg, params, h[:, end - n_decode - 1:end])
     torch.cuda.synchronize()
     full_s = time.perf_counter() - t
     errs, scales, agree = [], [], 0
@@ -3186,7 +3232,8 @@ def _decode_vs_forward(torch, model, params, batch, n_decode, max_len, tokens=No
         agree += int((got.argmax(-1) == want.argmax(-1)).sum())
     rel = [e / sc for e, sc in zip(errs, scales)]
     row = {"prefill_s": prefill_s, "decode_ms_per_step": 1e3 * statistics.mean(decode_s),
-           "full_forward_s": full_s, "rel_err": rel, "max_rel_err": max(rel),
+           "full_forward_s": full_s, "full_forward_tokens": whole["tokens"].shape[1],
+           "rel_err": rel, "max_rel_err": max(rel),
            "rtol": SERVE_LOGIT_RTOL, "max_abs_logit": max(scales), "greedy_agree": agree,
            "greedy_total": len(steps) * full.shape[0]}
     return row, kernels(pre), launches
@@ -3279,7 +3326,6 @@ def phase_mla_train(torch):
     from repro_torch.configs import get_config
     from repro_torch.kernels import ops
     from repro_torch.kernels.ref import flash_attention_ref, swiglu_ref
-    from repro_torch.launch import train as tr
     from repro_torch.models import Model
     from repro_torch.utils import tree_leaves, tree_map, tree_unflatten
 
@@ -3325,30 +3371,9 @@ def phase_mla_train(torch):
     del params
     torch.cuda.empty_cache()
 
-    walls, build = [], tr.build_train_step
-
-    def timed_build(cfg, tcfg, **kw):
-        fn = build(cfg, tcfg, **kw)
-
-        def timed(state, batch):
-            torch.cuda.synchronize()
-            t = time.perf_counter()
-            out = fn(state, batch)
-            torch.cuda.synchronize()
-            walls.append(time.perf_counter() - t)
-            return out
-
-        return timed
-
-    tr.build_train_step = timed_build
-    try:
-        torch.cuda.reset_peak_memory_stats()
-        out, _, launches = counted(torch, lambda: tr.train(
-            "deepseek-v2-236b", reduced=False, n_layers=L, optimizer="adafactor", steps=3,
-            batch=TRAIN_B, seq=TRAIN_S, log_every=100))
-        peak = torch.cuda.max_memory_allocated()
-    finally:
-        tr.build_train_step = build
+    out, walls, launches, peak = _timed_train(torch, "deepseek-v2-236b", n_layers=L,
+                                              optimizer="adafactor", steps=3, batch=TRAIN_B,
+                                              seq=TRAIN_S)
     losses, auxes = out["losses"], out["aux"]
     check(len(losses) == 3 and all(math.isfinite(x) for x in losses), f"mla_train: losses {losses}")
     check(all(a > 0 for a in auxes), f"mla_train: aux {auxes}")
@@ -3454,6 +3479,307 @@ def phase_vlm_serving(torch):
     return row
 
 
+# --------------------------------------------------------------------------
+# RWKV6 and the Mamba2 / shared-attention hybrid (Zamba2)
+# --------------------------------------------------------------------------
+
+# B = 1: a 512-token prompt (a multiple of both chunks, 128: the chunked
+# RWKV6 and Mamba2 forms) and 8 teacher-forced decode steps, against one
+# forward over 640 tokens (5 chunks; causal, so positions 511-519 are those
+# of a 520-token forward, which no Mamba2 chunk of 128 divides)
+LONG_PROMPT, LONG_DECODE, LONG_FORWARD = 512, 8, 640
+# The same params in f32: the decode steps against the forward within 2e-4
+# of max |logit|. The chunked forms sum the log decay over a chunk in f32:
+# at RWKV6's strongest decays (-e^4 a step) that sum reaches ~-7,000, so
+# its exps carry ~1e-4 relative error where the steps carry none (read on
+# the card: 7.6e-5 for RWKV6's 24 layers, 1.2e-5 for Zamba2's 81)
+RECURRENT_F32_RTOL = 2e-4
+RWKV_BF16_DEPTHS, HYBRID_BF16_DEPTHS = (2, 8), (6, 24)  # the bf16 gap read again there
+RECURRENT_BF16_NOTE = (
+    "bf16 decode-vs-forward gaps of these random-weight models grow with depth "
+    "(bf16_gap_by_depth): one bf16 rounding that lands the other way in a short and a long "
+    "product is amplified layer by layer (Zamba2's prefill logits alone differ by 4e-2 of max "
+    "|logit| between a 512- and a 640-token forward), so they are read, not checked; f32 holds "
+    "the decode path to RECURRENT_F32_RTOL")
+HYBRID_TRAIN_LEAVES = (("attn", "wq"), ("attn", "wk"), ("attn", "wv"), ("attn", "wo"),
+                       ("mlp", "w_gate"), ("mlp", "w_up"), ("mlp", "w_down"))
+
+
+def _timed_train(torch, arch, **kw):
+    """``train(arch, reduced=False, **kw)`` with each step's wall time
+    taken between synchronizations and the launches counted: (result,
+    step walls s, launches, peak memory bytes)."""
+    from repro_torch.launch import train as tr
+
+    walls, build = [], tr.build_train_step
+
+    def timed_build(cfg, tcfg, **bkw):
+        fn = build(cfg, tcfg, **bkw)
+
+        def timed(state, batch):
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            out = fn(state, batch)
+            torch.cuda.synchronize()
+            walls.append(time.perf_counter() - t)
+            return out
+
+        return timed
+
+    tr.build_train_step = timed_build
+    try:
+        torch.cuda.reset_peak_memory_stats()
+        out, _, launches = counted(torch, lambda: tr.train(arch, reduced=False, log_every=100,
+                                                           **kw))
+        peak = torch.cuda.max_memory_allocated()
+    finally:
+        tr.build_train_step = build
+    return out, walls, launches, peak
+
+
+def _long_prompt(torch, model, params, phase, seed, launches, cut):
+    """B = 1: the ``LONG_PROMPT``-token prompt and ``LONG_DECODE``
+    teacher-forced decode steps, each step's logits against one forward over
+    ``LONG_FORWARD`` tokens, relative to max |logit|: in bf16 (timed; the
+    gap read, not checked, beside the same gap at the depths of ``cut``, a
+    {depth: (config, params)} of the first layers), then with the same
+    params in f32 within ``RECURRENT_F32_RTOL``. ``launches(cfg)`` gives the
+    (flash_attention, swiglu) launches a prefill and a decode step must make."""
+    from repro_torch.models import Model
+    from repro_torch.utils import tree_map
+
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    toks = torch.randint(0, model.cfg.vocab_size, (1, LONG_FORWARD), generator=gen, device="cuda",
+                         dtype=torch.int32)
+    end = LONG_PROMPT + LONG_DECODE
+
+    def run(m, ps):
+        with torch.no_grad():
+            row, pre, dec = _decode_vs_forward(
+                torch, m, ps, {"tokens": toks[:, :LONG_PROMPT]}, LONG_DECODE, end + 8,
+                toks[:, LONG_PROMPT:end], after=toks[:, end:])
+        per_prefill, per_decode = launches(m.cfg)
+        check(pre == per_prefill and all(n == per_decode for n in dec),
+              f"{phase} ({m.cfg.n_layers} layers): launches prefill {pre}, decode {dec}")
+        return dict(row, launches_prefill=list(pre), launches_per_decode_step=list(dec[0]))
+
+    row = dict(run(model, params), rtol=None, prompt=LONG_PROMPT, decode_steps=LONG_DECODE)
+    by_depth = {depth: run(Model(c), ps)["max_rel_err"] for depth, (c, ps) in cut.items()}
+    by_depth[model.cfg.n_layers] = row["max_rel_err"]
+    f32 = model.cfg.replace(dtype="float32", param_dtype="float32")
+    p32 = tree_map(lambda t: t.float(), params)
+    row32 = dict(run(Model(f32), p32), rtol=RECURRENT_F32_RTOL)
+    del p32
+    torch.cuda.empty_cache()
+    check(row32["max_rel_err"] <= RECURRENT_F32_RTOL,
+          f"{phase}: f32 decode vs full forward {row32['max_rel_err']} of max |logit|")
+    return dict(row, float32=row32, bf16_gap_by_depth=by_depth, bf16_note=RECURRENT_BF16_NOTE)
+
+
+def phase_rwkv_serving(torch):
+    """``Server("rwkv6-1.6b", reduced=False)`` whole (24 layers, d 2,048, 32
+    heads of 64, chunk 128; 1.58 B params) on serve.py:main's 8 requests:
+    the prompts pad to 8-15 tokens, so every prefill runs the step-by-step
+    time mix; no flash_attention or swiglu launch (the channel mix is
+    relu^2). Then the 512-token prompt (the chunked form) and 8 decode
+    steps against one forward."""
+    from repro_torch.launch import Server
+    from repro_torch.utils import tree_leaves, tree_map
+
+    t0 = time.perf_counter()
+    server = Server("rwkv6-1.6b", reduced=False, device="cuda")
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    cfg = server.cfg
+    check(cfg.d_model == 2048 and cfg.n_layers == 24 and cfg.ssm.kind == "rwkv6"
+          and cfg.ssm.head_dim == 64 and cfg.ssm.chunk_len == 128, f"rwkv_serving: config {cfg}")
+    served = _traced_serving(torch, server, "rwkv_serving", (0, 0), (0, 0))
+    cut = {d: (cfg.replace(n_layers=d), {k: tree_map(lambda t: t[:d], v) if k == "seg0" else v
+                                         for k, v in server.params.items()})
+           for d in RWKV_BF16_DEPTHS}
+    long = _long_prompt(torch, server.model, server.params, "rwkv_serving", 29,
+                        lambda c: ((0, 0), (0, 0)), cut)
+    row = {"arch": cfg.name, "n_layers": cfg.n_layers, "d_model": cfg.d_model,
+           "params": sum(t.numel() for t in tree_leaves(server.params)), "init_s": init_s,
+           **served, "long_prompt": long}
+    emit("rwkv_serving", **row)
+    del server
+    gc.collect()
+    torch.cuda.empty_cache()
+    return row
+
+
+def phase_rwkv_train(torch):
+    """RWKV6 whole at full width, bf16, 2 x 256 tokens (the chunked time
+    mix): one loss and gradient, every gradient finite; then
+    ``train("rwkv6-1.6b", reduced=False)`` for 3 AdamW steps: losses
+    finite, s/step, tokens/s, peak memory, no kernel launched."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import Model
+    from repro_torch.utils import tree_leaves, tree_map
+
+    cfg = get_config("rwkv6-1.6b")
+    model = Model(cfg)
+    params = model.init(torch.Generator(device="cuda").manual_seed(0))
+    n_params = sum(p.numel() for p in tree_leaves(params))
+    ps = tree_map(lambda p: p.detach().requires_grad_(True), params)
+    loss, _ = model.loss(ps, _batch(torch, cfg, 0))
+    grads = torch.autograd.grad(loss, tree_leaves(ps))
+    finite = all(bool(torch.isfinite(g).all()) for g in grads)
+    gnorm = float(torch.sqrt(sum(torch.sum(torch.square(g.float())) for g in grads)))
+    check(math.isfinite(float(loss.detach())) and finite and math.isfinite(gnorm),
+          f"rwkv_train: loss {float(loss.detach())}, grads finite {finite}, norm {gnorm}")
+    del params, ps, grads
+    torch.cuda.empty_cache()
+
+    out, walls, launches, peak = _timed_train(torch, "rwkv6-1.6b", optimizer="adamw", steps=3,
+                                              batch=TRAIN_B, seq=TRAIN_S)
+    losses = out["losses"]
+    check(len(losses) == 3 and all(math.isfinite(x) for x in losses), f"rwkv_train: losses {losses}")
+    check(launches["flash_attention"] == launches["swiglu"] == 0,
+          f"rwkv_train: kernels launched {launches}")
+    s_per_step = statistics.median(walls[1:])
+    row = {"arch": cfg.name, "n_layers": cfg.n_layers, "params": n_params, "optimizer": "adamw",
+           "dtype": cfg.dtype, "remat": cfg.remat, "batch": TRAIN_B, "seq": TRAIN_S,
+           "loss": float(loss.detach()), "grad_norm": gnorm, "grads_finite": finite,
+           "losses": losses, "step_walls_s": walls, "s_per_step": s_per_step,
+           "tokens_per_s": TRAIN_B * TRAIN_S / s_per_step, "peak_memory_bytes": peak}
+    emit("rwkv_train", **row)
+    torch.cuda.empty_cache()
+    return row
+
+
+def phase_hybrid_serving(torch):
+    """``Server("zamba2-7b", reduced=False)`` whole (81 Mamba2 layers, d
+    3,584, and the shared block applied 13 times with a 3-layer tail; 32
+    heads of 112, window 4,096; 6.75 B params) on serve.py:main's 8
+    requests: flash_attention (D = Dv = 112) 13 a prefill and 0 a decode
+    step, swiglu 13 each; then the 512-token prompt and 8 decode steps
+    against one forward."""
+    from repro_torch.launch import Server
+    from repro_torch.utils import tree_leaves, tree_map
+
+    t0 = time.perf_counter()
+    server = Server("zamba2-7b", reduced=False, device="cuda")
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    cfg = server.cfg
+    n_super, tail = divmod(cfg.n_layers, cfg.hybrid.attn_every)
+    check(cfg.d_model == 3584 and cfg.n_layers == 81 and (n_super, tail) == (13, 3)
+          and cfg.resolved_head_dim == ZAMBA_D and cfg.n_heads == ZAMBA_HEADS
+          and cfg.sliding_window == 4096 and cfg.ssm.chunk_len == 128,
+          f"hybrid_serving: config {cfg}")
+    served = _traced_serving(torch, server, "hybrid_serving", (n_super, n_super), (0, n_super))
+    # the first d Mamba2 layers (d a multiple of 6: d / 6 applications, no tail)
+    cut = {d: (cfg.replace(n_layers=d), {
+        **{k: v for k, v in server.params.items() if k != "tail"},
+        "mamba": tree_map(lambda t: t[:d], server.params["mamba"])})
+        for d in HYBRID_BF16_DEPTHS}
+    def launches(c):
+        n = c.n_layers // c.hybrid.attn_every
+        return (n, n), (0, n)
+
+    long = _long_prompt(torch, server.model, server.params, "hybrid_serving", 31, launches, cut)
+    row = {"arch": cfg.name, "n_layers": cfg.n_layers, "shared_block_applications": n_super,
+           "tail_layers": tail, "d_model": cfg.d_model,
+           "params": sum(t.numel() for t in tree_leaves(server.params)), "init_s": init_s,
+           **served, "long_prompt": long}
+    emit("hybrid_serving", **row)
+    del server
+    gc.collect()
+    torch.cuda.empty_cache()
+    return row
+
+
+def phase_hybrid_train(torch):
+    """Zamba2 whole at full width, bf16, Adafactor, 2 x 256 tokens (2
+    Mamba2 chunks of 128): one loss and gradient through the kernels and
+    through the plain versions (loss, gradient norm and the shared block's
+    seven weights' gradient norms within ``TRAIN_RTOL``; each kernel's
+    output zeroed must fail that check; every gradient finite, C7), then
+    ``train("zamba2-7b", reduced=False)`` for 3 steps: s/step, tokens/s,
+    peak, launches a step (remat "block" by super-block: flash 2 x 13 and
+    swiglu 13)."""
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import ops
+    from repro_torch.kernels.ref import flash_attention_ref, swiglu_ref
+    from repro_torch.models import Model
+    from repro_torch.optim import global_norm
+    from repro_torch.utils import tree_leaves, tree_map, tree_unflatten
+
+    cfg = get_config("zamba2-7b")
+    n_super = cfg.n_layers // cfg.hybrid.attn_every
+    model = Model(cfg)
+    params = model.init(torch.Generator(device="cuda").manual_seed(0))
+    n_params = sum(p.numel() for p in tree_leaves(params))
+    finite = []
+
+    def loss_and_norms():
+        ps = tree_map(lambda p: p.detach().requires_grad_(True), params)
+        loss, _ = model.loss(ps, _batch(torch, cfg, 0))
+        grads = torch.autograd.grad(loss, tree_leaves(ps))
+        finite.append(all(bool(torch.isfinite(g).all()) for g in grads))
+        tree = tree_unflatten(ps, grads)
+        gnorm = global_norm(tree)  # slab by slab: the Mamba2 in_proj leaf is 4.1 G elements
+        shared = tree["shared_attn"]
+        leaves = {f"{a}.{b}": float(torch.linalg.vector_norm(shared[a][b].float()))
+                  for a, b in HYBRID_TRAIN_LEAVES}
+        return float(loss.detach()), float(gnorm), leaves
+
+    def swapped(flash, swiglu):
+        saved = ops.flash_attention_grad, ops.swiglu_grad
+        ops.flash_attention_grad, ops.swiglu_grad = flash, swiglu
+        try:
+            return loss_and_norms()
+        finally:
+            ops.flash_attention_grad, ops.swiglu_grad = saved
+
+    torch.cuda.reset_peak_memory_stats()
+    kern, grad_s, launches = counted(torch, loss_and_norms)
+    grad_peak = torch.cuda.max_memory_allocated()
+    check(finite == [True], "hybrid_train: a gradient is not finite")
+    check(launches["flash_attention"] == 2 * n_super and launches["swiglu"] == n_super
+          and launches["flash_attention_backward"] == launches["swiglu_backward"] == n_super,
+          f"hybrid_train: one loss+grad launched {launches}")
+    plain = swapped(lambda q, k, v, **kw: flash_attention_ref(q, k, v, **kw), swiglu_ref)
+    gaps = _train_gaps(kern, plain)
+    check(_train_within(gaps), f"hybrid_train: kernels vs plain gaps {gaps} over {TRAIN_RTOL}")
+    flash, swiglu = ops.flash_attention_grad, ops.swiglu_grad
+    faulted = {
+        "flash_attention": _train_gaps(swapped(
+            lambda q, k, v, **kw: flash(q, k, v, **kw) * 0, swiglu), plain),
+        "swiglu": _train_gaps(swapped(flash, lambda *a: swiglu(*a) * 0), plain)}
+    for name, g in faulted.items():
+        check(not _train_within(g), f"hybrid_train: {name} zeroed passes the check: {g}")
+    del params
+    torch.cuda.empty_cache()
+
+    out, walls, launches, peak = _timed_train(torch, "zamba2-7b", optimizer="adafactor", steps=3,
+                                              batch=TRAIN_B, seq=TRAIN_S)
+    losses = out["losses"]
+    check(len(losses) == 3 and all(math.isfinite(x) for x in losses),
+          f"hybrid_train: losses {losses}")
+    check(launches["flash_attention"] == 3 * 2 * n_super and launches["swiglu"] == 3 * n_super
+          and launches["flash_attention_backward"] == launches["swiglu_backward"] == 3 * n_super,
+          f"hybrid_train: 3 steps launched {launches}")
+    check(peak < 80e9, f"hybrid_train: peak {peak}")
+    s_per_step = statistics.median(walls[1:])
+    row = {"arch": cfg.name, "n_layers": cfg.n_layers, "params": n_params,
+           "optimizer": "adafactor", "dtype": cfg.dtype, "remat": cfg.remat, "batch": TRAIN_B,
+           "seq": TRAIN_S, "kernels_loss": kern[0], "plain_loss": plain[0],
+           "kernels_grad_norm": kern[1], "plain_grad_norm": plain[1],
+           "plain_leaf_grad_norms": plain[2], "rel_err": gaps, "rtol": TRAIN_RTOL,
+           "faulted_rel_err": faulted, "grads_finite": all(finite), "loss_grad_s": grad_s,
+           "loss_grad_peak_memory_bytes": grad_peak, "losses": losses, "step_walls_s": walls,
+           "s_per_step": s_per_step, "tokens_per_s": TRAIN_B * TRAIN_S / s_per_step,
+           "peak_memory_bytes": peak,
+           "launches_per_step": {k: launches[k] // 3 for k in ("flash_attention", "swiglu")},
+           "backward_calls_per_step": launches["flash_attention_backward"] // 3}
+    emit("hybrid_train", **row)
+    torch.cuda.empty_cache()
+    return row
+
+
 FL_DESIGN = {
     "fedavg_reduce": "one launch over a leaf table passed by value; 16-byte loads where a "
                      "leaf is aligned, clients unrolled 16 deep, weights in shared memory",
@@ -3470,7 +3796,7 @@ FL_DESIGN = {
 }
 
 
-def lm_rows(lm, served, grad, qwen, moe_launches, head_launches):
+def lm_rows(lm, served, grad, qwen, moe_launches, head_launches, hybrid_launches):
     """The kernels-line rows of flash_attention (at the serving prefill
     shape, with the S = 4096 prefill beside it) and swiglu (at decode,
     M = 4, with the M = 64 prefill beside it), launches from the serve run;
@@ -3479,9 +3805,11 @@ def lm_rows(lm, served, grad, qwen, moe_launches, head_launches):
     per Qwen3-8B train step; flash_attention also at Mixtral's windowed
     5,016-token prefill, with its launches in the Mixtral phases; at MLA's
     D 192 / Dv 128 (B = 4 x S = 16 and one S = 4096 prompt, 128 heads; the
-    backward at mla_train's shape) and Phi-3-vision's D 96 (B = 4 x S = 272,
-    32 heads, forward and backward), with their launches in the DeepSeek
-    and Phi-3-vision phases."""
+    backward at mla_train's shape), Phi-3-vision's D 96 (B = 4 x S = 272,
+    32 heads, forward and backward) and Zamba2's D 112 (B = 4 x S = 16 and
+    one S = 4096 prompt, 32 heads; the backward at hybrid_train's shape),
+    with their launches in the DeepSeek, Phi-3-vision and Zamba2 phases,
+    and swiglu's launches in the Zamba2 phases."""
     launches, n_pre, n_dec = served["launches"], served["prefills"], served["decode_steps"]
     per_pre, per_dec = served["per_prefill"], served["per_decode"]
 
@@ -3526,12 +3854,15 @@ def lm_rows(lm, served, grad, qwen, moe_launches, head_launches):
          **ms(fa["timed"]["mla_prefill"], "mla_prefill_"),
          **ms(fa["timed"]["mla_long_prefill"], "mla_long_prefill_"),
          **ms(fa["timed"]["vlm_prefill"], "vlm_prefill_"),
+         **ms(fa["timed"]["zamba_prefill"], "zamba_prefill_"),
+         **ms(fa["timed"]["zamba_long_prefill"], "zamba_long_prefill_"),
          **{f"{g}_f32_ms": fa["timed"][f"{g}_f32"]["us"] / 1e3
-            for g in ("mla_prefill", "mla_long_prefill", "vlm_prefill")},
+            for g in ("mla_prefill", "mla_long_prefill", "vlm_prefill", "zamba_prefill",
+                      "zamba_long_prefill")},
          **{k: v for g, row in fa["head_dim_backward"].items()
             for part in ("forward", "backward")
             for k, v in ms(dict(row[part], shape=row["shape"]), f"{g}_{part}_").items()},
-         **moe_launches, **head_launches,
+         **moe_launches, **head_launches, **hybrid_launches["flash_attention"],
          "library_note": "F.scaled_dot_product_attention(is_causal=True, enable_gqa=True); "
                          "window_prefill_library_ms: with a boolean window mask; "
                          "train_backward_library_ms and *_backward_library_ms: its autograd "
@@ -3552,11 +3883,15 @@ def lm_rows(lm, served, grad, qwen, moe_launches, head_launches):
          "prefill_reduction_share": sw["reduction"][64]["reduction_share"],
          "library_note": SWIGLU_NO_LIBRARY + " (composite_ms: silu(x@Wg)*(x@Wu)@Wd in cuBLAS bf16;"
                          " train_backward_composite_ms: its autograd backward)",
-         **train("swiglu")},
+         **hybrid_launches["swiglu"], **train("swiglu")},
     ]
 
 
 def main() -> int:
+    # The phases free and allocate multi-GB leaves in turn (Zamba2's stacked
+    # Mamba2 in_proj is 8 GB in bf16): expandable segments keep the freed
+    # memory usable for the next large block instead of split up in the cache
+    os.environ.setdefault("PYTORCH_CUDA_ALLOC_CONF", "expandable_segments:True")
     try:
         import torch
     except ImportError:
@@ -3688,6 +4023,26 @@ def main() -> int:
     t = time.perf_counter()
     vlm = phase_vlm_serving(torch)
     lm_s["vlm_serving"] = time.perf_counter() - t
+    t = time.perf_counter()
+    phase_rwkv_serving(torch)
+    lm_s["rwkv_serving"] = time.perf_counter() - t
+    t = time.perf_counter()
+    phase_rwkv_train(torch)
+    lm_s["rwkv_train"] = time.perf_counter() - t
+    t = time.perf_counter()
+    hybrid = phase_hybrid_serving(torch)
+    lm_s["hybrid_serving"] = time.perf_counter() - t
+    t = time.perf_counter()
+    hybrid_train = phase_hybrid_train(torch)
+    lm_s["hybrid_train"] = time.perf_counter() - t
+    hybrid_launches = {kernel: {
+        "hybrid_serving_launches": hybrid["launches"][kernel],
+        "hybrid_serving_launches_per_prefill": hybrid["launches_per_prefill"][i],
+        "hybrid_serving_launches_per_decode_step": hybrid["launches_per_decode_step"][i],
+        "hybrid_train_launches_per_step": hybrid_train["launches_per_step"][kernel]}
+        for i, kernel in enumerate(("flash_attention", "swiglu"))}
+    hybrid_launches["flash_attention"]["hybrid_train_backward_calls_per_step"] = \
+        hybrid_train["backward_calls_per_step"]
     head_launches = {
         "mla_serving_launches": mla["launches"]["flash_attention"],
         "mla_serving_launches_per_prefill": mla["launches_per_prefill"][0],
@@ -3806,7 +4161,7 @@ def main() -> int:
                   grid["compressed"]["bf16 dense"]),
         # the whole flattened CNN (N = 206,922), as ops.quantize_tree feeds it
         quant_row("quantize_stochastic", None, "src/repro/kernels/quantize.py:44", NO_LIBRARY),
-        *lm_rows(lm, served, grad, qwen, moe_launches, head_launches),
+        *lm_rows(lm, served, grad, qwen, moe_launches, head_launches, hybrid_launches),
     ]}), flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {

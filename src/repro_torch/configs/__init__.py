@@ -4,10 +4,12 @@ The port knows the architectures whose families it implements: the dense
 GQA LMs ``qwen3-8b``, ``phi3-medium-14b``, ``minitron-8b`` and
 ``starcoder2-3b`` (LayerNorm, GELU MLP), the mixture of experts with a
 sliding window ``mixtral-8x7b``, MLA with a mixture of shared and routed
-experts ``deepseek-v2-236b``, the vision stub ``phi-3-vision-4.2b``, and
-the paper's MNIST CNN (``paper-mnist-cnn``, metadata only). Every other architecture of
-``repro.configs`` raises ``NotImplementedError`` until its family is
-ported (ROADMAP Queue 1, item 15); an unknown name raises ``KeyError``.
+experts ``deepseek-v2-236b``, the vision stub ``phi-3-vision-4.2b``, the
+recurrent RWKV6 ``rwkv6-1.6b``, the Mamba2 / shared-attention hybrid
+``zamba2-7b``, and the paper's MNIST CNN (``paper-mnist-cnn``, metadata
+only). The encoder-decoder ``whisper-base`` raises ``NotImplementedError``
+until its family is ported (ROADMAP Queue 1, item 15); an unknown name
+raises ``KeyError``.
 """
 
 from __future__ import annotations
@@ -47,6 +49,8 @@ _MODULES: Dict[str, str] = {
     "mixtral-8x7b": "mixtral_8x7b",
     "deepseek-v2-236b": "deepseek_v2_236b",
     "phi-3-vision-4.2b": "phi3_vision_4p2b",
+    "rwkv6-1.6b": "rwkv6_1p6b",
+    "zamba2-7b": "zamba2_7b",
     "paper-mnist-cnn": "paper_mnist",
 }
 

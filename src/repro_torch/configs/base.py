@@ -7,9 +7,9 @@ dataclass covers dense GQA transformers, MLA (DeepSeek), MoE, RWKV6,
 Mamba2 hybrids, and encoder-decoder (Whisper) — family-specific fields are
 simply unused elsewhere. The port's models implement the GQA and MLA
 families (RMSNorm or LayerNorm, SwiGLU or GELU MLP, or a mixture of
-experts; full or sliding-window attention; the vision stub) only (ROADMAP
-Queue 1, item 15); the other fields are kept so a config reads the same in
-both packages.
+experts; full or sliding-window attention; the vision stub), RWKV6 and the
+Mamba2 hybrid; the encoder-decoder is not ported (ROADMAP Queue 1, item
+15), and its fields are kept so a config reads the same in both packages.
 """
 
 from __future__ import annotations

@@ -4,9 +4,11 @@
 // (pallas_call in flash_attention_bhsd). q is [BH, Sq, D], k is [BKV, Skv, D]
 // and v is [BKV, Skv, Dv], all contiguous, float32 or bfloat16; query head
 // bh reads kv head bh / G with G = BH / BKV (GQA, no repeated copy). out is
-// [BH, Sq, Dv] in q's dtype. D is one of 32, 64, 96, 128, 192 and Dv one of
-// 32, 64, 96, 128 with Dv <= D (FLASH_PAIRS below): MLA's prefill is
-// D = 192 (128 + 64 rope) with Dv = 128, Phi-3-vision's D = Dv = 96. Masks, as in the Pallas body: kpos < Skv; causal keeps
+// [BH, Sq, Dv] in q's dtype. D is one of 32, 64, 96, 112, 128, 192 and Dv
+// one of 32, 64, 96, 112, 128 with Dv <= D (FLASH_PAIRS below): MLA's
+// prefill is D = 192 (128 + 64 rope) with Dv = 128, Phi-3-vision's
+// D = Dv = 96, Zamba2's shared attention D = Dv = 112 (3584 / 32 heads).
+// Masks, as in the Pallas body: kpos < Skv; causal keeps
 // qpos >= kpos (top-left aligned, no query offset); a window > 0 keeps
 // qpos - kpos < window. Masked scores are -1e30, not -inf, m and l are
 // float32, and the result is acc / max(l, 1e-30) (the bf16 kernel multiplies
@@ -37,11 +39,14 @@
 //     D = 128), so one block's products run beside the other's softmax.
 //     TMA zero-fills keys past Skv. A width that is a multiple of 64 columns
 //     loads as 64-column boxes of 128 B rows under the 128-byte swizzle (D =
-//     128 two boxes, D = 192 three); any other width, 32 or 96, as 32-column
-//     boxes of 64 B rows under the 64-byte swizzle (a 96-column row, 192 B,
-//     is no multiple of the 128-byte span). K (D columns) and V (Dv) have
-//     their own maps and boxes: S = Q K^T runs D / 16 steps of k16 (12 at
-//     D = 192), O += P V keeps a Dv-wide accumulator. The tensor maps are encoded per call on the host
+//     128 two boxes, D = 192 three); another multiple of 32, 32 or 96, as
+//     32-column boxes of 64 B rows under the 64-byte swizzle (a 96-column
+//     row, 192 B, is no multiple of the 128-byte span); 112 (a 224 B row, a
+//     multiple of neither span) as seven 16-column boxes of 32 B rows under
+//     the 32-byte swizzle, one box a k16 step of Q K^T. K (D columns) and V
+//     (Dv) have their own maps and boxes: S = Q K^T runs D / 16 steps of
+//     k16 (12 at D = 192, 7 at D = 112), O += P V keeps a Dv-wide
+//     accumulator (an n112 product at Dv = 112). The tensor maps are encoded per call on the host
 //     through the runtime's driver entry point, so the library needs no
 //     -lcuda.
 //   * The consumers store Q into shared memory themselves, in K's swizzle; so when G * Sq <= 64 (a short prompt: 4 x 14 = 56 at the
@@ -68,8 +73,8 @@
 
 // every (D, Dv) the kernels take
 #define FLASH_PAIRS(X)                                                                       \
-  X(32, 32) X(64, 32) X(64, 64) X(96, 32) X(96, 64) X(96, 96) X(128, 32) X(128, 64)         \
-  X(128, 96) X(128, 128) X(192, 32) X(192, 64) X(192, 96) X(192, 128)
+  X(32, 32) X(64, 32) X(64, 64) X(96, 32) X(96, 64) X(96, 96) X(112, 112) X(128, 32)        \
+  X(128, 64) X(128, 96) X(128, 128) X(192, 32) X(192, 64) X(192, 96) X(192, 128)
 
 namespace {
 
@@ -339,7 +344,8 @@ __device__ __forceinline__ void fence_regs(float (&d)[N]) {
 }
 
 // wgmma shared-memory matrix descriptor: start address, leading and stride
-// byte offsets (16-byte units), layout (1: 128-byte swizzle, 2: 64-byte)
+// byte offsets (16-byte units), layout (1: 128-byte swizzle, 2: 64-byte,
+// 3: 32-byte)
 __device__ __forceinline__ uint64_t smem_desc(uint32_t addr, uint32_t lbo, uint32_t sbo,
                                               uint64_t layout) {
   return static_cast<uint64_t>((addr & 0x3FFFF) >> 4) |
@@ -419,6 +425,29 @@ __device__ __forceinline__ void wgmma_rs_m64n96(float (&d)[48], const uint32_t (
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
 }
 
+// RS: A from registers, B from shared memory MN-major (transposed); D += A B, m64n112k16, f32 accumulators
+__device__ __forceinline__ void wgmma_rs_m64n112(float (&d)[56], const uint32_t (&a)[4], uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %61, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n112k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55}, "
+      "{%56, %57, %58, %59}, %60, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]),
+        "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]),
+        "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]),
+        "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
+        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]),
+        "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]),
+        "+f"(d[37]), "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]), "+f"(d[42]),
+        "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), "+f"(d[48]),
+        "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]),
+        "+f"(d[55])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
+
 // RS: A from registers, B from shared memory MN-major (transposed); D += A B, m64n128k16, f32 accumulators
 __device__ __forceinline__ void wgmma_rs_m64n128(float (&d)[64], const uint32_t (&a)[4], uint64_t db) {
   asm volatile(
@@ -447,15 +476,21 @@ __device__ __forceinline__ void wgmma_rs_m64n128(float (&d)[64], const uint32_t 
 // One operand tile of R rows x W columns in shared memory: column boxes of
 // kW elements (one swizzle row of kRowBytes bytes), each box R rows deep, as
 // TMA writes them; every box starts on a 1024-byte boundary. A multiple of
-// 64 columns takes the 128-byte swizzle, 32 or 96 columns the 64-byte one.
+// 64 columns takes the 128-byte swizzle, another multiple of 32 (32, 96)
+// the 64-byte one, and any other multiple of 16 (112) the 32-byte one.
 template <int W>
 struct Tile {
-  static constexpr bool kWide = W % 64 == 0;
-  static constexpr int kRowBytes = kWide ? 128 : 64;
+  static_assert(W % 16 == 0, "a tile is a whole number of 16-column boxes");
+  static constexpr int kRowBytes = W % 64 == 0 ? 128 : W % 32 == 0 ? 64 : 32;
   static constexpr int kW = kRowBytes / 2;
   static constexpr int kBoxes = W / kW;
-  static constexpr uint64_t kLayout = kWide ? 1 : 2;  // descriptor: 128 / 64-byte swizzle
-  static constexpr uint32_t kSwizzleMask = kWide ? 7 : 3;
+  // descriptor layout: 1 = 128-byte swizzle, 2 = 64-byte, 3 = 32-byte
+  static constexpr uint64_t kLayout = kRowBytes == 128 ? 1 : kRowBytes == 64 ? 2 : 3;
+  // the swizzle XORs the 16-byte chunk index with the row's low bits
+  static constexpr uint32_t kSwizzleMask = kRowBytes / 16 - 1;
+  static constexpr CUtensorMapSwizzle kTmaSwizzle =
+      kRowBytes == 128 ? CU_TENSOR_MAP_SWIZZLE_128B
+                       : kRowBytes == 64 ? CU_TENSOR_MAP_SWIZZLE_64B : CU_TENSOR_MAP_SWIZZLE_32B;
   static constexpr int kSbo = 8 * kRowBytes;          // next group of 8 rows
   static constexpr int kQBoxBytes = kBQ * kRowBytes;
   static constexpr int kKVBoxBytes = kBKV * kRowBytes;
@@ -672,6 +707,7 @@ flash_kernel_wgmma(const __grid_constant__ CUtensorMap k_map,
       const uint64_t db = smem_desc(v_tile + kk * 16 * LV::kRowBytes, LV::kKVBoxBytes, LV::kSbo,
                                     LV::kLayout);
       if constexpr (Dv == 128) wgmma_rs_m64n128(acc, a[kk], db);
+      else if constexpr (Dv == 112) wgmma_rs_m64n112(acc, a[kk], db);
       else if constexpr (Dv == 96) wgmma_rs_m64n96(acc, a[kk], db);
       else if constexpr (Dv == 64) wgmma_rs_m64n64(acc, a[kk], db);
       else wgmma_rs_m64n32(acc, a[kk], db);
@@ -743,8 +779,7 @@ bool encode_kv_map(CUtensorMap* map, const void* ptr, int heads, int Skv) {
   const cuuint32_t box[3] = {(cuuint32_t)L::kW, (cuuint32_t)kBKV, 1};
   const cuuint32_t elem[3] = {1, 1, 1};
   return fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 3, const_cast<void*>(ptr), dims, strides, box,
-            elem, CU_TENSOR_MAP_INTERLEAVE_NONE,
-            L::kWide ? CU_TENSOR_MAP_SWIZZLE_128B : CU_TENSOR_MAP_SWIZZLE_64B,
+            elem, CU_TENSOR_MAP_INTERLEAVE_NONE, L::kTmaSwizzle,
             CU_TENSOR_MAP_L2_PROMOTION_L2_128B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
 }
 

@@ -6,9 +6,10 @@ caller names one). Its loop is the reference's, step for step: a static
 batch of ``batch`` requests, prompts left-padded with token 0 to a common
 length of at least 8 with no pad mask (pads are attended to, as in the
 reference), the prefill's greedy token appended before each decode step,
-and at most ``max_len - S - 1`` steps. On the card every prefill runs the
-flash-attention and SwiGLU kernels once per layer, and every decode step
-the SwiGLU kernel once per layer.
+and at most ``max_len - S - 1`` steps. On the card every prefill of a
+dense GQA model runs the flash-attention and SwiGLU kernels once per
+layer, and every decode step the SwiGLU kernel once per layer; Zamba2's
+shared block runs them once per application, RWKV6 runs neither.
 """
 
 from __future__ import annotations

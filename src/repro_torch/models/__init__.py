@@ -1,7 +1,8 @@
-"""Model payloads: the paper's MNIST CNN (``cnn``) and the decoder LM for
-serving and training (``lm`` through ``api.Model``: GQA or MLA attention,
-dense or mixture-of-experts MLPs, the vision stub). RWKV, the hybrid and
-the encoder-decoder families of ``repro.models`` are not ported yet."""
+"""Model payloads: the paper's MNIST CNN (``cnn``) and the decoder LMs for
+serving and training through ``api.Model``: ``lm`` (GQA or MLA attention,
+dense or mixture-of-experts MLPs, the vision stub, RWKV6) and ``hybrid``
+(Mamba2 layers with a shared attention block). The encoder-decoder family
+of ``repro.models`` is not ported yet."""
 
 from repro_torch.models.api import VLM_PATCH_TOKENS, Model
 

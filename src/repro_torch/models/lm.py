@@ -1,5 +1,5 @@
 """Decoder-LM assembly for training and serving (the port of
-``repro/models/lm.py`` without RWKV).
+``repro/models/lm.py``).
 
 The layer stack is organized as *segments*, runs of structurally identical
 blocks whose params are stacked on a leading layer axis, as in the
@@ -10,8 +10,12 @@ MLA blocks (DeepSeek-V2) are ported, with RMSNorm or LayerNorm and a
 SwiGLU or GELU MLP or a mixture of experts (after ``first_k_dense`` dense
 blocks of ``dense_d_ff``, each kind a segment of its own); each block
 returns its router's load-balance loss, summed over the layers, and
-``lm_loss`` adds ``router_aux_weight * aux / n_layers``. RWKV raises
-(ROADMAP Queue 1, item 15).
+``lm_loss`` adds ``router_aux_weight * aux / n_layers``. An RWKV6 config
+is one segment of RWKV blocks (``models.ssm``'s time mix and channel mix,
+each after a norm); its cache holds each layer's f32 state ``S`` and the
+last input of each mix (``tm_x``, ``cm_x``). A config with a Mamba2
+``ssm`` and no ``hybrid`` is a plain dense model, as the reference builds
+it (the hybrid family is ``models.hybrid``).
 
 The vision stub (Phi-3-vision) prepends ``patch_embed @ patch_proj`` to the
 token embeddings; the patch positions carry no loss. ``lm_prefill`` sets
@@ -52,6 +56,7 @@ from torch.utils.checkpoint import CheckpointPolicy, checkpoint, create_selectiv
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models import attention as attn
 from repro_torch.models import mlp as mlp_mod
+from repro_torch.models import ssm as ssm_mod
 from repro_torch.models.base import Ctx, apply_norm, dtype_of, linear, norm_params
 from repro_torch.utils import tree_unstack
 
@@ -67,12 +72,12 @@ def _not_ported(what: str):
 
 def segments(cfg: ModelConfig) -> List[Tuple[str, int]]:
     """Return [(block_kind, count), ...] covering cfg.n_layers."""
-    if cfg.ssm is not None:
-        raise _not_ported(f"the {cfg.ssm.kind} block")
-    if cfg.attn_kind not in ("gqa", "mla"):
-        raise _not_ported(f"attention kind '{cfg.attn_kind}'")
     if cfg.frontend not in ("none", "vision_stub"):
         raise _not_ported(f"the '{cfg.frontend}' frontend")
+    if cfg.ssm is not None and cfg.ssm.kind == "rwkv6":
+        return [("rwkv", cfg.n_layers)]
+    if cfg.attn_kind not in ("gqa", "mla"):
+        raise _not_ported(f"attention kind '{cfg.attn_kind}'")
     if cfg.moe is not None and cfg.moe.num_experts > 0:
         k = cfg.moe.first_k_dense
         return ([("dense", k)] if k else []) + [("moe", cfg.n_layers - k)]
@@ -80,6 +85,12 @@ def segments(cfg: ModelConfig) -> List[Tuple[str, int]]:
 
 
 def _block_params(ctx: Ctx, cfg: ModelConfig, kind: str, count: int):
+    if kind == "rwkv":
+        return {
+            "ln1": norm_params(ctx, cfg, cfg.d_model, stacked=count),
+            "ln2": norm_params(ctx, cfg, cfg.d_model, stacked=count),
+            "body": ssm_mod.rwkv6_params(ctx, cfg, stacked=count),
+        }
     p = {
         "ln1": norm_params(ctx, cfg, cfg.d_model, stacked=count),
         "ln2": norm_params(ctx, cfg, cfg.d_model, stacked=count),
@@ -97,8 +108,10 @@ def _block_params(ctx: Ctx, cfg: ModelConfig, kind: str, count: int):
 
 
 def _block_apply(cfg, kind, p, x, cache, *, decode, positions):
-    """One block. Returns (x, new_cache, aux); aux is None for a dense
-    block (the reference's 0)."""
+    """One block. Returns (x, new_cache, aux); aux is None for a dense or
+    RWKV block (the reference's 0)."""
+    if kind == "rwkv":
+        return _rwkv_block(cfg, p, x, cache)
     h = apply_norm(cfg, x, p["ln1"])
     forward = attn.mla_forward if cfg.attn_kind == "mla" else attn.gqa_forward
     y, new_cache = forward(cfg, p["attn"], h, positions=positions, cache=cache, decode=decode)
@@ -110,6 +123,21 @@ def _block_apply(cfg, kind, p, x, cache, *, decode, positions):
     else:
         y = mlp_mod.mlp_forward(cfg, p["mlp"], h)
     return x + y, new_cache, aux
+
+
+def _rwkv_block(cfg, p, x, cache):
+    """Time mix and channel mix, each after a norm. ``cache`` (or None)
+    holds S [B,H,hd,hd] f32 and the mixes' last inputs tm_x, cm_x [B,1,d];
+    the new ones come back in a new dict."""
+    state, tm_x, cm_x = (None, None, None) if cache is None else (
+        cache["S"], cache["tm_x"], cache["cm_x"])
+    h = apply_norm(cfg, x, p["ln1"])
+    y, (state, tm_x) = ssm_mod.rwkv6_time_mix(cfg, p["body"]["tm"], h, state=state, last_x=tm_x)
+    x = x + y
+    h = apply_norm(cfg, x, p["ln2"])
+    y, cm_x = ssm_mod.rwkv6_channel_mix(cfg, p["body"]["cm"], h, last_x=cm_x)
+    new_cache = None if cache is None else {"S": state, "tm_x": tm_x, "cm_x": cm_x}
+    return x + y, new_cache, None
 
 
 def _saved_under_block(ctx, op, *args, **kwargs):
@@ -134,6 +162,16 @@ def _index(tree, i):
     return tree[i]
 
 
+def _write_back(stacked, index, view, new):
+    """Copy into ``stacked[index]`` the leaves of ``new`` that are not the
+    leaves of ``view`` (``_index(stacked, index)``, which the block was
+    given): a block fills its cache views in place and returns new tensors
+    for what it replaces, such as decode's ``pos``."""
+    for key, val in new.items():
+        if val is not view[key]:
+            stacked[key][index] = val
+
+
 def _run_segment(cfg, kind, params, x, caches, *, decode, positions):
     """Run one segment layer by layer; returns (x, caches, aux summed over
     its layers, None for a dense segment). ``caches`` (stacked by layer,
@@ -153,9 +191,7 @@ def _run_segment(cfg, kind, params, x, caches, *, decode, positions):
             x, new_cache, aux = _block_apply(cfg, kind, layer_p, x, layer_cache,
                                              decode=decode, positions=positions)
             if caches is not None:
-                for key, val in new_cache.items():
-                    if val is not layer_cache[key]:
-                        caches[key][i] = val
+                _write_back(caches, i, layer_cache, new_cache)
         if aux is not None:
             aux_total = aux if aux_total is None else aux_total + aux
     return x, caches, aux_total
@@ -296,14 +332,28 @@ def lm_loss(cfg, params, batch):
 # ---------------------------------------------------------------------------
 
 
-def lm_cache(cfg, batch: int, max_len: int, device=None):
-    """Each segment's cache by attention kind (the reference's
-    ``_seg_cache_init``)."""
-    init = attn.mla_cache_init if cfg.attn_kind == "mla" else attn.gqa_cache_init
+def rwkv_cache_init(cfg, batch: int, count: int, device=None):
+    """The stacked-by-layer RWKV cache: S [L,B,H,hd,hd] f32, tm_x and cm_x
+    [L,B,1,d] in the activation dtype, all zeros."""
+    hd, d = cfg.ssm.head_dim, cfg.d_model
+    dt = dtype_of(cfg.dtype)
     return {
-        f"seg{i}": init(cfg, batch, max_len, count, device=device)
-        for i, (kind, count) in enumerate(segments(cfg))
+        "S": torch.zeros((count, batch, d // hd, hd, hd), dtype=torch.float32, device=device),
+        "tm_x": torch.zeros((count, batch, 1, d), dtype=dt, device=device),
+        "cm_x": torch.zeros((count, batch, 1, d), dtype=dt, device=device),
     }
+
+
+def lm_cache(cfg, batch: int, max_len: int, device=None):
+    """Each segment's cache by block kind (the reference's
+    ``_seg_cache_init``)."""
+    def init(kind, count):
+        if kind == "rwkv":
+            return rwkv_cache_init(cfg, batch, count, device=device)
+        make = attn.mla_cache_init if cfg.attn_kind == "mla" else attn.gqa_cache_init
+        return make(cfg, batch, max_len, count, device=device)
+
+    return {f"seg{i}": init(kind, count) for i, (kind, count) in enumerate(segments(cfg))}
 
 
 def lm_prefill(cfg, params, batch, max_len: int):
@@ -313,7 +363,8 @@ def lm_prefill(cfg, params, batch, max_len: int):
     caches = lm_cache(cfg, B, max_len, device=params["embed"].device)
     h, caches, _ = lm_forward(cfg, params, batch, caches=caches)
     for c in caches.values():
-        c["pos"].fill_(h.shape[1])
+        if "pos" in c:  # an RWKV cache has none
+            c["pos"].fill_(h.shape[1])
     logits = unembed(cfg, params, h[:, -1:])[:, 0]
     return logits, caches
 

@@ -6,6 +6,7 @@ from repro_torch.optim.optimizers import (
     clip_by_global_norm,
     clip_by_global_norm_stacked,
     fedopt_server,
+    global_norm,
     nesterov_outer,
     sgd,
 )
@@ -20,6 +21,7 @@ __all__ = [
     "fedopt_server",
     "clip_by_global_norm",
     "clip_by_global_norm_stacked",
+    "global_norm",
     "apply_updates",
     "constant",
     "cosine_warmup",

@@ -434,15 +434,18 @@ def test_flash_attention_bf16_refuses_what_the_kernel_does_not_take(device):
 
 
 # every (D, Dv) the kernels take (csrc/flash_attention.cu's FLASH_PAIRS)
-FLASH_HEAD_PAIRS = [(32, 32), (64, 32), (64, 64), (96, 32), (96, 64), (96, 96), (128, 32),
-                    (128, 64), (128, 96), (128, 128), (192, 32), (192, 64), (192, 96), (192, 128)]
+FLASH_HEAD_PAIRS = [(32, 32), (64, 32), (64, 64), (96, 32), (96, 64), (96, 96), (112, 112),
+                    (128, 32), (128, 64), (128, 96), (128, 128), (192, 32), (192, 64), (192, 96),
+                    (192, 128)]
 # MLA's prefill (D 192, Dv 128; 128 heads, no GQA): serving, past one tile,
 # packed; Phi-3-vision's (D = Dv = 96, 32 heads): 256 patches + 16 tokens;
-# (B, Sq, Skv, Hq, Hkv, D, Dv)
+# Zamba2's shared attention (D = Dv = 112, 32 heads): serving, past one
+# tile, packed; (B, Sq, Skv, Hq, Hkv, D, Dv)
 FLASH_DV_SHAPES = [(4, 16, 16, 128, 128, 192, 128), (1, 300, 300, 8, 8, 192, 128),
                    (1, 13, 13, 4, 1, 192, 128), (1, 65, 200, 4, 2, 192, 128),
                    (4, 272, 272, 32, 32, 96, 96), (1, 100, 100, 4, 2, 96, 96),
-                   (2, 9, 9, 8, 1, 96, 96)]
+                   (2, 9, 9, 8, 1, 96, 96), (4, 16, 16, 32, 32, 112, 112),
+                   (1, 300, 300, 4, 4, 112, 112), (2, 9, 9, 8, 1, 112, 112)]
 
 
 def _attn_inputs_dv(B, Sq, Skv, Hq, Hkv, D, Dv, dtype, device, seed=0):
@@ -503,6 +506,9 @@ def test_flash_attention_refuses_bad_inputs(device):
         fa.flash_attention_bhsd(q, k, v)  # Dv > D
     with pytest.raises(ValueError):
         fa.flash_attention_bhsd(q, k, v[..., :48].contiguous())  # Dv = 48 has no kernel
+    q, k, v = _attn_inputs_dv(1, 16, 16, 2, 1, 112, 96, torch.bfloat16, device)
+    with pytest.raises(ValueError):
+        fa.flash_attention_bhsd(q, k, v)  # (112, 96) is no pair of the kernels
 
 
 # swiglu: the reference sweep (weights x 0.1), then Qwen3-8B's widths at the

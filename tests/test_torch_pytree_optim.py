@@ -60,6 +60,23 @@ def test_clip_by_global_norm_matches_reference(scale):
     assert max_abs_diff(r_out, p_out) <= 1e-6
 
 
+@pytest.mark.parametrize("slab", [1, 7, 60])
+def test_clip_by_global_norm_by_slabs_matches_reference(monkeypatch, slab):
+    """Leaves above the slab size are summed slab by slab (the f32
+    temporaries of a multi-GB leaf): the same norm and clipped tree."""
+    from repro_torch.optim import optimizers
+
+    monkeypatch.setattr(optimizers, "_NORM_SLAB", slab)
+    ref, pt = _both(_tree(2, 0.3))
+    pt["alpha"]["w"] = pt["alpha"]["w"].t()  # a non-contiguous leaf
+    ref["alpha"]["w"] = ref["alpha"]["w"].T
+    r_out, r_gn = ref_optim.clip_by_global_norm(ref, 1.0)
+    p_out, p_gn = pt_optim.clip_by_global_norm(pt, 1.0)
+    assert abs(float(r_gn) - float(p_gn)) <= 1e-6 * max(1.0, float(r_gn))
+    assert max_abs_diff(r_out, p_out) <= 1e-6
+    assert float(pt_optim.global_norm(pt)) == float(p_gn)
+
+
 def test_clip_by_global_norm_stacked_matches_reference():
     # per-client scales straddle the clip threshold
     scales = np.array([0.01, 0.2, 1.0, 30.0], np.float32)

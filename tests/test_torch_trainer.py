@@ -154,8 +154,8 @@ def test_trainer_resume_equals_the_uninterrupted_run(tmp_path):
 
 def test_trainer_local_sgd_mode():
     """``tests/test_system.py::test_trainer_local_sgd_mode`` on the port,
-    with Qwen3 (RWKV is not ported)."""
-    out = p_train.train("qwen3-8b", reduced=True, steps=12, inner_steps=4, batch=4, seq=32,
+    with RWKV6 as there."""
+    out = p_train.train("rwkv6-1.6b", reduced=True, steps=12, inner_steps=4, batch=4, seq=32,
                         log_every=100, device="cpu")
     assert out["final_loss"] < out["losses"][0] + 0.5
     assert len(out["losses"]) == 12
