@@ -142,10 +142,14 @@ Run from the repository root. Phases, each printing one JSON line:
              prefill at D 192 / Dv 128 (B = 4 x S = 16 and B = 1 x S =
              4,096, 128 heads), Phi-3-vision's at D 96 (B = 4 x S = 272,
              32 heads) and Zamba2's at D = Dv = 112 (B = 4 x S = 16 and
-             B = 1 x S = 4,096, 32 heads) in f32 and bf16, timed, with the
-             custom op's backward at mla_train's shape (B = 2 x S = 256),
-             Phi-3-vision's and hybrid_train's (B = 2 x S = 256, D 112)
-             against autograd through the plain version, and swiglu
+             B = 1 x S = 4,096, 32 heads) and Whisper's three shapes
+             without a mask (8 heads of 64: the encoder at B = 4 x S =
+             1,536, the cross attention of Sq = 16 and Sq = 1 over 1,536
+             keys; SDPA without a mask beside them) in f32 and bf16, timed,
+             with the custom op's backward at mla_train's shape (B = 2 x S =
+             256), Phi-3-vision's, hybrid_train's (B = 2 x S = 256, D 112)
+             and Whisper's encoder's (B = 2 x S = 1,536, no mask) against
+             autograd through the plain version, and swiglu
              at Qwen3-8B's widths for
              M = 1, 4, 7, 44, 56, 64, with the same timing fields as
              ``kernel`` and one PyTorch call's time; the share of the bf16
@@ -269,9 +273,27 @@ Run from the repository root. Phases, each printing one JSON line:
              kernels against the plain versions (``TRAIN_RTOL``; each
              kernel zeroed must fail; every gradient finite: C7), then
              ``train()`` for 3 steps: s/step, tokens/s, peak, launches a
-             step (flash 26, swiglu 13); then
-             ``lm_phases``, the seconds of phases 23-37 against their
-             budget.
+             step (flash 26, swiglu 13);
+38. encdec_serving
+             ``Server("whisper-base", reduced=False)`` whole (6 encoder and 6
+             decoder layers, d 512, 8 heads of 64, 1,536 zero frames) on
+             serve.py:main's 8 requests: flash_attention 18 a prefill
+             (encoder, decoder self and cross attention) and 6 a decode
+             step (cross attention, no mask); then B = 4 random frames, a
+             64-token prompt and 8 teacher-forced decode steps against one
+             72-token forward: bf16 timed and its gap read, f32 within 1e-4
+             of max |logit|; the per-call copy of one layer's cross k / v
+             into the kernel's layout timed;
+39. encdec_train
+             Whisper whole, AdamW, 2 x 256 tokens over 1,536 frames: loss,
+             gradient norm and eight weights' gradient norms (an encoder
+             ``wq``, whose gradient reaches the loss only through the cross
+             attention's k / v, and the decoder's ``cross_attn.wk``) through
+             the kernel against the plain version (``TRAIN_RTOL``; the
+             kernel zeroed must fail), then ``train()`` for 3 steps: s/step,
+             tokens/s, peak, launches a step (flash 36, 18 backward
+             passes); then ``lm_phases``, the seconds of phases 23-39
+             against their budget.
 
 Then the kernels line, the card's name and power limit as nvidia-smi gives
 them, and the final ``{"ok": true, ...}`` line. A failed phase raises: the
@@ -1888,6 +1910,10 @@ FLASH_HEAD_PAIRS = ((32, 32), (64, 32), (64, 64), (96, 32), (96, 64), (96, 96), 
 MLA_HEADS, MLA_D, MLA_DV = 128, 192, 128
 VLM_HEADS, VLM_D, VLM_PATCHES = 32, 96, 256
 ZAMBA_HEADS, ZAMBA_D = 32, 112
+# Whisper-base: 8 heads of 64, 1,536 encoder frames; its flash shapes run
+# without a mask (the encoder and the cross attention)
+WHISPER_HEADS, WHISPER_D, WHISPER_SE = 8, 64, 1536
+WHISPER_GROUPS = ("whisper_encoder", "whisper_cross_prefill", "whisper_cross_decode")
 VLM_PREFILL_S = VLM_PATCHES + 16
 KNOWN_ENTRIES = NEW_KERNELS + ("flash_kernel_simt", "swiglu_kernel_simt")
 
@@ -1990,52 +2016,61 @@ def _timings(torch, kernel, plain, library, work, dtype, *, iters=100, reps=7):
 HEAD_DIM_BACKWARD = (("mla_train", (2, 256, MLA_HEADS, MLA_HEADS, MLA_D, MLA_DV)),
                      ("vlm_prefill", (4, VLM_PREFILL_S, VLM_HEADS, VLM_HEADS, VLM_D, VLM_D)))
 ZAMBA_BACKWARD = (("zamba_train", (2, 256, ZAMBA_HEADS, ZAMBA_HEADS, ZAMBA_D, ZAMBA_D)),)
+# Whisper's encoder under training: B = 2 x S = 1,536 frames, no mask
+WHISPER_BACKWARD = (("whisper_encoder", (2, WHISPER_SE, WHISPER_HEADS, WHISPER_HEADS, WHISPER_D,
+                                         WHISPER_D)),)
 
 
-def head_dim_backward(torch, gen, groups) -> dict:
+def head_dim_backward(torch, gen, groups, causal=True) -> dict:
     """flash_attention's custom op at the head dims of ``groups``, f32 and bf16: the
     output and every input gradient against autograd through the plain
     version, relative to its max |value| (``GRAD_RTOL``); bf16 forward and
     backward timed beside the bound, the plain version and SDPA's."""
+    import functools
+
     import torch.nn.functional as F
 
     from repro_torch.kernels import flash_attention as fa
     from repro_torch.kernels.ref import flash_attention_ref
 
     out = {}
+    sdpa_kw = {"is_causal": True} if causal else {}
     for group, (B, S, Hq, Hkv, D, Dv) in groups:
         for dt in (torch.float32, torch.bfloat16):
             name = str(dt).removeprefix("torch.")
             q = torch.randn(B * Hq, S, D, generator=gen, device="cuda").to(dt)
             k = torch.randn(B * Hkv, S, D, generator=gen, device="cuda").to(dt)
             v = torch.randn(B * Hkv, S, Dv, generator=gen, device="cuda").to(dt)
-            gaps = grad_gaps(torch, fa.flash_attention_grad, flash_attention_ref, [q, k, v], 3)
+            gaps = grad_gaps(torch, functools.partial(fa.flash_attention_grad, causal=causal),
+                             functools.partial(flash_attention_ref, causal=causal), [q, k, v], 3)
             check(max(gaps) < GRAD_RTOL[name],
                   f"lm_kernels backward {group} {name}: rel errs {gaps} >= {GRAD_RTOL[name]}")
             row = {"kernel": "flash_attention", "group": f"{group}_backward",
-                   "shape": [B, S, S, Hq, Hkv, D, Dv], "dtype": name,
+                   "shape": [B, S, S, Hq, Hkv, D, Dv], "dtype": name, "causal": causal,
                    "rel_err": dict(zip(("out", "dq", "dk", "dv"), gaps)), "rtol": GRAD_RTOL[name]}
             if dt == torch.bfloat16:
-                o = fa.flash_attention_bhsd(q, k, v)
+                o = fa.flash_attention_bhsd(q, k, v, causal=causal)
                 dout = torch.randn(o.shape, generator=gen, device="cuda").to(dt)
                 qs, ks, vs = (t.detach().requires_grad_(True) for t in (q, k, v))
-                ref_out = flash_attention_ref(qs, ks, vs)
+                ref_out = flash_attention_ref(qs, ks, vs, causal=causal)
                 lib_out = F.scaled_dot_product_attention(
                     qs.view(B, Hq, S, D), ks.view(B, Hkv, S, D), vs.view(B, Hkv, S, Dv),
-                    is_causal=True, enable_gqa=True)
+                    enable_gqa=True, **sdpa_kw)
                 row["forward"] = _timings(
-                    torch, lambda: fa.flash_attention_bhsd(q, k, v),
-                    lambda: flash_attention_ref(q, k, v),
+                    torch, lambda: fa.flash_attention_bhsd(q, k, v, causal=causal),
+                    lambda: flash_attention_ref(q, k, v, causal=causal),
                     lambda: F.scaled_dot_product_attention(
                         q.view(B, Hq, S, D), k.view(B, Hkv, S, D), v.view(B, Hkv, S, Dv),
-                        is_causal=True, enable_gqa=True),
-                    flash_work(B, S, S, Hq, Hkv, D, 2, Dv=Dv), dt, iters=20, reps=5)
+                        enable_gqa=True, **sdpa_kw),
+                    flash_work(B, S, S, Hq, Hkv, D, 2, causal=causal, Dv=Dv), dt, iters=20,
+                    reps=5)
                 row["backward"] = _timings(
-                    torch, lambda: fa._flash_backward(q, k, v, o, dout, True, 0, D ** -0.5),
+                    torch, lambda: fa._flash_backward(q, k, v, o, dout, causal, 0, D ** -0.5),
                     lambda: torch.autograd.grad(ref_out, (qs, ks, vs), dout, retain_graph=True),
                     lambda: torch.autograd.grad(lib_out, (qs, ks, vs), dout.view(B, Hq, S, Dv),
                                                 retain_graph=True),
-                    flash_backward_work(B, S, Hq, Hkv, D, 2, Dv=Dv), dt, iters=10, reps=5)
+                    flash_backward_work(B, S, Hq, Hkv, D, 2, Dv=Dv, causal=causal), dt, iters=10,
+                    reps=5)
                 out[group] = row
             emit("lm_kernels", **row)
     torch.cuda.empty_cache()
@@ -2086,22 +2121,34 @@ def phase_lm_kernels(torch):
                    for dt in (f32, bf16)]
     zamba_cases += [((1, 4096, 4096, ZAMBA_HEADS, ZAMBA_HEADS, ZAMBA_D, ZAMBA_D), dt, 0,
                      "zamba_long_prefill") for dt in (f32, bf16)]
+    # Whisper's three non-causal shapes, at serve.py:main's batch of 4: the
+    # encoder over 1,536 frames, the cross attention of a 16-token prompt
+    # and of one decode token over them; drawn from a generator of their own
+    wgen = torch.Generator(device=dev).manual_seed(64)
+    whisper_cases = [((4, Sq, Skv, WHISPER_HEADS, WHISPER_HEADS, WHISPER_D), dt, 0, group)
+                     for Sq, Skv, group in ((WHISPER_SE, WHISPER_SE, "whisper_encoder"),
+                                            (16, WHISPER_SE, "whisper_cross_prefill"),
+                                            (1, WHISPER_SE, "whisper_cross_decode"))
+                     for dt in (f32, bf16)]
     timed_groups = ("serving", "long_prefill", "window_prefill", "mla_prefill",
-                    "mla_long_prefill", "vlm_prefill", "zamba_prefill", "zamba_long_prefill")
+                    "mla_long_prefill", "vlm_prefill", "zamba_prefill", "zamba_long_prefill",
+                    *WHISPER_GROUPS)
     tol = {f32: 2e-5, bf16: 5e-2}
     # per query row, relative to that row's max |plain|: a late row of the
     # S = 4096 prefill averages ~1,500 keys and is only ~0.02 in size, below
     # the absolute bf16 tolerance; bf16 rounds each output once (2**-8)
     row_tol = {f32: 1e-3, bf16: 1e-2}
     for (shape, dt, window, group), g in ([(c, gen) for c in flash_cases]
-                                          + [(c, zgen) for c in zamba_cases]):
+                                          + [(c, zgen) for c in zamba_cases]
+                                          + [(c, wgen) for c in whisper_cases]):
         B, Sq, Skv, Hq, Hkv, D, *rest = shape
         Dv = rest[0] if rest else D
+        causal = group not in WHISPER_GROUPS
         q = torch.randn(B * Hq, Sq, D, generator=g, device=dev).to(dt)
         k = torch.randn(B * Hkv, Skv, D, generator=g, device=dev).to(dt)
         v = torch.randn(B * Hkv, Skv, Dv, generator=g, device=dev).to(dt)
-        kernel = lambda: fa.flash_attention_bhsd(q, k, v, causal=True, window=window)
-        plain = lambda: flash_attention_ref(q, k, v, causal=True, window=window)
+        kernel = lambda: fa.flash_attention_bhsd(q, k, v, causal=causal, window=window)
+        plain = lambda: flash_attention_ref(q, k, v, causal=causal, window=window)
         got, want = kernel(), plain()
         torch.cuda.synchronize()
         err = float(torch.max(torch.abs(got.float() - want.float())))
@@ -2118,29 +2165,30 @@ def phase_lm_kernels(torch):
         acc["max_rel_err"] = max(acc["max_rel_err"], err / max(scale, 1e-30))
         acc["max_row_rel_err"] = max(acc["max_row_rel_err"], row_err)
         row = {"kernel": "flash_attention", "shape": list(shape), "dtype": name[dt],
-               "window": window, "group": group, "max_abs_err": err, "max_abs_ref": scale,
-               "max_row_rel_err": row_err, "row_rtol": row_tol[dt]}
+               "window": window, "causal": causal, "group": group, "max_abs_err": err,
+               "max_abs_ref": scale, "max_row_rel_err": row_err, "row_rtol": row_tol[dt]}
         if group in timed_groups:
             if window:  # SDPA takes a window as a boolean mask (True: attend)
                 i = torch.arange(Sq, device=dev)[:, None]
                 j = torch.arange(Skv, device=dev)[None, :]
                 sdpa_kw = {"attn_mask": (j <= i) & (i - j < window)}
             else:
-                sdpa_kw = {"is_causal": True}
+                sdpa_kw = {"is_causal": True} if causal else {}
             library = lambda: F.scaled_dot_product_attention(
                 q.view(B, Hq, Sq, D), k.view(B, Hkv, Skv, D), v.view(B, Hkv, Skv, Dv),
                 enable_gqa=True, **sdpa_kw)
             n = 100 if Sq <= 16 else 5
             row.update(_timings(torch, kernel, plain, library,
                                 flash_work(B, Sq, Skv, Hq, Hkv, D, q.element_size(),
-                                           window=window, Dv=Dv), dt,
+                                           causal=causal, window=window, Dv=Dv), dt,
                                 iters=n, reps=7 if n == 100 else 3))
             acc["timed"][group if dt == bf16 else f"{group}_f32"] = row
         emit("lm_kernels", **row)
         del q, k, v, got, want
     out["flash_attention"]["head_dim_backward"] = {
         **head_dim_backward(torch, gen, HEAD_DIM_BACKWARD),
-        **head_dim_backward(torch, zgen, ZAMBA_BACKWARD)}
+        **head_dim_backward(torch, zgen, ZAMBA_BACKWARD),
+        **head_dim_backward(torch, wgen, WHISPER_BACKWARD, causal=False)}
 
     swiglu_cases = [((M, d, F_), dt, "reference") for M, d, F_ in (
         (64, 32, 128), (128, 64, 256), (256, 128, 512)) for dt in (f32, bf16)]
@@ -2346,7 +2394,7 @@ def phase_full_width(torch, server):
 # LM training (phases 23-27)
 # --------------------------------------------------------------------------
 
-LM_BUDGET_S = 300.0  # phases 23-37 together
+LM_BUDGET_S = 300.0  # phases 23-39 together
 STARCODER_TRAIN_LAYERS = 15  # of 30 (see phase_lm_train_starcoder)
 TRAIN_B, TRAIN_S = 2, 256  # the training batch: 2 sequences of 256 tokens
 # kernel Function vs autograd through the plain version, relative to the
@@ -2366,14 +2414,14 @@ RESUME_TOL = 1e-4  # StarCoder2's resumed losses against the uninterrupted run's
 REMAT_TURNS = ("block", "full", "block", "full")  # lm_train_qwen's turns of 3 steps
 
 
-def flash_backward_work(B, S, Hq, Hkv, D, itemsize, window=0, Dv=None) -> tuple:
+def flash_backward_work(B, S, Hq, Hkv, D, itemsize, window=0, Dv=None, causal=True) -> tuple:
     """(bytes, flops) of the attention backward: q, k, v, out and dO read
     once, dq, dk, dv written once; per unmasked pair a multiply-add for each
     head dim of S = q k^T, dQ and dK (D) and of dV and dP (Dv, D by
     default)."""
     Dv = D if Dv is None else Dv
     bytes_moved = (2 * B * Hq * S * (D + Dv) + 2 * B * Hkv * S * (D + Dv)) * itemsize
-    return bytes_moved, 2 * (3 * D + 2 * Dv) * B * Hq * attention_pairs(S, S, True, window)
+    return bytes_moved, 2 * (3 * D + 2 * Dv) * B * Hq * attention_pairs(S, S, causal, window)
 
 
 def swiglu_backward_work(M, d, F, itemsize) -> tuple:
@@ -2957,8 +3005,8 @@ def _traced_serving(torch, server, phase, per_prefill, per_decode):
     dec = [c for c in calls if c[0] == "decode"]
     check(all(c[2:] == per_prefill for c in pre), f"{phase}: per-prefill launches {pre}")
     check(all(c[2:] == per_decode for c in dec), f"{phase}: per-decode launches {dec}")
-    check(launches["flash_attention"] == per_prefill[0] * len(pre)
-          and launches["swiglu"] == per_prefill[1] * len(pre) + per_decode[1] * len(dec),
+    check(all(launches[k] == per_prefill[i] * len(pre) + per_decode[i] * len(dec)
+              for i, k in enumerate(("flash_attention", "swiglu"))),
           f"{phase}: launches {launches}")
     decode_ms = [c[1] for c in dec]
     row = {"requests": len(done), "tokens": n_tok, "wall_s": wall, "tokens_per_s": n_tok / wall,
@@ -3194,6 +3242,7 @@ def _decode_vs_forward(torch, model, params, batch, n_decode, max_len, tokens=No
     Mamba2 forward needs a multiple of its chunk), relative to max |logit|.
     Returns the row and the (flash_attention, swiglu) launches of the
     prefill and of each decode step."""
+    from repro_torch.models import encdec as encdec_mod
     from repro_torch.models import hybrid as hybrid_mod
     from repro_torch.models import lm as lm_mod
 
@@ -3216,11 +3265,16 @@ def _decode_vs_forward(torch, model, params, batch, n_decode, max_len, tokens=No
         steps.append(logits.float())
     extra = [] if after is None else [after]
     whole = dict(batch, tokens=torch.cat([batch["tokens"], *fed, *extra], dim=1))
-    forward = hybrid_mod.hybrid_forward if model.family == "hybrid" else lm_mod.lm_forward
+    forward = {"hybrid": hybrid_mod.hybrid_forward, "lm": lm_mod.lm_forward,
+               "encdec": encdec_mod.encdec_loss_forward}[model.family]
+    # the logits as the decode path rounds them: an encoder-decoder's in the
+    # activation dtype (tied embeddings), the others' summed in f32
+    logits_of = (encdec_mod._logits if model.family == "encdec"
+                 else lambda ps, h: lm_mod.unembed(cfg, ps, h))
     t = time.perf_counter()
     h, _, _ = forward(cfg, params, whole)
     end = h.shape[1] - sum(a.shape[1] for a in extra)
-    full = lm_mod.unembed(cfg, params, h[:, end - n_decode - 1:end])
+    full = logits_of(params, h[:, end - n_decode - 1:end])
     torch.cuda.synchronize()
     full_s = time.perf_counter() - t
     errs, scales, agree = [], [], 0
@@ -3780,6 +3834,184 @@ def phase_hybrid_train(torch):
     return row
 
 
+# --------------------------------------------------------------------------
+# Whisper's encoder-decoder
+# --------------------------------------------------------------------------
+
+# B = 4 random frames [4, 1536, 512], a 64-token prompt and 8 teacher-forced
+# decode steps against one 72-token forward; f32 held within 1e-4 of max
+# |logit| (the port's decode equals its prefill within 2e-7 on the CPU)
+ENCDEC_PROMPT, ENCDEC_DECODE, ENCDEC_F32_RTOL = 64, 8, 1e-4
+# one loss and gradient through the kernel against the plain version: the
+# encoder's and the decoder's attention weights and MLP; the encoder's reach
+# the loss only through the cross attention's k and v
+ENCDEC_TRAIN_LEAVES = (("encoder", "attn", "wq"), ("encoder", "attn", "wo"),
+                       ("encoder", "mlp", "w_up"), ("decoder", "self_attn", "wq"),
+                       ("decoder", "cross_attn", "wq"), ("decoder", "cross_attn", "wk"),
+                       ("decoder", "cross_attn", "wv"), ("decoder", "cross_attn", "wo"))
+
+
+def phase_encdec_serving(torch):
+    """``Server("whisper-base", reduced=False)`` whole (6 encoder and 6
+    decoder layers, d 512, 8 heads of 64, 1,536 zero frames) on serve.py:main's
+    8 requests: flash_attention 18 a prefill (6 encoder, 6 decoder self, 6
+    cross) and 6 a decode step (cross). Then B = 4 random frames, a 64-token
+    prompt and 8 decode steps against one 72-token forward: bf16 timed, its
+    gap read; f32 within ``ENCDEC_F32_RTOL``. The per-call copy of one
+    layer's cross k and v into the kernel's layout is timed beside it."""
+    from repro_torch.launch import Server
+    from repro_torch.models import Model
+    from repro_torch.utils import tree_leaves, tree_map
+
+    t0 = time.perf_counter()
+    server = Server("whisper-base", reduced=False, device="cuda")
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    cfg = server.cfg
+    L = cfg.n_layers
+    check(cfg.d_model == 512 and L == cfg.n_enc_layers == 6 and cfg.n_heads == WHISPER_HEADS
+          and cfg.resolved_head_dim == WHISPER_D and cfg.enc_seq_len == WHISPER_SE,
+          f"encdec_serving: config {cfg}")
+    served = _traced_serving(torch, server, "encdec_serving", (3 * L, 0), (L, 0))
+    B = server.batch
+    gen = torch.Generator(device="cuda").manual_seed(37)
+    frames = torch.randn(B, WHISPER_SE, cfg.d_model, generator=gen, device="cuda")
+    toks = torch.randint(0, cfg.vocab_size, (B, ENCDEC_PROMPT + ENCDEC_DECODE), generator=gen,
+                         device="cuda", dtype=torch.int32)
+    runs = {}
+    for dt in (torch.bfloat16, torch.float32):
+        name = str(dt).removeprefix("torch.")
+        m = Model(cfg.replace(dtype=name, param_dtype=name))
+        ps = server.params if dt == torch.bfloat16 else tree_map(lambda t: t.float(),
+                                                                 server.params)
+        batch = {"tokens": toks[:, :ENCDEC_PROMPT], "frames": frames.to(dt)}
+        with torch.no_grad():
+            torch.cuda.reset_peak_memory_stats()
+            row, pre, dec = _decode_vs_forward(torch, m, ps, batch, ENCDEC_DECODE,
+                                               ENCDEC_PROMPT + ENCDEC_DECODE + 8,
+                                               toks[:, ENCDEC_PROMPT:])
+            row["peak_memory_bytes"] = torch.cuda.max_memory_allocated()
+        check(pre == (3 * L, 0) and all(n == (L, 0) for n in dec),
+              f"encdec_serving {name}: launches prefill {pre}, decode {dec}")
+        row.update(launches_per_prefill=list(pre), launches_per_decode_step=list(dec[0]))
+        runs[name] = row
+        del ps
+    runs["float32"]["rtol"], runs["bfloat16"]["rtol"] = ENCDEC_F32_RTOL, None
+    check(runs["float32"]["max_rel_err"] <= ENCDEC_F32_RTOL,
+          f"encdec_serving: f32 decode vs full forward {runs['float32']['max_rel_err']} "
+          f"of max |logit|")
+    # ops.flash_attention's copy of one layer's cross k and v ([B, Se, H, D],
+    # the reference's cache layout) into [B*H, Se, D], on every call
+    k = torch.randn(B, WHISPER_SE, WHISPER_HEADS, WHISPER_D, generator=gen,
+                    device="cuda").bfloat16()
+
+    v = torch.randn(k.shape, generator=gen, device="cuda").bfloat16()
+
+    def copy():
+        for t in (k, v):
+            t.transpose(1, 2).reshape(B * WHISPER_HEADS, WHISPER_SE, WHISPER_D).contiguous()
+
+    copy_bytes = 2 * 2 * k.numel() * k.element_size()  # k and v, each read and written
+    row = {"arch": cfg.name, "n_layers": L, "n_enc_layers": cfg.n_enc_layers,
+           "d_model": cfg.d_model, "enc_seq_len": cfg.enc_seq_len,
+           "params": sum(t.numel() for t in tree_leaves(server.params)), "init_s": init_s,
+           **served, "long_prompt": {"batch": B, "prompt": ENCDEC_PROMPT,
+                                     "decode_steps": ENCDEC_DECODE, **runs["bfloat16"],
+                                     "float32": runs["float32"]},
+           "cross_kv_copy_us_per_layer": device_us(torch, copy, 100, 5),
+           "cross_kv_copy_bytes_per_layer": copy_bytes,
+           "cross_kv_copy_bound_us": copy_bytes / HBM_BYTES_PER_S * 1e6}
+    emit("encdec_serving", **row)
+    del server
+    gc.collect()
+    torch.cuda.empty_cache()
+    return row
+
+
+def phase_encdec_train(torch):
+    """Whisper whole at full width, bf16, AdamW, 2 x 256 tokens over 1,536
+    random frames: one loss and gradient through the kernel and through the
+    plain version (loss, gradient norm and the eight weights' gradient norms
+    of ``ENCDEC_TRAIN_LEAVES`` within ``TRAIN_RTOL``; the kernel's output
+    zeroed must fail that check), then ``train("whisper-base",
+    reduced=False)`` for 3 steps: s/step, tokens/s, peak, launches a step
+    (remat "block": flash 18 forward + 18 recomputed, 18 backward passes)."""
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import ops
+    from repro_torch.kernels.ref import flash_attention_ref
+    from repro_torch.models import Model
+    from repro_torch.optim import global_norm
+    from repro_torch.utils import tree_leaves, tree_map, tree_unflatten
+
+    cfg = get_config("whisper-base")
+    per_pass = cfg.n_enc_layers + 2 * cfg.n_layers
+    model = Model(cfg)
+    params = model.init(torch.Generator(device="cuda").manual_seed(0))
+    n_params = sum(p.numel() for p in tree_leaves(params))
+    batch = _batch(torch, cfg, 0)
+    check(tuple(batch["frames"].shape) == (TRAIN_B, WHISPER_SE, cfg.d_model),
+          f"encdec_train: frames {tuple(batch['frames'].shape)}")
+    finite = []
+
+    def loss_and_norms():
+        ps = tree_map(lambda p: p.detach().requires_grad_(True), params)
+        loss, _ = model.loss(ps, batch)
+        grads = torch.autograd.grad(loss, tree_leaves(ps))
+        finite.append(all(bool(torch.isfinite(g).all()) for g in grads))
+        tree = tree_unflatten(ps, grads)
+        leaves = {".".join(path): float(torch.linalg.vector_norm(
+            tree[path[0]][path[1]][path[2]].float())) for path in ENCDEC_TRAIN_LEAVES}
+        return float(loss.detach()), float(global_norm(tree)), leaves
+
+    def swapped(flash):
+        saved = ops.flash_attention_grad
+        ops.flash_attention_grad = flash
+        try:
+            return loss_and_norms()
+        finally:
+            ops.flash_attention_grad = saved
+
+    torch.cuda.reset_peak_memory_stats()
+    kern, grad_s, launches = counted(torch, loss_and_norms)
+    grad_peak = torch.cuda.max_memory_allocated()
+    check(finite == [True], "encdec_train: a gradient is not finite")
+    check(launches["flash_attention"] == 2 * per_pass and launches["swiglu"] == 0
+          and launches["flash_attention_backward"] == per_pass,
+          f"encdec_train: one loss+grad launched {launches}")
+    plain = swapped(lambda q, k, v, **kw: flash_attention_ref(q, k, v, **kw))
+    gaps = _train_gaps(kern, plain)
+    check(_train_within(gaps), f"encdec_train: kernel vs plain gaps {gaps} over {TRAIN_RTOL}")
+    flash = ops.flash_attention_grad
+    faulted = _train_gaps(swapped(lambda q, k, v, **kw: flash(q, k, v, **kw) * 0), plain)
+    check(not _train_within(faulted), f"encdec_train: flash zeroed passes the check: {faulted}")
+    del params
+    torch.cuda.empty_cache()
+
+    out, walls, launches, peak = _timed_train(torch, "whisper-base", optimizer="adamw", steps=3,
+                                              batch=TRAIN_B, seq=TRAIN_S)
+    losses = out["losses"]
+    check(len(losses) == 3 and all(math.isfinite(x) for x in losses),
+          f"encdec_train: losses {losses}")
+    check(launches["flash_attention"] == 3 * 2 * per_pass and launches["swiglu"] == 0
+          and launches["flash_attention_backward"] == 3 * per_pass,
+          f"encdec_train: 3 steps launched {launches}")
+    s_per_step = statistics.median(walls[1:])
+    row = {"arch": cfg.name, "n_layers": cfg.n_layers, "n_enc_layers": cfg.n_enc_layers,
+           "params": n_params, "optimizer": "adamw", "dtype": cfg.dtype, "remat": cfg.remat,
+           "batch": TRAIN_B, "seq": TRAIN_S, "frames": WHISPER_SE,
+           "kernels_loss": kern[0], "plain_loss": plain[0], "kernels_grad_norm": kern[1],
+           "plain_grad_norm": plain[1], "plain_leaf_grad_norms": plain[2], "rel_err": gaps,
+           "rtol": TRAIN_RTOL, "faulted_rel_err": faulted, "grads_finite": all(finite),
+           "loss_grad_s": grad_s, "loss_grad_peak_memory_bytes": grad_peak, "losses": losses,
+           "step_walls_s": walls, "s_per_step": s_per_step,
+           "tokens_per_s": TRAIN_B * TRAIN_S / s_per_step, "peak_memory_bytes": peak,
+           "launches_per_step": launches["flash_attention"] // 3,
+           "backward_calls_per_step": launches["flash_attention_backward"] // 3}
+    emit("encdec_train", **row)
+    torch.cuda.empty_cache()
+    return row
+
+
 FL_DESIGN = {
     "fedavg_reduce": "one launch over a leaf table passed by value; 16-byte loads where a "
                      "leaf is aligned, clients unrolled 16 deep, weights in shared memory",
@@ -3796,7 +4028,8 @@ FL_DESIGN = {
 }
 
 
-def lm_rows(lm, served, grad, qwen, moe_launches, head_launches, hybrid_launches):
+def lm_rows(lm, served, grad, qwen, moe_launches, head_launches, hybrid_launches,
+            encdec_launches):
     """The kernels-line rows of flash_attention (at the serving prefill
     shape, with the S = 4096 prefill beside it) and swiglu (at decode,
     M = 4, with the M = 64 prefill beside it), launches from the serve run;
@@ -3809,7 +4042,11 @@ def lm_rows(lm, served, grad, qwen, moe_launches, head_launches, hybrid_launches
     32 heads, forward and backward) and Zamba2's D 112 (B = 4 x S = 16 and
     one S = 4096 prompt, 32 heads; the backward at hybrid_train's shape),
     with their launches in the DeepSeek, Phi-3-vision and Zamba2 phases,
-    and swiglu's launches in the Zamba2 phases."""
+    and swiglu's launches in the Zamba2 phases; and at Whisper's three
+    shapes without a mask (8 heads of 64: the encoder at B = 4 x S = 1,536,
+    the cross attention of a 16-token prompt and of one decode token over
+    1,536 keys; the encoder's backward at B = 2), with its launches and the
+    per-call copy of a layer's cross k / v in the Whisper phases."""
     launches, n_pre, n_dec = served["launches"], served["prefills"], served["decode_steps"]
     per_pre, per_dec = served["per_prefill"], served["per_decode"]
 
@@ -3856,15 +4093,18 @@ def lm_rows(lm, served, grad, qwen, moe_launches, head_launches, hybrid_launches
          **ms(fa["timed"]["vlm_prefill"], "vlm_prefill_"),
          **ms(fa["timed"]["zamba_prefill"], "zamba_prefill_"),
          **ms(fa["timed"]["zamba_long_prefill"], "zamba_long_prefill_"),
+         **{k: v for g in WHISPER_GROUPS for k, v in ms(fa["timed"][g], f"{g}_").items()},
          **{f"{g}_f32_ms": fa["timed"][f"{g}_f32"]["us"] / 1e3
             for g in ("mla_prefill", "mla_long_prefill", "vlm_prefill", "zamba_prefill",
-                      "zamba_long_prefill")},
+                      "zamba_long_prefill", *WHISPER_GROUPS)},
          **{k: v for g, row in fa["head_dim_backward"].items()
             for part in ("forward", "backward")
             for k, v in ms(dict(row[part], shape=row["shape"]), f"{g}_{part}_").items()},
          **moe_launches, **head_launches, **hybrid_launches["flash_attention"],
+         **encdec_launches,
          "library_note": "F.scaled_dot_product_attention(is_causal=True, enable_gqa=True); "
                          "window_prefill_library_ms: with a boolean window mask; "
+                         "whisper_*_library_ms: with no mask (is_causal=False); "
                          "train_backward_library_ms and *_backward_library_ms: its autograd "
                          "backward",
          **train("flash_attention")},
@@ -4043,6 +4283,19 @@ def main() -> int:
         for i, kernel in enumerate(("flash_attention", "swiglu"))}
     hybrid_launches["flash_attention"]["hybrid_train_backward_calls_per_step"] = \
         hybrid_train["backward_calls_per_step"]
+    t = time.perf_counter()
+    encdec = phase_encdec_serving(torch)
+    lm_s["encdec_serving"] = time.perf_counter() - t
+    t = time.perf_counter()
+    encdec_train = phase_encdec_train(torch)
+    lm_s["encdec_train"] = time.perf_counter() - t
+    encdec_launches = {
+        "encdec_serving_launches": encdec["launches"]["flash_attention"],
+        "encdec_serving_launches_per_prefill": encdec["launches_per_prefill"][0],
+        "encdec_serving_launches_per_decode_step": encdec["launches_per_decode_step"][0],
+        "encdec_train_launches_per_step": encdec_train["launches_per_step"],
+        "encdec_train_backward_calls_per_step": encdec_train["backward_calls_per_step"],
+        "encdec_cross_kv_copy_ms_per_layer": encdec["cross_kv_copy_us_per_layer"] / 1e3}
     head_launches = {
         "mla_serving_launches": mla["launches"]["flash_attention"],
         "mla_serving_launches_per_prefill": mla["launches_per_prefill"][0],
@@ -4161,7 +4414,8 @@ def main() -> int:
                   grid["compressed"]["bf16 dense"]),
         # the whole flattened CNN (N = 206,922), as ops.quantize_tree feeds it
         quant_row("quantize_stochastic", None, "src/repro/kernels/quantize.py:44", NO_LIBRARY),
-        *lm_rows(lm, served, grad, qwen, moe_launches, head_launches, hybrid_launches),
+        *lm_rows(lm, served, grad, qwen, moe_launches, head_launches, hybrid_launches,
+                 encdec_launches),
     ]}), flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -6,10 +6,11 @@ GQA LMs ``qwen3-8b``, ``phi3-medium-14b``, ``minitron-8b`` and
 sliding window ``mixtral-8x7b``, MLA with a mixture of shared and routed
 experts ``deepseek-v2-236b``, the vision stub ``phi-3-vision-4.2b``, the
 recurrent RWKV6 ``rwkv6-1.6b``, the Mamba2 / shared-attention hybrid
-``zamba2-7b``, and the paper's MNIST CNN (``paper-mnist-cnn``, metadata
-only). The encoder-decoder ``whisper-base`` raises ``NotImplementedError``
-until its family is ported (ROADMAP Queue 1, item 15); an unknown name
-raises ``KeyError``.
+``zamba2-7b``, the encoder-decoder ``whisper-base`` (its audio frontend a
+stub of precomputed frames, as in the reference), and the paper's MNIST
+CNN (``paper-mnist-cnn``, metadata only): every architecture of the
+reference's registry. An unknown name raises ``KeyError``. ``GRID_ARCHS``
+and the shape grid (``ALL_SHAPES``) are the reference's.
 """
 
 from __future__ import annotations
@@ -18,15 +19,21 @@ import importlib
 from typing import Dict, List
 
 from repro_torch.configs.base import (
+    ALL_SHAPES,
+    DECODE_32K,
+    LONG_500K,
+    PREFILL_32K,
+    SHAPES_BY_NAME,
+    TRAIN_4K,
     HybridConfig,
     MLAConfig,
     ModelConfig,
     MoEConfig,
+    ShapeSpec,
     SSMConfig,
     TrainConfig,
 )
 
-# every architecture of the reference's registry, ported or not
 ARCH_IDS: List[str] = [
     "rwkv6-1.6b",
     "phi-3-vision-4.2b",
@@ -50,19 +57,15 @@ _MODULES: Dict[str, str] = {
     "deepseek-v2-236b": "deepseek_v2_236b",
     "phi-3-vision-4.2b": "phi3_vision_4p2b",
     "rwkv6-1.6b": "rwkv6_1p6b",
+    "whisper-base": "whisper_base",
     "zamba2-7b": "zamba2_7b",
     "paper-mnist-cnn": "paper_mnist",
 }
 
 
 def _module(arch: str):
-    if arch not in ARCH_IDS:
-        raise KeyError(f"unknown arch '{arch}'; known: {sorted(ARCH_IDS)}")
     if arch not in _MODULES:
-        raise NotImplementedError(
-            f"arch '{arch}' is not ported yet (ROADMAP Queue 1, item 15); "
-            f"ported: {sorted(_MODULES)}"
-        )
+        raise KeyError(f"unknown arch '{arch}'; known: {sorted(_MODULES)}")
     return importlib.import_module(f"repro_torch.configs.{_MODULES[arch]}")
 
 
@@ -74,14 +77,24 @@ def get_reduced(arch: str) -> ModelConfig:
     return _module(arch).reduced()
 
 
+GRID_ARCHS = [a for a in ARCH_IDS if a != "paper-mnist-cnn"]
+
 __all__ = [
     "ARCH_IDS",
+    "GRID_ARCHS",
     "get_config",
     "get_reduced",
+    "ALL_SHAPES",
+    "SHAPES_BY_NAME",
     "ModelConfig",
     "MoEConfig",
     "MLAConfig",
     "SSMConfig",
     "HybridConfig",
     "TrainConfig",
+    "ShapeSpec",
+    "TRAIN_4K",
+    "PREFILL_32K",
+    "DECODE_32K",
+    "LONG_500K",
 ]

@@ -1,15 +1,14 @@
-"""Architecture and training configuration (the port's own copy of
-``repro/configs/base.py``: plain frozen dataclasses). The shape grid
-(``ShapeSpec``) comes with the dry-run (ROADMAP Queue 1, item 16).
+"""Architecture, shape-grid and training configuration (the port's own
+copy of ``repro/configs/base.py``: plain frozen dataclasses).
 
 Every assigned architecture is expressed as a ``ModelConfig``. The same
 dataclass covers dense GQA transformers, MLA (DeepSeek), MoE, RWKV6,
 Mamba2 hybrids, and encoder-decoder (Whisper) — family-specific fields are
-simply unused elsewhere. The port's models implement the GQA and MLA
-families (RMSNorm or LayerNorm, SwiGLU or GELU MLP, or a mixture of
-experts; full or sliding-window attention; the vision stub), RWKV6 and the
-Mamba2 hybrid; the encoder-decoder is not ported (ROADMAP Queue 1, item
-15), and its fields are kept so a config reads the same in both packages.
+simply unused elsewhere. The port's models implement every family: the
+GQA and MLA LMs (RMSNorm or LayerNorm, SwiGLU or GELU MLP, or a mixture of
+experts; full or sliding-window attention; the vision stub), RWKV6, the
+Mamba2 hybrid and the encoder-decoder (Whisper). The shape grid
+(``ShapeSpec``, ``ALL_SHAPES``) is the reference's, cell for cell.
 """
 
 from __future__ import annotations
@@ -17,6 +16,34 @@ from __future__ import annotations
 import dataclasses
 from dataclasses import dataclass
 from typing import Optional, Tuple
+
+
+# ---------------------------------------------------------------------------
+# Shape grid (assigned input shapes — identical for every LM-family arch)
+# ---------------------------------------------------------------------------
+
+
+@dataclass(frozen=True)
+class ShapeSpec:
+    """One (workload kind, seq_len, global_batch) cell of the shape grid."""
+
+    name: str
+    kind: str  # "train" | "prefill" | "decode"
+    seq_len: int
+    global_batch: int
+
+    @property
+    def is_decode(self) -> bool:
+        return self.kind == "decode"
+
+
+TRAIN_4K = ShapeSpec("train_4k", "train", 4096, 256)
+PREFILL_32K = ShapeSpec("prefill_32k", "prefill", 32768, 32)
+DECODE_32K = ShapeSpec("decode_32k", "decode", 32768, 128)
+LONG_500K = ShapeSpec("long_500k", "decode", 524288, 1)
+
+ALL_SHAPES: Tuple[ShapeSpec, ...] = (TRAIN_4K, PREFILL_32K, DECODE_32K, LONG_500K)
+SHAPES_BY_NAME = {s.name: s for s in ALL_SHAPES}
 
 
 # ---------------------------------------------------------------------------
@@ -207,6 +234,9 @@ class ModelConfig:
         full_moe = self.n_layers * (self.moe.num_experts + self.moe.num_shared) * n_mlp * d * moe_ff
         active_moe = self.n_layers * (self.moe.top_k + self.moe.num_shared) * n_mlp * d * moe_ff
         return total - full_moe + active_moe
+
+    def valid_shapes(self) -> Tuple[ShapeSpec, ...]:
+        return tuple(s for s in ALL_SHAPES if s.name not in self.skip_shapes)
 
 
 @dataclass(frozen=True)

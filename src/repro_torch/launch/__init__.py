@@ -1,8 +1,8 @@
 """Launch drivers (the port of ``repro/launch``): the serving driver, the
 single-device train step, and the trainer (``repro_torch.launch.train``,
-not imported here so that ``python -m`` runs it cleanly). The mesh, the sharded step
-builders, the dry-run and HLO analysis are not ported yet (ROADMAP Queue 1,
-item 16)."""
+not imported here so that ``python -m`` runs it cleanly), and the mesh
+shapes (``launch.mesh``). The sharded step builders, the dry-run, HLO
+analysis and the roofline are not ported yet (ROADMAP Queue 1, item 16)."""
 
 from repro_torch.launch.serve import Request, Server
 from repro_torch.launch.steps import build_train_step, make_optimizer

@@ -6,10 +6,14 @@ caller names one). Its loop is the reference's, step for step: a static
 batch of ``batch`` requests, prompts left-padded with token 0 to a common
 length of at least 8 with no pad mask (pads are attended to, as in the
 reference), the prefill's greedy token appended before each decode step,
-and at most ``max_len - S - 1`` steps. On the card every prefill of a
-dense GQA model runs the flash-attention and SwiGLU kernels once per
-layer, and every decode step the SwiGLU kernel once per layer; Zamba2's
-shared block runs them once per application, RWKV6 runs neither.
+and at most ``max_len - S - 1`` steps. An encoder-decoder's batch carries
+zero frames [batch, enc_seq_len, d_model] in the activation dtype, as the
+reference's does. On the card every prefill of a dense GQA model runs the
+flash-attention and SwiGLU kernels once per layer, and every decode step
+the SwiGLU kernel once per layer; Zamba2's shared block runs them once per
+application, RWKV6 runs neither; Whisper runs flash three times per layer
+in a prefill (encoder, decoder self and cross attention) and once per
+layer in a decode step (cross attention).
 """
 
 from __future__ import annotations
@@ -24,6 +28,7 @@ import torch
 
 from repro_torch.configs import get_config, get_reduced
 from repro_torch.models import Model
+from repro_torch.models.base import dtype_of
 from repro_torch.utils import resolve_device
 
 
@@ -70,6 +75,10 @@ class Server:
             for i, r in enumerate(active):
                 toks[i, S - len(r.prompt):] = r.prompt  # left-pad
             batch = {"tokens": torch.from_numpy(toks).to(self.device)}
+            if self.cfg.enc_dec:
+                batch["frames"] = torch.zeros(
+                    (self.batch, self.cfg.enc_seq_len, self.cfg.d_model),
+                    dtype=dtype_of(self.cfg.dtype), device=self.device)
             logits, cache = self._prefill(self.params, batch)
             cur = torch.argmax(logits, -1)[:, None].to(torch.int32)
             max_new = max(r.max_new for r in active)

@@ -13,9 +13,10 @@ second copy of the params or a whole tree of f32 updates: for Qwen3-8B in
 bf16 that is 16.4 GB of params and 32.8 GB of updates. Every optimizer
 here is leaf-wise, so the values are those of the whole-tree update.
 
-The mesh, the shardings, the local-SGD ``vmap`` over pods, the outer sync
-and the prefill / decode step builders are not ported (ROADMAP Queue 1,
-item 16) and raise.
+The sharded steps (the local-SGD ``vmap`` over pods, the outer sync, the
+prefill / decode step builders on a mesh) are not ported (ROADMAP Queue 1,
+item 16) and raise; the mesh shapes and the sharding rules they will
+consume are ``launch.mesh`` and ``repro_torch.sharding``.
 """
 
 from __future__ import annotations

@@ -1,14 +1,20 @@
-"""GQA and MLA attention for serving and training (the port of
-``repro/models/attention.py`` without cross attention).
+"""GQA, cross and MLA attention for serving and training (the port of
+``repro/models/attention.py``).
 
 - Prefill runs ``kernels.ops.flash_attention``: the hand-written flash
   kernel on the card, its plain version on the CPU. It computes exactly the
-  reference's ``full_attention`` for a prefill (causal or windowed, no
-  query offset).
-- ``decode_attention`` stays plain torch (einsum + softmax), as the
-  reference computes it outside any Pallas kernel: the flash kernel's
-  causal mask is top-left aligned with no query offset, so a one-token
-  query at position ``pos`` is not its case.
+  reference's ``full_attention`` for a prefill (causal, windowed, or
+  non-causal when the caller says so, as Whisper's encoder does; no query
+  offset).
+- Cross attention (``gqa_forward(cross_kv=(k, v))``, the encoder-decoder's)
+  projects q with no rope and no norm and runs the flash kernel with
+  ``causal=False`` against the precomputed k and v, in prefill, training
+  and decode alike: with no mask, a one-token query over the encoder's
+  keys is exactly the kernel's function.
+- ``decode_attention`` (self attention against a cache) stays plain torch
+  (einsum + softmax), as the reference computes it outside any Pallas
+  kernel: the flash kernel's causal mask is top-left aligned with no query
+  offset, so a one-token query at position ``pos`` is not its case.
 - ``full_attention`` is the materialized form, kept as the oracle.
 
 Caches are dicts of tensors; the per-layer views of the stacked cache are
@@ -34,8 +40,7 @@ v_head_dim (128), scale D^-0.5. Every MLA projection is one 2-D product
 the absorbed form in plain torch, in the reference's rounding order:
 ``q_abs = q_nope W_uk`` in the activation dtype, the scores against
 ``c_kv`` and ``k_pe`` in f32, the probabilities cast to the activation
-dtype before the product with ``c_kv``, then ``W_uv`` and ``wo``. Cross
-attention is not ported (ROADMAP Queue 1, item 15) and raises.
+dtype before the product with ``c_kv``, then ``W_uv`` and ``wo``.
 """
 
 from __future__ import annotations
@@ -48,10 +53,6 @@ from repro_torch.kernels import ops
 from repro_torch.models.base import Ctx, apply_rope, dtype_of, linear, rms_norm
 
 NEG_INF = -1e30
-
-
-def _not_ported(what: str):
-    return NotImplementedError(f"{what} is not ported yet (ROADMAP Queue 1, item 15)")
 
 
 def repeat_kv(k, n_heads: int):
@@ -150,19 +151,26 @@ def _out_proj(out, wo):
     return torch.matmul(out.reshape(*out.shape[:-2], H * k), wo.to(out.dtype).reshape(H * k, d))
 
 
-def gqa_forward(cfg, p, x, *, positions=None, cache=None, decode=False, cross_kv=None):
+def gqa_forward(cfg, p, x, *, positions=None, cache=None, decode=False, cross_kv=None,
+                causal=None):
     """Returns (out [B,S,d], cache_or_None).
 
     - prefill: cache is None or an empty cache dict, whose k/v (and a
       ring's kv_pos) are filled in place: slots 0..S-1 when the prompt
       fits, else its last Smax tokens (see the module docstring).
+      ``causal`` overrides ``cfg.causal`` (the encoder's ``False``).
     - decode: x is [B,1,d]; cache holds k/v [B,Smax,Hkv,D], pos [B] and a
       ring's kv_pos [B,Smax]; the new k/v are written in place at slot
       ``pos % Smax`` on a ring, else ``min(pos, Smax-1)``, and pos advances.
+    - cross_kv: the precomputed (k, v) [B,Se,Hkv,D] of an encoder's states;
+      x attends to all of them, with no mask, in prefill and decode alike.
     """
-    if cross_kv is not None:
-        raise _not_ported("cross attention (encoder-decoder)")
     B, S, d = x.shape
+    causal = cfg.causal if causal is None else causal
+    if cross_kv is not None:
+        k, v = cross_kv
+        out = ops.flash_attention(_heads(x, p["wq"]), k, v, causal=False)
+        return _out_proj(out, p["wo"]), None
     if positions is None:
         positions = torch.arange(S, device=x.device)[None, :]
 
@@ -172,7 +180,7 @@ def gqa_forward(cfg, p, x, *, positions=None, cache=None, decode=False, cross_kv
         if cache is not None:
             _prefill_cache(cache, k, v, positions)
             new_cache = cache
-        out = ops.flash_attention(q, k, v, causal=cfg.causal, window=cfg.sliding_window)
+        out = ops.flash_attention(q, k, v, causal=causal, window=cfg.sliding_window)
         return _out_proj(out, p["wo"]), new_cache
 
     # ---- decode ----

@@ -3,14 +3,18 @@
 
 Models are plain functions ``apply(cfg, params, ...)`` over nested dicts of
 tensors. The tree structure is defined once, in the init code, through a
-:class:`Ctx`. The port keeps the ``init`` mode, and an abstract mode whose
-leaves are tensors on the ``meta`` device (shapes and dtypes, no storage;
-the reference's ``abstract``). Its ``axes`` mode serves sharding, which is
-not ported (ROADMAP Queue 1, item 16). Draws come from a
+:class:`Ctx`, in one of the reference's three modes: ``init`` (draws),
+abstract (leaves are tensors on the ``meta`` device: shapes and dtypes, no
+storage) and ``axes`` (each leaf is its tuple of logical axis names, which
+``repro_torch.sharding`` maps onto a mesh). Draws come from a
 ``torch.Generator`` on its own device, in f32, then cast to the parameter
 dtype; the kinds and the fan-in rule are the reference's. The reference's
 threefry draws have no torch counterpart, so tests carry its parameters
 across with ``repro_torch.convert`` instead.
+
+Logical axis names used across the zoo (the reference's):
+  batch, seq, kvseq, embed, vocab, heads, kv_heads, head_dim, qk_dim,
+  ffn, experts, layers, state, conv, lora
 
 The ops compute in f32 and return the activation dtype, as the
 reference's do.
@@ -21,6 +25,7 @@ from __future__ import annotations
 import math
 from typing import Optional, Sequence, Tuple
 
+import numpy as np
 import torch
 import torch.nn.functional as F
 
@@ -37,12 +42,16 @@ def dtype_of(name: str) -> torch.dtype:
 
 class Ctx:
     """Parameter materialization context: draws from ``generator`` on its
-    device, or shapes only (``meta`` tensors) when ``generator`` is None."""
+    device, or shapes only (``meta`` tensors) when ``generator`` is None,
+    or, with ``axes=True``, each leaf's logical axes (no generator)."""
 
-    def __init__(self, generator: Optional[torch.Generator], param_dtype=torch.bfloat16):
+    def __init__(self, generator: Optional[torch.Generator], param_dtype=torch.bfloat16, *,
+                 axes: bool = False):
+        assert not (axes and generator is not None), "the axes mode draws nothing"
         self.generator = generator
         self.device = generator.device if generator is not None else torch.device("meta")
         self.param_dtype = param_dtype
+        self.axes = axes
 
     def _randn(self, shape):
         return torch.randn(shape, generator=self.generator, device=self.device,
@@ -70,6 +79,8 @@ class Ctx:
     ):
         shape = tuple(int(s) for s in shape)
         assert len(shape) == len(axes), f"shape {shape} vs axes {axes}"
+        if self.axes:
+            return tuple(axes)
         dtype = dtype or self.param_dtype
         if init == "zeros":
             return torch.zeros(shape, dtype=dtype, device=self.device)
@@ -164,3 +175,14 @@ def apply_rope(x, positions, theta: float):
     x1, x2 = torch.chunk(x.float(), 2, dim=-1)
     out = torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin], dim=-1)
     return out.to(x.dtype)
+
+
+def sinusoidal_positions(n: int, d: int, device=None):
+    """[n, d] f32 table: sin at the even columns, cos at the odd, built in
+    numpy exactly as the reference builds it (bit for bit the same)."""
+    pos = np.arange(n)[:, None]
+    div = np.exp(-np.log(10000.0) * np.arange(0, d, 2) / d)
+    table = np.zeros((n, d), np.float32)
+    table[:, 0::2] = np.sin(pos * div)
+    table[:, 1::2] = np.cos(pos * div)
+    return torch.from_numpy(table).to(device)

@@ -61,23 +61,18 @@ from repro_torch.models.base import Ctx, apply_norm, dtype_of, linear, norm_para
 from repro_torch.utils import tree_unstack
 
 
-def _not_ported(what: str):
-    return NotImplementedError(f"{what} is not ported yet (ROADMAP Queue 1, item 15)")
-
-
 # ---------------------------------------------------------------------------
 # Segment layout
 # ---------------------------------------------------------------------------
 
 
 def segments(cfg: ModelConfig) -> List[Tuple[str, int]]:
-    """Return [(block_kind, count), ...] covering cfg.n_layers."""
-    if cfg.frontend not in ("none", "vision_stub"):
-        raise _not_ported(f"the '{cfg.frontend}' frontend")
+    """Return [(block_kind, count), ...] covering cfg.n_layers. As in the
+    reference, the frontend plays no part here (an ``audio_stub`` config
+    in this family embeds its tokens only), and every attention kind but
+    "mla" builds GQA blocks."""
     if cfg.ssm is not None and cfg.ssm.kind == "rwkv6":
         return [("rwkv", cfg.n_layers)]
-    if cfg.attn_kind not in ("gqa", "mla"):
-        raise _not_ported(f"attention kind '{cfg.attn_kind}'")
     if cfg.moe is not None and cfg.moe.num_experts > 0:
         k = cfg.moe.first_k_dense
         return ([("dense", k)] if k else []) + [("moe", cfg.n_layers - k)]

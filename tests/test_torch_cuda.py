@@ -482,6 +482,20 @@ def test_flash_attention_mla_and_vision_shapes_match_plain(device, B, Sq, Skv, H
     _check_flash(q, k, v, dtype, causal=True)
 
 
+# Whisper-base's flash shapes, all without a mask (8 heads of 64): the
+# encoder over 1,536 frames, the cross attention of a 16-token prompt and of
+# one decode token over them; (B, Sq, Skv, Hq, Hkv, D)
+WHISPER_SHAPES = [(4, 1536, 1536, 8, 8, 64), (4, 16, 1536, 8, 8, 64), (4, 1, 1536, 8, 8, 64)]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("B,Sq,Skv,Hq,Hkv,D", WHISPER_SHAPES,
+                         ids=["encoder", "cross_prefill", "cross_decode"])
+def test_flash_attention_whisper_shapes_match_plain(device, B, Sq, Skv, Hq, Hkv, D, dtype):
+    q, k, v = _attn_inputs(B, Sq, Skv, Hq, Hkv, D, dtype, device, seed=Sq + 1)
+    _check_flash(q, k, v, dtype, causal=False)
+
+
 def test_flash_attention_bshd_wrapper_on_the_card(device):
     g = torch.Generator(device=device).manual_seed(3)
     q = torch.randn(2, 16, 8, 64, generator=g, device=device)
@@ -959,6 +973,21 @@ def test_flash_attention_grad_head_dims_match_plain_autograd(device, B, S, Hq, H
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("B,Sq,Skv", [(2, 256, 1536), (2, 1536, 1536)],
+                         ids=["cross", "encoder"])
+def test_flash_attention_grad_without_a_mask_matches_plain_autograd(device, B, Sq, Skv, dtype):
+    """Whisper under training: the cross attention's dk / dv at 1,536 keys
+    from 256 queries, and the encoder's, through the custom op."""
+    q, k, v = _attn_inputs(B, Sq, Skv, 8, 8, 64, dtype, device, seed=Sq)
+    launches, backs = fa.launches, fa.backward_calls
+    gaps = _grad_gaps(lambda *t: fa.flash_attention_grad(*t, causal=False),
+                      lambda *t: flash_attention_ref(*t, causal=False), [q, k, v], 1)
+    torch.cuda.synchronize()
+    assert (fa.launches, fa.backward_calls) == (launches + 1, backs + 1)
+    assert max(gaps) < GRAD_RTOL[dtype], gaps
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("M,d,F", [(64, 128, 256), (512, 4096, 12288)])
 def test_swiglu_grad_matches_plain_autograd(device, M, d, F, dtype):
     g = torch.Generator(device=device).manual_seed(M)
@@ -1003,3 +1032,38 @@ def test_reduced_lm_train_steps_on_the_card(device):
     assert (fa.launches - counts[0], sw.launches - counts[1]) == (4 * 2 * L, 4 * L)
     assert (fa.backward_calls - counts[2], sw.backward_calls - counts[3]) == (4 * L, 4 * L)
     assert all(torch.isfinite(torch.tensor(losses)))
+
+
+def test_reduced_whisper_on_the_card_matches_the_cpu(device):
+    """Reduced Whisper in f32, with 2 heads of 32 (its 4 heads of 16 are
+    not a head width the kernel is built for): a prefill and two decode
+    steps on the card (flash 3 a layer a prefill, 1 a layer a step: the
+    encoder, the decoder's self and cross attention) against the same
+    params on the CPU (the plain versions), within 1e-4 of max |logit|."""
+    from repro_torch.configs import get_reduced
+    from repro_torch.models import Model
+    from repro_torch.utils import tree_map
+
+    cfg = get_reduced("whisper-base").replace(dtype="float32", param_dtype="float32", n_heads=2,
+                                              n_kv_heads=2)
+    model = Model(cfg)
+    params = model.init(torch.Generator(device=device).manual_seed(0))
+    g = torch.Generator(device=device).manual_seed(1)
+    batch = {"tokens": torch.randint(0, cfg.vocab_size, (2, 9), generator=g, device=device,
+                                     dtype=torch.int32),
+             "frames": torch.randn(2, cfg.enc_seq_len, cfg.d_model, generator=g, device=device)}
+    results = {}
+    for where, ps, b in (("cuda", params, batch),
+                         ("cpu", tree_map(lambda t: t.cpu(), params),
+                          {k: v.cpu() for k, v in batch.items()})):
+        before = fa.launches
+        logits, cache = model.prefill(ps, {**b, "tokens": b["tokens"][:, :7]}, 16)
+        out = [logits]
+        for j in (7, 8):
+            logits, cache = model.decode_step(ps, cache, b["tokens"][:, j:j + 1])
+            out.append(logits)
+        results[where] = (torch.stack(out).cpu(), fa.launches - before)
+    L = cfg.n_layers
+    assert results["cuda"][1] == 3 * L + 2 * L and results["cpu"][1] == 0
+    got, want = results["cuda"][0], results["cpu"][0]
+    assert torch.max(torch.abs(got - want)).item() <= 1e-4 * torch.max(torch.abs(want)).item()

@@ -16,6 +16,7 @@ import numpy as np
 import pytest
 import torch
 
+from repro import configs as r_configs
 from repro.configs import get_config as r_get_config
 from repro.configs import get_reduced as r_get_reduced
 from repro.models import Model as RModel
@@ -80,30 +81,61 @@ def test_config_is_the_reference_config():
     assert full.padded_vocab == 152_064 and full.resolved_head_dim == 128
 
 
-@pytest.mark.parametrize("arch", ["whisper-base"])
-def test_unported_archs_raise(arch):
-    with pytest.raises(NotImplementedError, match="item 15"):
-        p_configs.get_config(arch)
-    with pytest.raises(KeyError):
-        p_configs.get_config("no-such-arch")
+def test_unknown_arch_raises_key_error():
+    assert p_configs.ARCH_IDS == r_configs.ARCH_IDS and p_configs.GRID_ARCHS == r_configs.GRID_ARCHS
+    for get in (p_configs.get_config, p_configs.get_reduced):
+        with pytest.raises(KeyError):
+            get("no-such-arch")
 
 
-@pytest.mark.parametrize("change", [dict(enc_dec=True), dict(frontend="audio_stub")],
-                         ids=["encdec", "audio_stub"])
-def test_unported_families_raise(change):
-    cfg = p_configs.get_reduced("qwen3-8b").replace(**change)
-    with pytest.raises(NotImplementedError, match="item 15"):
-        model = Model(cfg)
-        params = model.init(torch.Generator().manual_seed(0))
-        model.prefill(params, {"tokens": torch.zeros((1, 8), dtype=torch.int32)}, 16)
+@pytest.mark.parametrize(
+    "change",
+    [dict(enc_dec=True, n_enc_layers=1, enc_seq_len=8, tie_embeddings=True),
+     dict(frontend="audio_stub"),
+     dict(attn_kind="none")],
+    ids=["encdec", "audio_stub", "attn_kind_none"],
+)
+def test_qwen3_variants_build_the_references_model(change):
+    """Reduced Qwen3 with one field changed builds what the reference
+    builds: turned encoder-decoder (qk-norm, SwiGLU, RMSNorm blocks, one
+    encoder layer over 8 frames; tied, as the family's loss needs), with an ``audio_stub`` frontend (which
+    the ``lm`` family ignores) and with attention kind "none" and no SSM
+    (GQA blocks, as the reference's ``segments`` gives). Loss, prefill and
+    one decode step in f32 against the reference's."""
+    rcfg, pcfg = (c.replace(**change) for c in _cfgs())
+    rp = jax.jit(RModel(rcfg).init)(jax.random.PRNGKey(0))
+    pp = params_from_numpy(_np(rp), "cpu")
+    toks = np.random.default_rng(4).integers(0, pcfg.vocab_size, (2, 12)).astype(np.int32)
+    b = {"tokens": toks, "targets": np.roll(toks, -1, axis=1)}
+    if pcfg.enc_dec:
+        b["frames"] = _x((2, 8, pcfg.d_model), seed=12)
+    rm = RModel(rcfg)
+    rl, _ = jax.jit(rm.loss)(rp, {k: jnp.asarray(v) for k, v in b.items()})
+    pl, _ = Model(pcfg).loss(pp, {k: torch.from_numpy(v) for k, v in b.items()})
+    assert abs(float(rl) - float(pl)) < F32_TOL
+    pre = {k: v[:, :11] if k == "tokens" else v for k, v in b.items() if k != "targets"}
+    r_logits, r_cache = jax.jit(lambda p, b: rm.prefill(p, b, 16))(
+        rp, {k: jnp.asarray(v) for k, v in pre.items()})
+    p_logits, p_cache = Model(pcfg).prefill(pp, {k: torch.from_numpy(v) for k, v in pre.items()},
+                                            16)
+    assert max_abs_diff(r_logits, p_logits) < F32_TOL
+    r_logits, _ = jax.jit(rm.decode_step)(rp, r_cache, jnp.asarray(toks[:, 11:]))
+    p_logits, _ = Model(pcfg).decode_step(pp, p_cache, torch.from_numpy(toks[:, 11:]))
+    assert max_abs_diff(r_logits, p_logits) < F32_TOL
 
 
-def test_cross_attention_raises():
-    _, pcfg = _cfgs()
-    p = p_attn.gqa_params(p_base.Ctx(torch.Generator().manual_seed(0), torch.float32), pcfg)
-    x = torch.zeros((1, 4, pcfg.d_model))
-    with pytest.raises(NotImplementedError, match="item 15"):
-        p_attn.gqa_forward(pcfg, p, x, cross_kv=(x, x))
+def test_cross_attention_matches():
+    """Cross attention with Qwen3's q-norm weights present: the reference
+    projects q with neither norm nor rope, and so does the port."""
+    rcfg, pcfg = _cfgs()
+    rp, pp = _carried()
+    r_layer, p_layer = _layer(rp["seg0"]["attn"], 0), p_lm._index(pp["seg0"]["attn"], 0)
+    x, k, v = _x((2, 5, pcfg.d_model), 13), _x((2, 9, 2, 32), 14), _x((2, 9, 2, 32), 15)
+    r_out, _ = r_attn.gqa_forward(rcfg, r_layer, jnp.asarray(x),
+                                  cross_kv=(jnp.asarray(k), jnp.asarray(v)))
+    p_out, cache = p_attn.gqa_forward(pcfg, p_layer, torch.from_numpy(x),
+                                      cross_kv=(torch.from_numpy(k), torch.from_numpy(v)))
+    assert cache is None and max_abs_diff(r_out, p_out) < F32_TOL
 
 
 @pytest.mark.parametrize(
@@ -214,8 +246,8 @@ def test_gqa_forward_prefill_and_decode_match_with_cache():
 def test_gqa_forward_refuses_a_cache_shorter_than_the_prompt():
     """(The name is kept from when the port refused such a cache.) A dense
     cache shorter than the prompt keeps the prompt's last Smax tokens at
-    slots 0..Smax-1, as the reference's does; cross attention still
-    raises."""
+    slots 0..Smax-1, as the reference's does; a one-token cross attention
+    over those 4 slots equals the reference's."""
     rcfg, pcfg = _cfgs()
     rp, pp = _carried()
     r_layer, p_layer = _layer(rp["seg0"]["attn"], 0), p_lm._index(pp["seg0"]["attn"], 0)
@@ -226,9 +258,10 @@ def test_gqa_forward_refuses_a_cache_shorter_than_the_prompt():
     p_out, pc = p_attn.gqa_forward(pcfg, p_layer, torch.from_numpy(x), cache=pc)
     assert max_abs_diff(r_out, p_out) < F32_TOL
     assert max_abs_diff({k: rc[k] for k in ("k", "v")}, {k: pc[k] for k in ("k", "v")}) < F32_TOL
-    with pytest.raises(NotImplementedError, match="item 15"):
-        p_attn.gqa_forward(pcfg, p_layer, torch.zeros(1, 8, pcfg.d_model),
-                           cross_kv=(torch.zeros(1), torch.zeros(1)))
+    x1 = _x((2, 1, pcfg.d_model), seed=11)
+    r_out, _ = r_attn.gqa_forward(rcfg, r_layer, jnp.asarray(x1), cross_kv=(rc["k"], rc["v"]))
+    p_out, _ = p_attn.gqa_forward(pcfg, p_layer, torch.from_numpy(x1), cross_kv=(pc["k"], pc["v"]))
+    assert max_abs_diff(r_out, p_out) < F32_TOL
 
 
 def test_decode_attention_matches():

@@ -16,7 +16,7 @@ import repro_torch.configs as p_configs
 import repro_torch.core as p_core
 import repro_torch.data as p_data
 import repro_torch.transport as p_tr
-from repro_torch.launch import Server
+from repro_torch.configs import DECODE_32K, TrainConfig
 from repro_torch.launch import steps as p_steps
 from repro_torch.launch import train as p_train
 
@@ -67,14 +67,15 @@ def test_rec3_min_fit_under_90pct_failure_on_the_port():
 @pytest.mark.parametrize(
     "build,item",
     [
-        (lambda: p_configs.get_reduced("whisper-base"), 15),
-        (lambda: Server("whisper-base", device="cpu"), 15),
+        (lambda: p_steps.build_step(p_configs.get_config("whisper-base"), DECODE_32K), 16),
+        (lambda: p_steps.build_train_step(p_configs.get_reduced("whisper-base"), TrainConfig(),
+                                          mode="local"), 16),
         (lambda: p_train.train("qwen3-8b", steps=1, mesh_kind="prod", device="cpu"), 16),
         (lambda: p_steps.build_outer_sync(p_configs.get_reduced("qwen3-8b"), None, None), 16),
         (lambda: p_steps.build_prefill_step(p_configs.get_reduced("zamba2-7b")), 16),
         (lambda: p_steps.build_decode_step(p_configs.get_reduced("rwkv6-1.6b")), 16),
     ],
-    ids=["whisper-base", "server-whisper-base", "train-prod-mesh", "outer-sync",
+    ids=["step-builder", "local-train-step", "train-prod-mesh", "outer-sync",
          "prefill-step", "decode-step"],
 )
 def test_configs_outside_the_slice_raise(build, item):
