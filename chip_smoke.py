@@ -127,9 +127,10 @@ Run from the repository root. Phases, each printing one JSON line:
              with split-stream stochastic transport on the fused transport
              plane, killed after round 4 and resumed, bitwise;
 19. engine_benches
-             ``round_engine_bench`` at its full default size, ``sweep_bench``
-             and ``compress_bench`` at their ``fast`` sizes (at the default
-             sizes the phase outran its 180 s budget): every parity flag
+             ``round_engine_bench``, ``sweep_bench`` and ``compress_bench``
+             at their ``fast`` sizes (at the default sizes the phase outran
+             its 180 s budget; the round bench alone took 103.5 s of the
+             script's time on a slow host): every parity flag
              true, their seconds and speedups, launches per bench
              (quantize_rows in compress_bench's int8 points);
 20. lm_kernels
@@ -292,8 +293,17 @@ Run from the repository root. Phases, each printing one JSON line:
              the kernel against the plain version (``TRAIN_RTOL``; the
              kernel zeroed must fail), then ``train()`` for 3 steps: s/step,
              tokens/s, peak, launches a step (flash 36, 18 backward
-             passes); then ``lm_phases``, the seconds of phases 23-39
-             against their budget.
+             passes);
+40. sharded_steps
+             item 16's sharded steps on a 1 x 1 ``nccl`` DeviceMesh and a
+             1 x 1 x 1 pod mesh: Qwen3-8B at full width, 8 layers, its
+             sharded loss / gradient and 2 ``build_train_step`` steps
+             against the one-device ones (``TRAIN_RTOL``, the kernels'
+             launches equal), a sharded prefill and 4 decode steps
+             (3e-2 of max |logit|); Mixtral, 2 layers, through ``ep_a2a``
+             at drop-free capacity; local-SGD then the int8 outer sync
+             bit for bit against plain torch; then ``lm_phases``, the
+             seconds of phases 23-40 against their budget.
 
 Then the kernels line, the card's name and power limit as nvidia-smi gives
 them, and the final ``{"ok": true, ...}`` line. A failed phase raises: the
@@ -303,6 +313,8 @@ repository beside it, it exits 2.
 
 from __future__ import annotations
 
+import contextlib
+import dataclasses
 import gc
 import json
 import math
@@ -1826,14 +1838,14 @@ ENGINE_BENCH_BUDGET_S = 180.0  # the phase's budget
 
 
 def phase_engine_benches(torch):
-    """The three engine benches of ``repro_torch.experiments`` on the card:
-    ``round_engine_bench`` at its full default size (32 clients x 320
-    examples, 10 rounds of 10 local steps, sequential vs batched in turns),
-    ``sweep_bench`` (the fig3 grid vs per-point, fig3 / fig4 / table3 row
-    parity, the fused transport section) and ``compress_bench`` (the (loss x
-    tcp x {topk 0.05, int8}) grid through the plane vs unstacked) at their
-    ``fast`` sizes: at the default sizes the phase took 181 s on an H100,
-    over its 180 s budget (PERF.md). Every parity flag must hold; the speed
+    """The three engine benches of ``repro_torch.experiments`` on the card
+    at their ``fast`` sizes: ``round_engine_bench`` (8 clients, 3 rounds of
+    4 local steps, sequential vs batched), ``sweep_bench`` (the fig3 grid vs
+    per-point, fig3 / fig4 / table3 row parity, the fused transport section)
+    and ``compress_bench`` (the (loss x tcp x {topk 0.05, int8}) grid
+    through the plane vs unstacked): at the default sizes the phase took
+    181 s on an H100, over its 180 s budget, and the round bench's full size
+    alone 103.5 s (PERF.md). Every parity flag must hold; the speed
     targets are readings. Launches are counted per bench (fedavg_reduce;
     quantize_rows in compress_bench)."""
     import contextlib
@@ -1845,7 +1857,7 @@ def phase_engine_benches(torch):
     out = {}
     for name, fn, kw in zip(ENGINE_BENCHES, (
         round_engine_bench.run_bench, sweep_bench.run_bench, compress_bench.run_bench),
-            ({}, {"fast": True}, {"fast": True})):
+            ({"fast": True}, {"fast": True}, {"fast": True})):
         with contextlib.redirect_stdout(io.StringIO()):
             r, wall, counts = counted(torch, lambda f=fn, k=kw: f(device="cuda", **k))
         parity = {k: v for k, v in r.items() if k.startswith(("parity", "agree_", "accuracy_"))}
@@ -1857,7 +1869,7 @@ def phase_engine_benches(torch):
     check(out["compress_bench"]["launches"]["quantize_rows"] > 0,
           "engine_benches: compress_bench launched no quantize_rows")
     seconds = time.perf_counter() - t0
-    emit("engine_benches", seconds=seconds, fast_grid_benches=True,
+    emit("engine_benches", seconds=seconds, fast=True,
          budget_s=ENGINE_BENCH_BUDGET_S, within_budget=seconds <= ENGINE_BENCH_BUDGET_S,
          speedups={k: v["bench"]["speedup"] for k, v in out.items()}, **out)
     return {"seconds": seconds, **out}
@@ -2394,7 +2406,7 @@ def phase_full_width(torch, server):
 # LM training (phases 23-27)
 # --------------------------------------------------------------------------
 
-LM_BUDGET_S = 300.0  # phases 23-39 together
+LM_BUDGET_S = 300.0  # phases 23-40 together
 STARCODER_TRAIN_LAYERS = 15  # of 30 (see phase_lm_train_starcoder)
 TRAIN_B, TRAIN_S = 2, 256  # the training batch: 2 sequences of 256 tokens
 # kernel Function vs autograd through the plain version, relative to the
@@ -2684,7 +2696,8 @@ def phase_lm_train_starcoder(torch, tmp):
     uninterrupted run's steps 9 and 10. The card's machine takes at most
     45 GiB of disk writes a run, so the run checkpoints once
     (``ckpt_every=8``); the depth is cut to 15 of 30 layers to make room in
-    the script's time for the recurrent phases (the whole model's checkpoint,
+    the script's time for the recurrent phases (8 layers do not bring the
+    loss down within the 10 steps; the whole model's checkpoint,
     bf16 params and f32 moments, is 31.8 GB and took 133 s to write and read
     back)."""
     import shutil
@@ -2692,20 +2705,7 @@ def phase_lm_train_starcoder(torch, tmp):
     from repro_torch.launch import train as tr
 
     walls, io = [], {"save_s": [], "restore_s": []}
-    build, manager = tr.build_train_step, tr.CheckpointManager
-
-    def timed_build(cfg, tcfg, **kw):
-        fn = build(cfg, tcfg, **kw)
-
-        def timed(state, batch):
-            torch.cuda.synchronize()
-            t = time.perf_counter()
-            out = fn(state, batch)
-            torch.cuda.synchronize()
-            walls.append(time.perf_counter() - t)
-            return out
-
-        return timed
+    manager = tr.CheckpointManager
 
     class TimedManager(manager):
         def save(self, *a, **kw):
@@ -2724,17 +2724,18 @@ def phase_lm_train_starcoder(torch, tmp):
     free_before = shutil.disk_usage(tmp).free
     kw = dict(reduced=False, n_layers=STARCODER_TRAIN_LAYERS, steps=10, batch=TRAIN_B, seq=TRAIN_S,
               ckpt_dir=tmp, ckpt_every=8, log_every=100)
-    tr.build_train_step, tr.CheckpointManager = timed_build, TimedManager
+    tr.CheckpointManager = TimedManager
     try:
-        torch.cuda.reset_peak_memory_stats()
-        full, _, launches = counted(torch, lambda: tr.train("starcoder2-3b", **kw))
-        peak = torch.cuda.max_memory_allocated()
-        full_walls = list(walls)
-        ckpt_bytes = sum(f.stat().st_size for f in Path(tmp).rglob("*") if f.is_file())
-        torch.cuda.empty_cache()
-        resumed, _, resumed_launches = counted(torch, lambda: tr.train("starcoder2-3b", **kw))
+        with _timed_train_steps(torch, tr, walls):
+            torch.cuda.reset_peak_memory_stats()
+            full, _, launches = counted(torch, lambda: tr.train("starcoder2-3b", **kw))
+            peak = torch.cuda.max_memory_allocated()
+            full_walls = list(walls)
+            ckpt_bytes = sum(f.stat().st_size for f in Path(tmp).rglob("*") if f.is_file())
+            torch.cuda.empty_cache()
+            resumed, _, resumed_launches = counted(torch, lambda: tr.train("starcoder2-3b", **kw))
     finally:
-        tr.build_train_step, tr.CheckpointManager = build, manager
+        tr.CheckpointManager = manager
     L = STARCODER_TRAIN_LAYERS
     losses, tail = full["losses"], resumed["losses"]
     check(len(losses) == 10 and len(tail) == 2 and len(io["save_s"]) == 1
@@ -3559,35 +3560,42 @@ HYBRID_TRAIN_LEAVES = (("attn", "wq"), ("attn", "wk"), ("attn", "wv"), ("attn", 
                        ("mlp", "w_gate"), ("mlp", "w_up"), ("mlp", "w_down"))
 
 
+@contextlib.contextmanager
+def _timed_train_steps(torch, tr, walls):
+    """Within the block, each train step that ``tr.train`` runs
+    (``run_built`` of a "train:" built step) timed between
+    synchronizations into ``walls``."""
+    run = tr.run_built
+
+    def timed(built, mesh, *args):
+        if not built.name.startswith("train:"):
+            return run(built, mesh, *args)
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        out = run(built, mesh, *args)
+        torch.cuda.synchronize()
+        walls.append(time.perf_counter() - t)
+        return out
+
+    tr.run_built = timed
+    try:
+        yield walls
+    finally:
+        tr.run_built = run
+
+
 def _timed_train(torch, arch, **kw):
     """``train(arch, reduced=False, **kw)`` with each step's wall time
     taken between synchronizations and the launches counted: (result,
     step walls s, launches, peak memory bytes)."""
     from repro_torch.launch import train as tr
 
-    walls, build = [], tr.build_train_step
-
-    def timed_build(cfg, tcfg, **bkw):
-        fn = build(cfg, tcfg, **bkw)
-
-        def timed(state, batch):
-            torch.cuda.synchronize()
-            t = time.perf_counter()
-            out = fn(state, batch)
-            torch.cuda.synchronize()
-            walls.append(time.perf_counter() - t)
-            return out
-
-        return timed
-
-    tr.build_train_step = timed_build
-    try:
+    walls = []
+    with _timed_train_steps(torch, tr, walls):
         torch.cuda.reset_peak_memory_stats()
         out, _, launches = counted(torch, lambda: tr.train(arch, reduced=False, log_every=100,
                                                            **kw))
         peak = torch.cuda.max_memory_allocated()
-    finally:
-        tr.build_train_step = build
     return out, walls, launches, peak
 
 
@@ -4028,8 +4036,242 @@ FL_DESIGN = {
 }
 
 
+SHARDED_QWEN_LAYERS = 8  # of 36: Qwen3-8B at full width, cut for the phase's cost
+SHARDED_MIXTRAL_LAYERS = 2  # of 32
+SHARDED_DECODE = 4
+SHARDED_BUDGET_S = 40.0
+
+
+def _sharded_loss_and_norms(torch, model, params, batch, leaves, mesh=None, p_specs=None):
+    """(loss, global grad norm, {leaf: grad norm}) of one loss and gradient:
+    on one device, or on ``mesh`` with the params and batch as DTensors
+    (the sharded train step's own loss and gradient)."""
+    from torch.distributed.tensor.experimental import implicit_replication
+
+    from repro_torch.launch.mesh import mesh_context
+    from repro_torch.sharding.rules import distribute_tree, full_tree, input_shardings
+    from repro_torch.utils import tree_leaves, tree_map, tree_unflatten
+
+    if mesh is not None:
+        params = distribute_tree(params, p_specs, mesh)
+        batch = distribute_tree(batch, input_shardings(batch, mesh), mesh)
+    ps = tree_map(lambda p: p.detach().requires_grad_(True), params)
+    ctx = mesh_context(mesh) if mesh is not None else contextlib.nullcontext()
+    with ctx, (implicit_replication() if mesh is not None else contextlib.nullcontext()):
+        loss, _ = model.loss(ps, batch)
+        if mesh is not None:
+            loss = loss.full_tensor()
+        grads = tree_unflatten(ps, torch.autograd.grad(loss, tree_leaves(ps)))
+    grads = full_tree(grads)
+    gnorm = torch.sqrt(sum(torch.sum(torch.square(g.float())) for g in tree_leaves(grads)))
+    seg = grads["seg0"]
+    return float(loss.detach()), float(gnorm), {
+        f"{a}.{b}": float(torch.linalg.vector_norm(seg[a][b].float())) for a, b in leaves}
+
+
+def phase_sharded_steps(torch):
+    """Item 16's sharded steps on one card, over ``nccl``: a 1 x 1 ("data",
+    "model") DeviceMesh and a 1 x 1 x 1 ("pod", "data", "model") one.
+
+    - Qwen3-8B at full width, 8 of 36 layers, bf16, Adafactor, 2 x 256
+      tokens, 2 microbatches: the sharded step's loss and gradient against
+      the one-device ones (loss, grad norm, the seven weight-gradient norms
+      within ``TRAIN_RTOL``), then two ``build_train_step`` steps against
+      two one-device steps from the same params on the same batches, with
+      the kernels' launches per step equal; then ``build_prefill_step`` and
+      4 ``build_decode_step`` calls against ``Model.prefill`` /
+      ``decode_step`` (bf16, within 3e-2 of max |logit|), launches counted.
+    - Mixtral at full width, 2 layers, through ``ep_a2a`` (what
+      ``pick_moe_path`` picks on 1 x 1) at drop-free capacity, against the
+      one-device gather path: a loss and gradient (``TRAIN_RTOL``) and a
+      prefill (3e-2 of max |logit|).
+    - local-SGD on the pod mesh: 2 inner steps of Qwen3-8B at full width, 2
+      layers, then ``build_outer_sync(compression="int8")``: the new anchor
+      and outer momentum bit for bit those of plain torch on the same
+      replicas (the int8 round trip per pod, half to even, then Nesterov).
+    """
+    from repro_torch.configs import TrainConfig, get_config
+    from repro_torch.configs.base import ShapeSpec
+    from repro_torch.launch import steps as S
+    from repro_torch.launch.mesh import MeshShape, make_device_mesh
+    from repro_torch.models import Model
+    from repro_torch.models import moe_sharded
+    from repro_torch.models.mlp import capacity
+    from repro_torch.optim import nesterov_outer
+    from repro_torch.sharding import param_shardings
+    from repro_torch.sharding.rules import full_tree
+    from repro_torch.utils import tree_leaves, tree_map
+
+    t_phase = time.perf_counter()
+    mesh = make_device_mesh(MeshShape(("data", "model"), (1, 1)), device="cuda")
+    out = {"mesh": [1, 1], "backend": torch.distributed.get_backend()}
+    clone = lambda t: tree_map(torch.clone, t)  # noqa: E731
+
+    # ---- Qwen3-8B: train, prefill, decode
+    cfg = get_config("qwen3-8b").replace(n_layers=SHARDED_QWEN_LAYERS)
+    L = cfg.n_layers
+    tcfg = TrainConfig(optimizer="adafactor", total_steps=12, warmup_steps=1, microbatches=2)
+    model = Model(cfg)
+    params = model.init(torch.Generator(device="cuda").manual_seed(0))
+    shape = ShapeSpec("sharded", "train", TRAIN_S, TRAIN_B)
+    built = S.build_train_step(cfg, tcfg, shape, mesh)
+    p_specs = built.in_shardings[0]["params"]
+    one = _sharded_loss_and_norms(torch, model, params, _batch(torch, cfg, 0), TRAIN_LEAVES)
+    sh = _sharded_loss_and_norms(torch, Model(S._with_act_sharding(cfg, mesh)), params,
+                                 _batch(torch, cfg, 0), TRAIN_LEAVES, mesh, p_specs)
+    gaps = _train_gaps(sh, one)
+    check(_train_within(gaps), f"sharded_steps: qwen loss/grad gaps {gaps} over {TRAIN_RTOL}")
+    opt = S.make_optimizer(tcfg)
+    single = S.build_train_step(cfg, tcfg)
+    st_one = {"params": clone(params), "opt": opt.init(params),
+              "step": torch.zeros((), dtype=torch.int32, device="cuda")}
+    st_sh = {"params": params, "opt": opt.init(params),
+             "step": torch.zeros((), dtype=torch.int32, device="cuda")}
+    steps = []
+    for i in range(2):
+        b = _batch(torch, cfg, 10 + i)
+        (st_one, m_one), w_one, l_one = counted(torch, lambda: single(st_one, b))
+        (st_sh, m_sh), w_sh, l_sh = counted(torch, lambda: S.run_built(built, mesh, st_sh, b))
+        m_sh = full_tree(m_sh)
+        g = {k: abs(float(m_sh[k]) - float(m_one[k])) / abs(float(m_one[k]))
+             for k in ("loss", "grad_norm")}
+        check(all(v <= TRAIN_RTOL[k] for k, v in g.items()), f"sharded_steps: step {i} gaps {g}")
+        kl = ("flash_attention", "swiglu", "flash_attention_backward", "swiglu_backward")
+        check({k: l_sh[k] for k in kl} == {k: l_one[k] for k in kl} and l_sh["flash_attention"] > 0,
+              f"sharded_steps: step {i} launches {l_sh} vs one device {l_one}")
+        steps.append({"loss": float(m_sh["loss"]), "one_device_loss": float(m_one["loss"]),
+                      "rel_err": g, "s": w_sh, "one_device_s": w_one,
+                      "launches": {k: l_sh[k] for k in kl}})
+    peak = torch.cuda.max_memory_allocated()
+    out["qwen_train"] = {"layers": L, "loss_and_grad_rel_err": gaps, "steps": steps,
+                         "s_per_step": steps[-1]["s"], "one_device_s_per_step": steps[-1]["one_device_s"],
+                         "peak_memory_bytes": peak}
+    del st_one, st_sh, single, built
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    prompt = _batch(torch, cfg, 20)["tokens"]
+    B, Sp = prompt.shape
+    max_len = Sp + SHARDED_DECODE
+    pre = S.build_prefill_step(cfg, ShapeSpec("p", "prefill", max_len, B), mesh)
+    dec = S.build_decode_step(cfg, ShapeSpec("d", "decode", max_len, B), mesh)
+    with torch.no_grad():
+        (want, w_cache), _, _ = counted(torch, lambda: model.prefill(params, {"tokens": prompt},
+                                                                      max_len))
+        (got, cache), pre_s, l_pre = counted(torch, lambda: S.run_built(pre, mesh, params,
+                                                                       {"tokens": prompt}))
+    check(l_pre["flash_attention"] == L and l_pre["swiglu"] == L,
+          f"sharded_steps: a prefill launched {l_pre}")
+    gaps = [float((got.full_tensor() - want).abs().max() / want.abs().max())]
+    dec_s, l_dec = [], []
+    for _ in range(SHARDED_DECODE):
+        nxt = torch.argmax(want, -1)[:, None].to(torch.int32)
+        with torch.no_grad():
+            want, w_cache = model.decode_step(params, w_cache, nxt)
+            (got, cache), t, l = counted(torch, lambda: S.run_built(dec, mesh, params, cache, nxt))
+        dec_s.append(t)
+        l_dec.append(l)
+        gaps.append(float((got.full_tensor() - want).abs().max() / want.abs().max()))
+    check(all(l["swiglu"] == L and l["flash_attention"] == 0 for l in l_dec),
+          f"sharded_steps: decode launched {l_dec}")
+    check(max(gaps) <= SERVE_LOGIT_RTOL, f"sharded_steps: serve gaps {gaps}")
+    out["qwen_serve"] = {"prefill_ms": pre_s * 1e3, "decode_ms": [t * 1e3 for t in dec_s],
+                         "logit_rel_err": gaps, "launches_per_prefill": {
+                             k: l_pre[k] for k in ("flash_attention", "swiglu")},
+                         "launches_per_decode_step": {
+                             k: l_dec[-1][k] for k in ("flash_attention", "swiglu")}}
+    del params, cache, w_cache, pre, dec
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # ---- Mixtral through ep_a2a at drop-free capacity
+    mcfg = get_config("mixtral-8x7b").replace(n_layers=SHARDED_MIXTRAL_LAYERS)
+    mcfg = mcfg.replace(moe=dataclasses.replace(mcfg.moe, capacity_factor=MIXTRAL_DROP_FREE))
+    acfg = S._with_act_sharding(mcfg, mesh)
+    path = moe_sharded.pick_moe_path(acfg, TRAIN_B, TRAIN_S)
+    check(path == "ep_a2a", f"sharded_steps: mixtral takes {path}")
+    T = TRAIN_B * TRAIN_S  # on 1 x 1 every token is on the one rank
+    check(capacity(mcfg, T) >= T, "sharded_steps: mixtral capacity drops tokens")
+    mmodel = Model(mcfg)
+    mparams = mmodel.init(torch.Generator(device="cuda").manual_seed(1))
+    m_specs = param_shardings(mmodel.abstract_params(), mmodel.param_axes(), mesh)
+    one = _sharded_loss_and_norms(torch, mmodel, mparams, _batch(torch, mcfg, 0), MOE_TRAIN_LEAVES)
+    sh = _sharded_loss_and_norms(torch, Model(acfg), mparams, _batch(torch, mcfg, 0),
+                                 MOE_TRAIN_LEAVES, mesh, m_specs)
+    mgaps = _train_gaps(sh, one)
+    check(_train_within(mgaps), f"sharded_steps: mixtral gaps {mgaps} over {TRAIN_RTOL}")
+    prompt = _batch(torch, mcfg, 21)["tokens"]
+    pre = S.build_prefill_step(mcfg, ShapeSpec("p", "prefill", prompt.shape[1], prompt.shape[0]),
+                               mesh)
+    with torch.no_grad():
+        want, _ = mmodel.prefill(mparams, {"tokens": prompt}, prompt.shape[1])
+        (got, _), m_pre_s, m_l = counted(torch, lambda: S.run_built(pre, mesh, mparams,
+                                                                   {"tokens": prompt}))
+    mgap = float((got.full_tensor() - want).abs().max() / want.abs().max())
+    check(mgap <= SERVE_LOGIT_RTOL, f"sharded_steps: mixtral prefill gap {mgap}")
+    out["mixtral"] = {"layers": mcfg.n_layers, "path": path, "dropped": 0,
+                      "capacity_factor": MIXTRAL_DROP_FREE, "loss_and_grad_rel_err": mgaps,
+                      "prefill_logit_rel_err": mgap, "prefill_ms": m_pre_s * 1e3,
+                      "prefill_flash_launches": m_l["flash_attention"]}
+    print(json.dumps({"phase": "sharded_steps_moe_path", "path": path}), flush=True)
+    del mparams, pre
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # ---- local-SGD over the pod mesh and the int8 outer sync
+    pod_mesh = make_device_mesh(MeshShape(("pod", "data", "model"), (1, 1, 1)), device="cuda")
+    lcfg = get_config("qwen3-8b").replace(n_layers=2)
+    ltcfg = TrainConfig(optimizer="adafactor", total_steps=12, warmup_steps=1)
+    lmodel = Model(lcfg)
+    lparams = lmodel.init(torch.Generator(device="cuda").manual_seed(2))
+    local = S.build_train_step(lcfg, ltcfg, shape, pod_mesh, mode="local_sgd")
+    lopt = S.make_optimizer(ltcfg)
+    state = tree_map(lambda t: t[None].clone(), {
+        "params": lparams, "opt": lopt.init(lparams),
+        "step": torch.zeros((), dtype=torch.int32, device="cuda")})
+    for i in range(2):
+        b = {k: v[None] for k, v in _batch(torch, lcfg, 30 + i).items()}
+        state, _ = S.run_built(local, pod_mesh, state, b)
+    replicas = full_tree(state["params"])
+    outer = nesterov_outer(ltcfg.outer_lr, ltcfg.outer_momentum)
+    sync = S.build_outer_sync(lcfg, ltcfg, pod_mesh, compression="int8")
+
+    def plain_delta(ps, a):
+        d = ps.float() - a.float()[None]
+        scale = torch.clamp(torch.amax(torch.abs(d), dim=tuple(range(1, d.ndim)), keepdim=True),
+                            min=1e-12) / 127.0
+        d = torch.clamp(torch.round(d / scale), -127, 127).to(torch.int8).float() * scale
+        return torch.mean(d, dim=0)
+
+    delta = tree_map(plain_delta, replicas, lparams)
+    mu, lr = ltcfg.outer_momentum, ltcfg.outer_lr
+    want_m = tree_map(lambda d: mu * torch.zeros_like(d) + d.float(), delta)
+    want_anchor = tree_map(lambda a, mm, d: (a.float() + lr * (mu * mm + d.float())).to(a.dtype),
+                           lparams, want_m, delta)
+    t = time.perf_counter()
+    _, anchor, ost = S.run_built(sync, pod_mesh, clone(replicas), clone(lparams),
+                                 outer.init(lparams), torch.full((), 2, dtype=torch.int32,
+                                                                 device="cuda"))
+    torch.cuda.synchronize()
+    sync_s = time.perf_counter() - t
+    anchor, m = full_tree(anchor), full_tree(ost["m"])
+    bitwise = all(torch.equal(a, b) for a, b in zip(tree_leaves(anchor), tree_leaves(want_anchor))) \
+        and all(torch.equal(a, b) for a, b in zip(tree_leaves(m), tree_leaves(want_m)))
+    check(bitwise, "sharded_steps: the int8 outer sync differs from plain torch")
+    out["local_sgd"] = {"layers": 2, "inner_steps": 2, "outer_sync_ms": sync_s * 1e3,
+                        "outer_sync_bitwise": bitwise}
+    del lparams, state, replicas, anchor, m, want_anchor, want_m, delta
+    gc.collect()
+    torch.cuda.empty_cache()
+    out["seconds"] = time.perf_counter() - t_phase
+    out["budget_s"] = SHARDED_BUDGET_S
+    out["within_budget"] = out["seconds"] <= SHARDED_BUDGET_S
+    emit("sharded_steps", **out)
+    return out
+
+
 def lm_rows(lm, served, grad, qwen, moe_launches, head_launches, hybrid_launches,
-            encdec_launches):
+            encdec_launches, sharded):
     """The kernels-line rows of flash_attention (at the serving prefill
     shape, with the S = 4096 prefill beside it) and swiglu (at decode,
     M = 4, with the M = 64 prefill beside it), launches from the serve run;
@@ -4046,7 +4288,9 @@ def lm_rows(lm, served, grad, qwen, moe_launches, head_launches, hybrid_launches
     shapes without a mask (8 heads of 64: the encoder at B = 4 x S = 1,536,
     the cross attention of a 16-token prompt and of one decode token over
     1,536 keys; the encoder's backward at B = 2), with its launches and the
-    per-call copy of a layer's cross k / v in the Whisper phases."""
+    per-call copy of a layer's cross k / v in the Whisper phases; and both
+    kernels' launches under ``local_map`` in the sharded steps (a step,
+    a prefill, a decode step of 8-layer Qwen3-8B on a 1 x 1 mesh)."""
     launches, n_pre, n_dec = served["launches"], served["prefills"], served["decode_steps"]
     per_pre, per_dec = served["per_prefill"], served["per_decode"]
 
@@ -4076,6 +4320,15 @@ def lm_rows(lm, served, grad, qwen, moe_launches, head_launches, hybrid_launches
                 f"{prefix}wall_ms": row["wall_us"] / 1e3, f"{prefix}shape": row["shape"]}
 
     fa, sw = lm["flash_attention"], lm["swiglu"]
+
+    def sharded_launches(name):
+        q = sharded["qwen_train"]["steps"][-1]["launches"]
+        return {"sharded_train_launches_per_step": q[name],
+                "sharded_train_backward_calls_per_step": q[f"{name}_backward"],
+                "sharded_launches_per_prefill": sharded["qwen_serve"]["launches_per_prefill"][name],
+                "sharded_launches_per_decode_step":
+                    sharded["qwen_serve"]["launches_per_decode_step"][name]}
+
     return [
         {"name": "flash_attention", "route": "cuda",
          "source": "src/repro_torch/kernels/csrc/flash_attention.cu",
@@ -4101,7 +4354,7 @@ def lm_rows(lm, served, grad, qwen, moe_launches, head_launches, hybrid_launches
             for part in ("forward", "backward")
             for k, v in ms(dict(row[part], shape=row["shape"]), f"{g}_{part}_").items()},
          **moe_launches, **head_launches, **hybrid_launches["flash_attention"],
-         **encdec_launches,
+         **encdec_launches, **sharded_launches("flash_attention"),
          "library_note": "F.scaled_dot_product_attention(is_causal=True, enable_gqa=True); "
                          "window_prefill_library_ms: with a boolean window mask; "
                          "whisper_*_library_ms: with no mask (is_causal=False); "
@@ -4123,7 +4376,7 @@ def lm_rows(lm, served, grad, qwen, moe_launches, head_launches, hybrid_launches
          "prefill_reduction_share": sw["reduction"][64]["reduction_share"],
          "library_note": SWIGLU_NO_LIBRARY + " (composite_ms: silu(x@Wg)*(x@Wu)@Wd in cuBLAS bf16;"
                          " train_backward_composite_ms: its autograd backward)",
-         **hybrid_launches["swiglu"], **train("swiglu")},
+         **hybrid_launches["swiglu"], **train("swiglu"), **sharded_launches("swiglu")},
     ]
 
 
@@ -4304,6 +4557,9 @@ def main() -> int:
         "mla_train_backward_calls_per_step": mla_train["backward_calls_per_step"],
         "vlm_serving_launches_per_prefill": vlm["launches_per_prefill"][0],
         "vlm_serving_launches_per_decode_step": vlm["launches_per_decode_step"][0]}
+    t = time.perf_counter()
+    sharded = phase_sharded_steps(torch)
+    lm_s["sharded_steps"] = time.perf_counter() - t
     emit("lm_phases", seconds=sum(lm_s.values()), budget_s=LM_BUDGET_S,
          within_budget=sum(lm_s.values()) <= LM_BUDGET_S, by_phase=lm_s)
 
@@ -4415,7 +4671,7 @@ def main() -> int:
         # the whole flattened CNN (N = 206,922), as ops.quantize_tree feeds it
         quant_row("quantize_stochastic", None, "src/repro/kernels/quantize.py:44", NO_LIBRARY),
         *lm_rows(lm, served, grad, qwen, moe_launches, head_launches, hybrid_launches,
-                 encdec_launches),
+                 encdec_launches, sharded),
     ]}), flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -13,11 +13,14 @@ reference's TPU constants for the roofline of a later slice.
 
 from __future__ import annotations
 
+import contextlib
 import math
 from dataclasses import dataclass
 from typing import Tuple
 
 import torch
+
+from repro_torch.sharding.rules import _AMBIENT, ambient_mesh  # noqa: F401
 
 
 @dataclass(frozen=True)
@@ -50,6 +53,42 @@ def make_host_mesh(*, data: int = 1, model: int = 1) -> MeshShape:
     data = min(data, n)
     model = max(min(model, n // max(data, 1)), 1)
     return MeshShape(("data", "model"), (data, model))
+
+
+def make_device_mesh(shape: MeshShape, device=None):
+    """A ``DeviceMesh`` of ``shape`` (its axis names as ``mesh_dim_names``)
+    over the ranks of the default process group, rank-major. ``device``
+    ("cuda" or "cpu"; default "cuda") picks the backend, ``nccl`` or
+    ``gloo``. Without a group (one process) it starts one of world size 1
+    from a ``HashStore``; under ``torchrun`` or ``mp.spawn`` it uses the
+    group the caller started, whose world must equal the mesh's size."""
+    import torch.distributed as dist
+    from torch.distributed.device_mesh import DeviceMesh
+
+    kind = torch.device(device or "cuda").type
+    if kind == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError("a cuda mesh needs CUDA; pass device='cpu' for a gloo mesh")
+    if not dist.is_initialized():
+        dist.init_process_group("nccl" if kind == "cuda" else "gloo", store=dist.HashStore(),
+                                rank=0, world_size=1)
+    world = dist.get_world_size()
+    if world != shape.size:
+        raise ValueError(f"mesh {shape.axis_names} x {shape.shape} needs {shape.size} ranks; "
+                         f"the process group has {world}")
+    if kind == "cuda":
+        torch.cuda.set_device(dist.get_rank() % torch.cuda.device_count())
+    ranks = torch.arange(world).reshape(shape.shape)
+    return DeviceMesh(kind, ranks, mesh_dim_names=shape.axis_names)
+
+
+@contextlib.contextmanager
+def mesh_context(mesh):
+    """The ambient mesh within the block (see the module docstring)."""
+    _AMBIENT.append(mesh)
+    try:
+        yield mesh
+    finally:
+        _AMBIENT.pop()
 
 
 # Roofline constants of one card (NVIDIA H100 SXM5 data sheet): dense bf16

@@ -30,7 +30,7 @@ from repro_torch.configs.base import ModelConfig, ShapeSpec
 from repro_torch.models import encdec as encdec_mod
 from repro_torch.models import hybrid as hybrid_mod
 from repro_torch.models import lm as lm_mod
-from repro_torch.models.base import Ctx, dtype_of
+from repro_torch.models.base import Ctx, dtype_of, shard_view
 from repro_torch.utils import resolve_device, tree_map
 
 VLM_PATCH_TOKENS = 256  # vision-stub prefix length
@@ -78,19 +78,23 @@ class Model:
         loss, metrics = lm_mod.loss_from_hidden(cfg, params, h, batch)
         return loss, dict(metrics, aux=aux)
 
-    def prefill(self, params, batch, max_len: int):
+    def prefill(self, params, batch, max_len: int, cache=None):
         """(last logits [B,V] f32, cache); a hybrid's attention caches'
-        ``pos`` becomes the prompt length (reference ``api.py:75-83``)."""
+        ``pos`` becomes the prompt length (reference ``api.py:75-83``).
+        ``cache``, an empty one (a sharded step's), is filled in place; by
+        default a new one is made."""
         cfg = self.cfg
         if self.family == "encdec":
-            return encdec_mod.encdec_prefill(cfg, params, batch, max_len)
+            return encdec_mod.encdec_prefill(cfg, params, batch, max_len, cache=cache)
         if self.family == "hybrid":
-            cache = self.init_cache(batch["tokens"].shape[0], max_len,
-                                    device=params["embed"].device)
+            if cache is None:
+                cache = self.init_cache(batch["tokens"].shape[0], max_len,
+                                        device=params["embed"].device)
             h, cache, _ = hybrid_mod.hybrid_forward(cfg, params, batch, caches=cache)
-            cache["attn"]["pos"].fill_(batch["tokens"].shape[1])
+            with torch.no_grad():
+                shard_view(cache["attn"]["pos"])[0].fill_(batch["tokens"].shape[1])
             return lm_mod.unembed(cfg, params, h[:, -1:])[:, 0], cache
-        return lm_mod.lm_prefill(cfg, params, batch, max_len)
+        return lm_mod.lm_prefill(cfg, params, batch, max_len, caches=cache)
 
     def decode_step(self, params, cache, tokens):
         cfg = self.cfg

@@ -41,6 +41,13 @@ the absorbed form in plain torch, in the reference's rounding order:
 ``q_abs = q_nope W_uk`` in the activation dtype, the scores against
 ``c_kv`` and ``k_pe`` in f32, the probabilities cast to the activation
 dtype before the product with ``c_kv``, then ``W_uv`` and ``wo``.
+
+On a mesh (DTensors, ``launch.steps``) the prefill pads q, k and v heads
+to a multiple of the "model" axis (``_pad_heads_for_tp``, the reference's)
+and pins them with ``heads_constraint`` at the reference's sites; the
+padded q heads are sliced off the output. The cache writes go to each
+rank's own shard (``_write_prefix``, ``_write_slots``): a sharded cache
+is written in place as a plain one is.
 """
 
 from __future__ import annotations
@@ -48,9 +55,14 @@ from __future__ import annotations
 from typing import Optional
 
 import torch
+from torch.distributed.tensor import DTensor
+from torch.distributed.tensor.experimental import local_map
 
 from repro_torch.kernels import ops
-from repro_torch.models.base import Ctx, apply_rope, dtype_of, linear, rms_norm
+from repro_torch.models.base import (
+    Ctx, apply_rope, dtype_of, heads_constraint, like_shards, linear, matmul, per_batch_shard,
+    rms_norm, shard_view,
+)
 
 NEG_INF = -1e30
 
@@ -61,6 +73,35 @@ def repeat_kv(k, n_heads: int):
     if Hkv == n_heads:
         return k
     return torch.repeat_interleave(k, n_heads // Hkv, dim=2)
+
+
+def _pad_heads_for_tp(cfg, q, k, v):
+    """Zero-pad q (and kv) heads up to a multiple of the "model" axis so
+    attention stays head-sharded where the head count does not divide it
+    (phi3-medium's 40, starcoder2's 24, whisper's 8 on a 16-way axis).
+    The caller slices the padded q heads' outputs away; real q heads keep
+    reading their kv heads because H_pad / Hkv_pad keeps the group order.
+    Returns (q, k, v, real q head count)."""
+    nm = cfg.act_shard_model
+    H, Hkv = q.shape[2], k.shape[2]
+    if not nm or H % nm == 0:
+        return q, k, v, H
+    H_pad = ((H + nm - 1) // nm) * nm
+    Hkv_pad = next(h for h in range(Hkv, H_pad + 1) if H_pad % h == 0)
+    return _pad_dim2(q, H_pad - H), _pad_dim2(k, Hkv_pad - Hkv), _pad_dim2(v, Hkv_pad - Hkv), H
+
+
+def _pad_dim2(t, n: int):
+    """``n`` zero heads after t's heads (dim 2), on each rank's shard of a
+    DTensor whose heads are whole."""
+    if not n:
+        return t
+    pad = lambda x: torch.nn.functional.pad(x, (0, 0, 0, n))  # noqa: E731
+    if not isinstance(t, DTensor):
+        return pad(t)
+    assert not any(p.is_shard(2) for p in t.placements), t.placements
+    pl = tuple(t.placements)
+    return local_map(pad, out_placements=(pl,), in_placements=(pl,), device_mesh=t.device_mesh)(t)
 
 
 def full_attention(q, k, v, *, causal=True, window=0, q_offset=0):
@@ -130,7 +171,7 @@ def gqa_params(ctx: Ctx, cfg, stacked: Optional[int] = None):
 def _heads(x, w):
     """x [B,S,d] @ w [d,H,k] -> [B,S,H,k] (one matmul over the flattened heads)."""
     d, H, k = w.shape
-    return torch.matmul(x, w.to(x.dtype).reshape(d, H * k)).reshape(*x.shape[:-1], H, k)
+    return matmul(x, w.to(x.dtype).reshape(d, H * k)).reshape(*x.shape[:-1], H, k)
 
 
 def _project_qkv(cfg, p, x, positions):
@@ -148,7 +189,7 @@ def _project_qkv(cfg, p, x, positions):
 def _out_proj(out, wo):
     """out [B,S,H,k] @ wo [H,k,d] -> [B,S,d]."""
     H, k, d = wo.shape
-    return torch.matmul(out.reshape(*out.shape[:-2], H * k), wo.to(out.dtype).reshape(H * k, d))
+    return matmul(out.reshape(*out.shape[:-2], H * k), wo.to(out.dtype).reshape(H * k, d))
 
 
 def gqa_forward(cfg, p, x, *, positions=None, cache=None, decode=False, cross_kv=None,
@@ -180,7 +221,12 @@ def gqa_forward(cfg, p, x, *, positions=None, cache=None, decode=False, cross_kv
         if cache is not None:
             _prefill_cache(cache, k, v, positions)
             new_cache = cache
-        out = ops.flash_attention(q, k, v, causal=causal, window=cfg.sliding_window)
+        qp, kp, vp, H = _pad_heads_for_tp(cfg, q, k, v)
+        qp, kp, vp = (heads_constraint(cfg, t) for t in (qp, kp, vp))
+        out = ops.flash_attention(qp, kp, vp, causal=causal, window=cfg.sliding_window)
+        out = heads_constraint(cfg, out)
+        if out.shape[2] != H:
+            out = out[:, :, :H]
         return _out_proj(out, p["wo"]), new_cache
 
     # ---- decode ----
@@ -189,14 +235,16 @@ def gqa_forward(cfg, p, x, *, positions=None, cache=None, decode=False, cross_kv
     Smax = cache["k"].shape[1]
     ring = bool(cfg.sliding_window) and Smax <= cfg.sliding_window
     slot = (pos % Smax if ring else torch.clamp(pos, max=Smax - 1)).long()
-    rows = torch.arange(B, device=x.device)
-    cache["k"][rows, slot] = k[:, 0].to(cache["k"].dtype)
-    cache["v"][rows, slot] = v[:, 0].to(cache["v"].dtype)
+    _write_slots(cache["k"], slot, k[:, 0])
+    _write_slots(cache["v"], slot, v[:, 0])
     kv_pos = cache.get("kv_pos")
     if kv_pos is not None:
-        kv_pos[rows, slot] = pos.to(kv_pos.dtype)
-    out = decode_attention(q, cache["k"], cache["v"], pos=pos, window=cfg.sliding_window,
-                           kv_positions=kv_pos)
+        _write_slots(kv_pos, slot, pos)
+    # one query row against its own cache row: on a mesh each rank runs its rows
+    out = per_batch_shard(
+        lambda q, k, v, pos, kvp: decode_attention(q, k, v, pos=pos, window=cfg.sliding_window,
+                                                   kv_positions=kvp),
+        (q, cache["k"], cache["v"], pos, kv_pos))
     new_cache = dict(cache)
     new_cache["pos"] = pos + 1
     return _out_proj(out, p["wo"]), new_cache
@@ -213,11 +261,35 @@ def _prefill_cache(cache, k, v, positions):
         # them by S % Smax (the reference's layout when that is 0)
         shift = S % Smax if "kv_pos" in cache else 0
         k, v, pw = (torch.roll(t[:, -Smax:], shift, dims=1) for t in (k, v, pw))
-        S = Smax
-    cache["k"][:, :S] = k.to(cache["k"].dtype)
-    cache["v"][:, :S] = v.to(cache["v"].dtype)
+    _write_prefix(cache["k"], k)
+    _write_prefix(cache["v"], v)
     if "kv_pos" in cache:
-        cache["kv_pos"][:, :S] = pw
+        _write_prefix(cache["kv_pos"], pw)
+
+
+def _write_prefix(dst, vals):
+    """dst[:, :S] = vals (S = vals.shape[1]) in place, each rank writing
+    the part of the slots its shard of a DTensor ``dst`` holds."""
+    local, off = shard_view(dst)
+    vals = like_shards(vals, dst, [d for d in range(dst.ndim) if d != 1])
+    lo, hi = off[1], off[1] + local.shape[1]
+    a, b = max(lo, 0), min(hi, vals.shape[1])
+    if a < b:
+        with torch.no_grad():
+            local[:, a - lo:b - lo] = vals[:, a:b].to(local.dtype)
+
+
+def _write_slots(dst, slot, vals):
+    """dst[b, slot[b]] = vals[b] for every row b, in place, each rank
+    writing the rows and slots its shard of a DTensor ``dst`` holds."""
+    local, off = shard_view(dst)
+    vals = like_shards(vals[:, None], dst, [d for d in range(dst.ndim) if d != 1])[:, 0]
+    slot = like_shards(slot, dst, (0,))
+    rel = slot - off[1]
+    mine = (rel >= 0) & (rel < local.shape[1])
+    rows = torch.arange(local.shape[0], device=local.device)[mine]
+    with torch.no_grad():
+        local[rows, rel[mine]] = vals[mine].to(local.dtype)
 
 
 def gqa_cache_spec(cfg, batch: int, max_len: int, stacked: int):
@@ -299,10 +371,12 @@ def mla_forward(cfg, p, x, *, positions=None, cache=None, decode=False):
         v = _heads(c_kv, p["w_uv"])
         k_full = torch.cat([k_nope, k_pe.expand(B, S, H, m.qk_rope_dim)], dim=-1)
         q_full = torch.cat([q_nope, q_pe], dim=-1)
+        q_full, k_full, v = (heads_constraint(cfg, t) for t in (q_full, k_full, v))
         out = ops.flash_attention(q_full, k_full, v, causal=True)  # scale: D^-0.5 of q_full
+        out = heads_constraint(cfg, out)
         if cache is not None:
-            cache["c_kv"][:, :S] = c_kv.to(cache["c_kv"].dtype)
-            cache["k_pe"][:, :S] = k_pe[:, :, 0].to(cache["k_pe"].dtype)
+            _write_prefix(cache["c_kv"], c_kv)
+            _write_prefix(cache["k_pe"], k_pe[:, :, 0])
         return _out_proj(out, p["wo"]), cache
 
     # ---- absorbed decode
@@ -311,9 +385,8 @@ def mla_forward(cfg, p, x, *, positions=None, cache=None, decode=False):
     k_pe = apply_rope(k_pe, pos[:, None], cfg.rope_theta)
     Smax = cache["c_kv"].shape[1]
     slot = torch.clamp(pos, max=Smax - 1).long()
-    rows = torch.arange(B, device=x.device)
-    cache["c_kv"][rows, slot] = c_kv[:, 0].to(cache["c_kv"].dtype)
-    cache["k_pe"][rows, slot] = k_pe[:, 0, 0].to(cache["k_pe"].dtype)
+    _write_slots(cache["c_kv"], slot, c_kv[:, 0])
+    _write_slots(cache["k_pe"], slot, k_pe[:, 0, 0])
     dt = x.dtype
     c_all = cache["c_kv"].to(dt)
     q_abs = torch.einsum("bshk,lhk->bshl", q_nope, p["w_uk"].to(dt))  # [B,1,H,kv_lora]

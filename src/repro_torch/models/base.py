@@ -18,6 +18,15 @@ Logical axis names used across the zoo (the reference's):
 
 The ops compute in f32 and return the activation dtype, as the
 reference's do.
+
+On a mesh (a sharded step of ``launch.steps``) the params and activations
+are ``torch.distributed.tensor`` DTensors and the ops above run on them
+unchanged. ``heads_constraint`` and ``seq_constraint`` are the reference's
+sharding constraints: each redistributes an activation to the layout the
+reference pins (batch over "data", heads or the sequence over "model"),
+and each is the identity when ``cfg.act_shard_*`` is 0 or the tensor is
+not a DTensor. ``shard_view`` gives a DTensor's local shard and where it
+sits in the whole, for the in-place cache writes.
 """
 
 from __future__ import annotations
@@ -28,6 +37,7 @@ from typing import Optional, Sequence, Tuple
 import numpy as np
 import torch
 import torch.nn.functional as F
+from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
 
 Axes = Tuple[Optional[str], ...]
 
@@ -139,10 +149,92 @@ def norm_params(ctx: Ctx, cfg, d: int, stacked: Optional[int] = None):
     return p
 
 
+def embed_lookup(table, ids):
+    """table[ids]: the rows of ``ids``. On a DTensor table each rank looks
+    its ids up in its own shard under ``local_map``: a vocab split keeps
+    the table's rows where they are (an id outside this rank's rows reads
+    zeros, so the output is a partial sum over that axis), a split of the
+    ids' batch keeps theirs (the table whole there, its gradient a partial
+    sum)."""
+    if not isinstance(table, DTensor):
+        return table[ids.long()]
+    from torch.distributed.tensor.experimental import local_map
+
+    mesh = table.device_mesh
+    rep = [Replicate()] * mesh.ndim
+    ids = ids if isinstance(ids, DTensor) else DTensor.from_local(ids, mesh, rep)
+    t_pl, i_pl, o_pl, tg, vocab_axes = [], [], [], [], []
+    for i, (tp, ip) in enumerate(zip(table.placements, ids.placements)):
+        if tp.is_shard(0):
+            t_pl.append(Shard(0)), i_pl.append(Replicate()), o_pl.append(Partial())
+            tg.append(Shard(0))
+            vocab_axes.append(i)
+        elif ip.is_shard():
+            t_pl.append(Replicate()), i_pl.append(ip), o_pl.append(ip), tg.append(Partial())
+        else:
+            t_pl.append(Replicate()), i_pl.append(Replicate()), o_pl.append(Replicate())
+            tg.append(Replicate())
+    assert len(vocab_axes) <= 1, table.placements
+    rows = table.shape[0] // (mesh.size(vocab_axes[0]) if vocab_axes else 1)
+    first = mesh.get_local_rank(vocab_axes[0]) * rows if vocab_axes else 0
+
+    def local(t, i):
+        i = i.long() - first
+        mine = (i >= 0) & (i < rows)
+        out = t[torch.where(mine, i, 0)]
+        return out * mine[..., None].to(out.dtype) if vocab_axes else out
+
+    table, ids = table.redistribute(mesh, t_pl), ids.redistribute(mesh, i_pl)
+    return local_map(local, out_placements=(tuple(o_pl),), in_placements=(tuple(t_pl), tuple(i_pl)),
+                     in_grad_placements=(tuple(tg), tuple(i_pl)), device_mesh=mesh)(table, ids)
+
+
 def linear(x, w):
     """x @ w in x's dtype (on the card a bf16 product sums in f32 and
     rounds once, as the reference's preferred_element_type=f32 does)."""
-    return torch.matmul(x, w.to(x.dtype))
+    return matmul(x, w.to(x.dtype))
+
+
+def matmul(x, w):
+    """x [..., K] @ w [K, N]; on DTensors each rank multiplies its shards
+    (``_matmul_sharded``): DTensor cannot flatten x's leading dims when more
+    than one of them is split (the sequence-parallel [B, S, d])."""
+    if isinstance(x, DTensor) or isinstance(w, DTensor):
+        return _matmul_sharded(x, w)
+    return torch.matmul(x, w)
+
+
+def _matmul_sharded(x, w, local=torch.matmul):
+    """``local(x, w)`` (a product) under ``local_map``, per mesh axis: a column split of w
+    keeps it (x whole there, the output split on its last dim, x's
+    gradient a partial sum); a split of the contracted dim in both keeps
+    both (the output a partial sum); a split of one of x's leading dims
+    keeps it (w whole there, w's gradient a partial sum); anything else is
+    gathered whole."""
+    from torch.distributed.tensor.experimental import local_map
+
+    mesh = (x if isinstance(x, DTensor) else w).device_mesh
+    rep = [Replicate()] * mesh.ndim
+    x, w = (t if isinstance(t, DTensor) else DTensor.from_local(t, mesh, rep) for t in (x, w))
+    last = x.ndim - 1
+    x_pl, w_pl, o_pl, xg, wg = [], [], [], [], []
+    for xp, wp in zip(x.placements, w.placements):
+        if wp.is_shard(1):
+            x_pl.append(Replicate()), w_pl.append(Shard(1)), o_pl.append(Shard(last))
+            xg.append(Partial()), wg.append(Shard(1))
+        elif wp.is_shard(0) and xp.is_shard(last):
+            x_pl.append(Shard(last)), w_pl.append(Shard(0)), o_pl.append(Partial())
+            xg.append(Shard(last)), wg.append(Shard(0))
+        elif xp.is_shard() and xp.dim < last:
+            x_pl.append(xp), w_pl.append(Replicate()), o_pl.append(xp)
+            xg.append(xp), wg.append(Partial())
+        else:
+            for lst in (x_pl, w_pl, o_pl, xg, wg):
+                lst.append(Replicate())
+    x, w = x.redistribute(mesh, x_pl), w.redistribute(mesh, w_pl)
+    return local_map(local, out_placements=(tuple(o_pl),),
+                     in_placements=(tuple(x_pl), tuple(w_pl)),
+                     in_grad_placements=(tuple(xg), tuple(wg)), device_mesh=mesh)(x, w)
 
 
 def silu(x):
@@ -175,6 +267,129 @@ def apply_rope(x, positions, theta: float):
     x1, x2 = torch.chunk(x.float(), 2, dim=-1)
     out = torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin], dim=-1)
     return out.to(x.dtype)
+
+
+def constrain(t, dims):
+    """``t`` redistributed so that mesh axis ``name`` shards tensor dim
+    ``dims[name]`` (None, or an axis of size 1: whole); the "pod" axis
+    keeps a batch shard it has. The identity on a plain tensor."""
+    if not isinstance(t, DTensor):
+        return t
+    mesh = t.device_mesh
+    placements = []
+    for i, (name, cur) in enumerate(zip(mesh.mesh_dim_names, t.placements)):
+        if name == "pod" and name not in dims:
+            placements.append(Shard(0) if cur.is_shard(0) else Replicate())
+            continue
+        d = dims.get(name)
+        # an axis of one rank splits nothing: whole, so views never trip on it
+        placements.append(Replicate() if d is None or mesh.size(i) == 1 else Shard(d))
+    placements = tuple(placements)
+    return t if t.placements == placements else t.redistribute(mesh, placements)
+
+
+def whole_dim(t, dim: int):
+    """``t`` with dim ``dim`` gathered whole on every rank (other shards
+    kept); the identity on a plain tensor."""
+    if not isinstance(t, DTensor):
+        return t
+    dim %= t.ndim
+    pl = tuple(Replicate() if p.is_shard(dim) else p for p in t.placements)
+    return t if pl == tuple(t.placements) else t.redistribute(t.device_mesh, pl)
+
+
+def heads_constraint(cfg, t):
+    """[B, S, H, D] attention tensors: batch over "data", heads over
+    "model" where each divides, S replicated: the Megatron-SP layout inside
+    the attention block (``seq_constraint`` outside). Heads that "model"
+    does not divide stay whole (q heads are padded to divisibility
+    upstream, ``attention._pad_heads_for_tp``)."""
+    if not (cfg.act_shard_data and cfg.act_shard_model) or t.ndim != 4:
+        return t
+    B, _, H, _ = t.shape
+    b = 0 if B % cfg.act_shard_data == 0 else None
+    h = 2 if H % cfg.act_shard_model == 0 else None
+    if b is None and h is None:
+        return t
+    return constrain(t, {"data": b, "model": h})
+
+
+def seq_constraint(cfg, x):
+    """Sequence parallelism on the residual stream: x [B, S, d] with batch
+    over "data" and S over "model" where each divides; the identity when
+    activation sharding is off (no mesh, the CPU tests)."""
+    if not (cfg.act_shard_data and cfg.act_shard_model) or x.ndim != 3:
+        return x
+    B, S, _ = x.shape
+    b = 0 if B % cfg.act_shard_data == 0 else None
+    s = 1 if S % cfg.act_shard_model == 0 else None
+    if b is None and s is None:
+        return x
+    return constrain(x, {"data": b, "model": s})
+
+
+def shard_view(t):
+    """(local tensor, global offset of each of its dims) of a DTensor's
+    shard; (t, zeros) for a plain tensor. The local tensor shares the
+    DTensor's storage, so writing into it writes the shard in place."""
+    if not isinstance(t, DTensor):
+        return t, (0,) * t.ndim
+    from torch.distributed.tensor._utils import compute_local_shape_and_global_offset
+
+    _, offset = compute_local_shape_and_global_offset(t.shape, t.device_mesh, t.placements)
+    return t._local_tensor, tuple(offset)
+
+
+def like_shards(vals, dst, dims):
+    """``vals`` (a DTensor or a plain tensor) laid out so that its local
+    shard lines up with ``dst``'s along ``dims``: each of those dims that a
+    mesh axis shards in ``dst`` is sharded the same way in ``vals``, and
+    everything else is whole. Returns the local tensor."""
+    if not isinstance(dst, DTensor):
+        return vals
+    mesh = dst.device_mesh
+    pl = tuple(p if p.is_shard() and p.dim in dims else Replicate() for p in dst.placements)
+    if not isinstance(vals, DTensor):
+        from torch.distributed.tensor import distribute_tensor
+
+        return distribute_tensor(vals, mesh, pl)._local_tensor
+    return vals.redistribute(mesh, pl).to_local()
+
+
+def per_batch_shard(fn, batched, shared=(), n_out: int = 1):
+    """``fn(*batched, *shared)`` on each rank's shard of the batch: every
+    tensor in ``batched`` (and every output) has the batch as dim 0, which
+    keeps the shards of the first DTensor among them and is whole on its
+    other axes; ``shared`` tensors are whole on every rank (their gradients
+    are partial sums over the batch's axes). For a computation independent
+    per batch row (the recurrences), which DTensor cannot always trace (a
+    cumsum's backward takes ``aten.flip``, which it has no rule for).
+    ``fn`` itself on plain tensors."""
+    lead = next((t for t in batched if isinstance(t, DTensor)), None)
+    if lead is None:
+        return fn(*batched, *shared)
+    from torch.distributed.tensor import distribute_tensor
+    from torch.distributed.tensor.experimental import local_map
+
+    mesh = lead.device_mesh
+    b_pl = tuple(Shard(0) if p.is_shard(0) else Replicate() for p in lead.placements)
+    rep = tuple(Replicate() for _ in b_pl)
+    part = tuple(Partial() if p.is_shard(0) else Replicate() for p in b_pl)
+
+    def lay(t, pl):
+        if t is None:
+            return None
+        if isinstance(t, DTensor):
+            return t.redistribute(mesh, pl)
+        return distribute_tensor(t, mesh, pl, src_data_rank=None)
+
+    args = [lay(t, b_pl) for t in batched] + [lay(t, rep) for t in shared]
+    in_pl = [None if t is None else b_pl for t in batched] + [rep for _ in shared]
+    grads = [None if t is None else b_pl for t in batched] + [part for _ in shared]
+    outs = tuple(b_pl for _ in range(n_out))
+    return local_map(fn, out_placements=outs,
+                     in_placements=tuple(in_pl), in_grad_placements=tuple(grads),
+                     device_mesh=mesh)(*args)
 
 
 def sinusoidal_positions(n: int, d: int, device=None):

@@ -35,7 +35,10 @@ from repro_torch.configs.base import ModelConfig
 from repro_torch.models import attention as attn
 from repro_torch.models import mlp as mlp_mod
 from repro_torch.models.attention import _heads
-from repro_torch.models.base import Ctx, apply_norm, dtype_of, norm_params, sinusoidal_positions
+from repro_torch.models.base import (
+    Ctx, apply_norm, dtype_of, embed_lookup, like_shards, norm_params, seq_constraint,
+    shard_view, sinusoidal_positions,
+)
 from repro_torch.models.lm import _index, _remat_kwargs, _write_back
 from repro_torch.utils import tree_unstack
 
@@ -129,9 +132,9 @@ def decoder_forward(cfg, params, tokens, cross_kv, *, caches=None, decode=False,
     step adds ``dec_pos[pos0]`` ([B] absolute positions), a prefill
     ``dec_pos[:S]``."""
     S = tokens.shape[1]
-    x = params["embed"][tokens.long()].to(dtype_of(cfg.dtype))
+    x = embed_lookup(params["embed"], tokens).to(dtype_of(cfg.dtype))
     if decode:
-        x = x + params["dec_pos"][pos0.long()][:, None].to(x.dtype)
+        x = x + embed_lookup(params["dec_pos"], pos0)[:, None].to(x.dtype)
         positions = None
     else:
         x = x + params["dec_pos"][:S][None].to(x.dtype)
@@ -139,6 +142,7 @@ def decoder_forward(cfg, params, tokens, cross_kv, *, caches=None, decode=False,
     ck, cv = cross_kv
     remat = caches is None and _remat(cfg)
     for i, lp in enumerate(tree_unstack(params["decoder"])):
+        x = seq_constraint(cfg, x)  # the residual stream entering each block
         if remat:
             x = checkpoint(_dec_block_train, cfg, lp, x, ck[i], cv[i], positions,
                            use_reentrant=False, **_remat_kwargs(cfg))
@@ -187,17 +191,26 @@ def _logits(params, h):
     return (h @ params["embed"].T.to(h.dtype)).float()
 
 
-def encdec_prefill(cfg, params, batch, max_len: int):
+def encdec_prefill(cfg, params, batch, max_len: int, cache=None):
     """Encode the frames, run the prompt, fill the self cache (``pos``
     becomes S) and keep the cross k / v. Returns (last logits [B,V] f32,
-    cache)."""
+    cache). ``cache`` (empty, e.g. sharded over a mesh) is filled in place;
+    by default a new one is made."""
     enc_states = encode(cfg, params, batch["frames"])
     ck, cv = _cross_kv(cfg, params["decoder"], enc_states)
     B, S = batch["tokens"].shape
-    self_cache = {k: torch.zeros(shape, dtype=d, device=enc_states.device)
-                  for k, (shape, d) in _self_cache_spec(cfg, B, max_len).items()}
+    if cache is None:
+        self_cache = {k: torch.zeros(shape, dtype=d, device=enc_states.device)
+                      for k, (shape, d) in _self_cache_spec(cfg, B, max_len).items()}
+    else:
+        self_cache = cache["self"]
+        with torch.no_grad():
+            for key, val in (("cross_k", ck), ("cross_v", cv)):
+                shard_view(cache[key])[0].copy_(like_shards(val, cache[key], range(val.ndim)))
+        ck, cv = cache["cross_k"], cache["cross_v"]
     h, self_cache = decoder_forward(cfg, params, batch["tokens"], (ck, cv), caches=self_cache)
-    self_cache["pos"].fill_(S)
+    with torch.no_grad():
+        shard_view(self_cache["pos"])[0].fill_(S)
     return _logits(params, h[:, -1]), {"self": self_cache, "cross_k": ck, "cross_v": cv}
 
 

@@ -38,7 +38,9 @@ from repro_torch.configs.base import ModelConfig
 from repro_torch.models import attention as attn
 from repro_torch.models import mlp as mlp_mod
 from repro_torch.models import ssm as ssm_mod
-from repro_torch.models.base import Ctx, apply_norm, dtype_of, norm_params
+from repro_torch.models.base import (
+    Ctx, apply_norm, dtype_of, embed_lookup, norm_params, seq_constraint,
+)
 from repro_torch.models.lm import _index, _remat_kwargs, _write_back
 from repro_torch.utils import tree_unstack
 
@@ -111,7 +113,7 @@ def _super_block_train(cfg, layers, shared_p, x, positions):
 def hybrid_forward(cfg, params, batch, *, caches=None, decode=False):
     """Returns (hidden [B,S,d], caches written in place, aux f32 zero)."""
     every, n_super, tail = _layout(cfg)
-    x = params["embed"][batch["tokens"].long()].to(dtype_of(cfg.dtype))
+    x = embed_lookup(params["embed"], batch["tokens"]).to(dtype_of(cfg.dtype))
     S = x.shape[1]
     positions = None if decode else torch.arange(S, device=x.device)[None, :]
     shared_p = params["shared_attn"]
@@ -120,6 +122,7 @@ def hybrid_forward(cfg, params, batch, *, caches=None, decode=False):
 
     for i in range(n_super):
         group = layers[i * every:(i + 1) * every]
+        x = seq_constraint(cfg, x)  # the residual stream entering each super-block
         if remat:
             x = checkpoint(_super_block_train, cfg, group, shared_p, x, positions,
                            use_reentrant=False, **_remat_kwargs(cfg))

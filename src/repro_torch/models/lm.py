@@ -51,13 +51,18 @@ from typing import Any, Dict, List, Tuple
 import functools
 
 import torch
+from torch.distributed.tensor import DTensor
 from torch.utils.checkpoint import CheckpointPolicy, checkpoint, create_selective_checkpoint_contexts
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models import attention as attn
 from repro_torch.models import mlp as mlp_mod
 from repro_torch.models import ssm as ssm_mod
-from repro_torch.models.base import Ctx, apply_norm, dtype_of, linear, norm_params
+from repro_torch.models.base import (
+    Ctx, _matmul_sharded, apply_norm, dtype_of, embed_lookup, like_shards, linear, norm_params,
+    seq_constraint, shard_view,
+    whole_dim,
+)
 from repro_torch.utils import tree_unstack
 
 
@@ -104,7 +109,9 @@ def _block_params(ctx: Ctx, cfg: ModelConfig, kind: str, count: int):
 
 def _block_apply(cfg, kind, p, x, cache, *, decode, positions):
     """One block. Returns (x, new_cache, aux); aux is None for a dense or
-    RWKV block (the reference's 0)."""
+    RWKV block (the reference's 0). The residual stream enters under
+    ``seq_constraint``, as the reference's segment body pins it."""
+    x = seq_constraint(cfg, x)
     if kind == "rwkv":
         return _rwkv_block(cfg, p, x, cache)
     h = apply_norm(cfg, x, p["ln1"])
@@ -162,9 +169,15 @@ def _write_back(stacked, index, view, new):
     leaves of ``view`` (``_index(stacked, index)``, which the block was
     given): a block fills its cache views in place and returns new tensors
     for what it replaces, such as decode's ``pos``."""
+    idx = index if isinstance(index, tuple) else (index,)
+    n = len(idx)
     for key, val in new.items():
         if val is not view[key]:
-            stacked[key][index] = val
+            local, off = shard_view(stacked[key])
+            assert not any(off[:n]), "the stacked layer dims are never split"
+            whole = val.reshape((1,) * n + tuple(val.shape))
+            with torch.no_grad():
+                local[idx] = like_shards(whole, stacked[key], range(n, n + val.ndim))[(0,) * n]
 
 
 def _run_segment(cfg, kind, params, x, caches, *, decode, positions):
@@ -221,7 +234,7 @@ def _embed_inputs(cfg, params, batch):
     """Token (and, for the vision stub, patch) embedding. Returns x
     [B, P + S, d] in the activation dtype, the P patches first."""
     tokens = batch["tokens"].long()
-    x = params["embed"][tokens].to(dtype_of(cfg.dtype))
+    x = embed_lookup(params["embed"], tokens).to(dtype_of(cfg.dtype))
     if cfg.frontend == "vision_stub" and "patch_embed" in batch:
         patches = linear(batch["patch_embed"].to(x.dtype), params["patch_proj"])
         x = torch.cat([patches, x], dim=1)
@@ -258,6 +271,8 @@ def _logits(h, w):
     copied to f32. That call has no CPU kernel and no derivative, so on the
     CPU, and under autograd, both operands are upcast instead (exact: bf16
     products are exact in f32)."""
+    if isinstance(h, DTensor):  # each rank's shards (DTensor has no f32-output product)
+        return _matmul_sharded(h, w, local=_logits)
     h2 = h.reshape(-1, h.shape[-1])
     if h.dtype == torch.float32:
         out = torch.mm(h2, w)
@@ -274,7 +289,9 @@ def unembed(cfg, params, h):
 
 
 def _xent(logits, targets, mask):
-    """Summed masked NLL, mask count and correct count of f32 logits."""
+    """Summed masked NLL, mask count and correct count of f32 logits (on a
+    mesh with the vocab whole: a vocab-split gather trips DTensor)."""
+    logits = whole_dim(logits, -1)
     lse = torch.logsumexp(logits, dim=-1)
     gold = torch.gather(logits, -1, targets[..., None]).squeeze(-1)
     nll = (lse - gold) * mask
@@ -351,15 +368,19 @@ def lm_cache(cfg, batch: int, max_len: int, device=None):
     return {f"seg{i}": init(kind, count) for i, (kind, count) in enumerate(segments(cfg))}
 
 
-def lm_prefill(cfg, params, batch, max_len: int):
+def lm_prefill(cfg, params, batch, max_len: int, caches=None):
     """Run the prompt, fill caches, return (last_logits [B,V] f32, caches).
-    ``pos`` becomes the prefilled length, patches included (C6)."""
+    ``pos`` becomes the prefilled length, patches included (C6). ``caches``
+    (empty, e.g. sharded over a mesh) is filled in place; by default a new
+    one is made on the params' device."""
     B = batch["tokens"].shape[0]
-    caches = lm_cache(cfg, B, max_len, device=params["embed"].device)
+    if caches is None:
+        caches = lm_cache(cfg, B, max_len, device=params["embed"].device)
     h, caches, _ = lm_forward(cfg, params, batch, caches=caches)
     for c in caches.values():
         if "pos" in c:  # an RWKV cache has none
-            c["pos"].fill_(h.shape[1])
+            with torch.no_grad():
+                shard_view(c["pos"])[0].fill_(h.shape[1])
     logits = unembed(cfg, params, h[:, -1:])[:, 0]
     return logits, caches
 

@@ -5,9 +5,10 @@ kernel on the card, its plain version on the CPU. It computes the
 reference's ``mlp_forward`` for ``mlp_kind == "swiglu"`` (asserted in
 ``tests/test_kernels.py``). ``gelu`` stays plain torch.
 
-Mixture of experts, the reference's two dispatch implementations without
-a mesh (``moe_sharded.py``'s expert-parallel paths come with ROADMAP Queue
-1, item 16):
+Mixture of experts: ``moe_forward`` dispatches on
+``moe_sharded.pick_moe_path`` as the reference does; on a mesh that is one
+of ``moe_sharded``'s expert-parallel paths. The two implementations
+without a mesh:
 
 - ``gather``: each (token, slot) gets its place in its expert from a
   cumsum over the flat [T*k] order (token-major, slot-minor); places past
@@ -34,9 +35,10 @@ from typing import Optional
 
 import torch
 import torch.nn.functional as F
+from torch.distributed.tensor import DTensor
 
 from repro_torch.kernels import ops
-from repro_torch.models.base import Ctx, gelu, linear, silu
+from repro_torch.models.base import Ctx, gelu, linear, matmul, silu
 
 
 def mlp_params(ctx: Ctx, cfg, d_ff: Optional[int] = None, stacked: Optional[int] = None):
@@ -100,18 +102,20 @@ def capacity(cfg, T: int) -> int:
 
 
 def _router(cfg, p, x):
-    """Top-k routing. x [T, d] -> (gates [T,k], ids [T,k], aux_loss)."""
+    """Top-k routing. x [..., d] (on a mesh, any sharding) -> (gates
+    [..., k], ids [..., k], aux_loss)."""
     m = cfg.moe
     E = m.num_experts
-    logits = torch.mm(x.float(), p["router"].float())
+    logits = matmul(x.float(), p["router"].float())
     probs = torch.softmax(logits, dim=-1)
     # a stable descending sort: equal probabilities keep the lower index first
     gates, ids = torch.sort(probs, dim=-1, descending=True, stable=True)
-    gates, ids = gates[:, : m.top_k], ids[:, : m.top_k]
+    gates, ids = gates[..., : m.top_k], ids[..., : m.top_k]
     gates = gates / torch.clamp(torch.sum(gates, dim=-1, keepdim=True), min=1e-9)
     # Switch aux loss: E * sum_e (fraction_tokens_e * mean_prob_e)
-    frac = torch.mean(F.one_hot(ids[:, 0], E).float(), dim=0)  # top-1 counts
-    mean_prob = torch.mean(probs, dim=0)
+    tokens = tuple(range(x.ndim - 1))
+    frac = torch.mean(F.one_hot(ids[..., 0], E).float(), dim=tokens)  # top-1 counts
+    mean_prob = torch.mean(probs, dim=tokens)
     aux = E * torch.sum(frac * mean_prob)
     return gates, ids, aux
 
@@ -131,6 +135,24 @@ def _places(ids, E: int):
     return torch.sum((torch.cumsum(onehot, dim=0) - 1) * onehot, dim=1)
 
 
+def _dispatch_local(cfg, x2d, gates, ids, C):
+    """Scatter the tokens into an [E, C, d] buffer: each (token, slot) at
+    its place in its expert (a cumsum over the flat [T*k] order,
+    token-major), places past C to an overflow row that is dropped.
+    Returns (buf, dest, token_idx, flat_gates, keep) for the combine."""
+    m = cfg.moe
+    T, d = x2d.shape
+    E, k = m.num_experts, m.top_k
+    flat_ids = ids.reshape(-1)  # [T*k], token-major
+    token_idx = torch.arange(T, device=x2d.device).repeat_interleave(k)
+    pos = _places(flat_ids, E)
+    keep = pos < C
+    dest = torch.where(keep, flat_ids * C + pos, E * C)  # dropped -> overflow row
+    buf = torch.zeros((E * C + 1, d), dtype=x2d.dtype, device=x2d.device)
+    buf = buf.index_add(0, dest, x2d[token_idx])
+    return buf[: E * C].reshape(E, C, d), dest, token_idx, gates.reshape(-1), keep
+
+
 def moe_forward_gather(cfg, p, x2d):
     """Sorted scatter/gather dispatch. x2d [T, d] -> ([T, d], aux)."""
     m = cfg.moe
@@ -139,18 +161,11 @@ def moe_forward_gather(cfg, p, x2d):
     C = capacity(cfg, T)
 
     gates, ids, aux = _router(cfg, p, x2d)
-    flat_ids = ids.reshape(-1)  # [T*k], token-major
-    token_idx = torch.arange(T, device=x2d.device).repeat_interleave(k)
-    pos = _places(flat_ids, E)
-    keep = pos < C
-    dest = torch.where(keep, flat_ids * C + pos, E * C)  # dropped -> overflow row
-
-    buf = torch.zeros((E * C + 1, d), dtype=x2d.dtype, device=x2d.device)
-    buf = buf.index_add(0, dest, x2d[token_idx])
-    yb = _expert_ffn(cfg, p["w_gate"], p["w_up"], p["w_down"], buf[: E * C].reshape(E, C, d))
+    buf, dest, _, flat_gates, keep = _dispatch_local(cfg, x2d, gates, ids, C)
+    yb = _expert_ffn(cfg, p["w_gate"], p["w_up"], p["w_down"], buf)
     yb = torch.cat([yb.reshape(E * C, d), torch.zeros((1, d), dtype=x2d.dtype, device=x2d.device)])
 
-    contrib = yb[dest] * (gates.reshape(-1) * keep)[:, None].to(x2d.dtype)
+    contrib = yb[dest] * (flat_gates * keep)[:, None].to(x2d.dtype)
     return torch.sum(contrib.reshape(T, k, d), dim=1), aux
 
 
@@ -180,16 +195,26 @@ def moe_forward_einsum(cfg, p, x2d):
 
 
 def moe_forward(cfg, p, x):
-    """x [B, S, d] -> (y [B, S, d], aux_loss scalar). Without a mesh the
-    reference picks ``cfg.moe.impl`` when that names a path, else gather."""
+    """x [B, S, d] -> (y [B, S, d], aux_loss scalar), on the path
+    ``moe_sharded.pick_moe_path`` picks, as the reference dispatches. Without
+    a mesh that is ``cfg.moe.impl`` when it names a path, else gather."""
+    from repro_torch.models import moe_sharded
+
     m = cfg.moe
     B, S, d = x.shape
-    x2d = x.reshape(B * S, d)
-    if m.impl == "einsum":
-        y, aux = moe_forward_einsum(cfg, p, x2d)
+    path = moe_sharded.pick_moe_path(cfg, B, S)
+    if path in ("ep_a2a", "ep_local", "local"):
+        fn = {"ep_a2a": moe_sharded.moe_forward_ep_a2a, "ep_local": moe_sharded.moe_forward_ep_local,
+              "local": moe_sharded.moe_forward_local}[path]
+        y, aux = fn(cfg, p, x)
     else:
-        y, aux = moe_forward_gather(cfg, p, x2d)
+        fn = moe_forward_einsum if path == "einsum" else moe_forward_gather
+        if isinstance(x, DTensor):
+            y, aux = moe_sharded.moe_forward_replicated(cfg, p, x, fn)
+        else:
+            y, aux = fn(cfg, p, x.reshape(B * S, d))
+            y = y.reshape(B, S, d)
     if m.num_shared:
         sp = p["shared"]
-        y = y + linear(silu(linear(x2d, sp["w_gate"])) * linear(x2d, sp["w_up"]), sp["w_down"])
-    return y.reshape(B, S, d), aux
+        y = y + linear(silu(linear(x, sp["w_gate"])) * linear(x, sp["w_up"]), sp["w_down"])
+    return y, aux

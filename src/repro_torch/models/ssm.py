@@ -21,9 +21,9 @@ one-token step with an O(1) state.
 
 Every contraction is written as a product of two operands (``matmul`` or
 a broadcast multiply), so that no intermediate wider than the reference's
-is materialized; the reference's scans over chunks are Python loops. The
-reference's ``_mamba_head_constraint`` is a sharding constraint without a
-mesh and has no counterpart here (ROADMAP Queue 1, item 16).
+is materialized; the reference's scans over chunks are Python loops. On a mesh (DTensors)
+``_mamba_head_constraint`` pins Mamba2's per-head tensors to batch over
+"data" and heads over "model", as the reference's does.
 """
 
 from __future__ import annotations
@@ -34,7 +34,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.models.attention import _heads
-from repro_torch.models.base import Ctx, linear, rms_norm, silu
+from repro_torch.models.base import Ctx, constrain, linear, per_batch_shard, rms_norm, silu
 
 NEG_INF = -1e30
 
@@ -128,9 +128,11 @@ def rwkv6_time_mix(cfg, p, x, *, state=None, last_x=None):
 
     Lc = cfg.ssm.chunk_len
     if T > 1 and Lc > 1 and T % Lc == 0:
-        state, y = _wkv6_chunked(r, k, v, log_w, u, state, Lc)
+        wkv = lambda r, k, v, lw, S, u: _wkv6_chunked(r, k, v, lw, u, S, Lc)  # noqa: E731
     else:
-        state, y = _wkv6_steps(r, k, v, log_w, u, state)
+        wkv = lambda r, k, v, lw, S, u: _wkv6_steps(r, k, v, lw, u, S)  # noqa: E731
+    # independent per batch row: on a mesh each rank runs its rows
+    state, y = per_batch_shard(wkv, (r, k, v, log_w, state), (u,), n_out=2)
     return _rwkv6_out(cfg, p, x, y.to(x.dtype), g), (state, x[:, -1:])
 
 
@@ -278,6 +280,19 @@ def _mamba2_out(cfg, p, x, y, z):
     return linear(rms_norm(y, p["norm_scale"], cfg.norm_eps), p["w_out"])
 
 
+def _mamba_head_constraint(cfg, t):
+    """[B, T, H, ...] Mamba2 tensors: batch over "data", heads over "model"
+    where each divides; the identity when activation sharding is off."""
+    if not (cfg.act_shard_data and cfg.act_shard_model) or t.ndim < 3:
+        return t
+    B, H = t.shape[0], t.shape[2]
+    b = 0 if B % cfg.act_shard_data == 0 else None
+    h = 2 if H % cfg.act_shard_model == 0 else None
+    if b is None and h is None:
+        return t
+    return constrain(t, {"data": b, "model": h})
+
+
 def mamba2_forward(cfg, p, x, *, state=None, conv_state=None):
     """The chunked SSD. x [B,T,d] -> (y [B,T,d], (ssm state [B,H,N,hd] f32,
     conv state [B,K-1,C])). Chunks of ``min(chunk_len, T)`` steps; T must
@@ -288,15 +303,29 @@ def mamba2_forward(cfg, p, x, *, state=None, conv_state=None):
     hd, N = s.head_dim, s.d_state
     xbc, new_conv = _causal_conv(xbc, p["conv_w"], p["conv_b"], conv_state)
     xs, Bm, Cm = torch.split(xbc, [d_inner, N, N], dim=-1)
-    xs = xs.reshape(B, T, H, hd)
-    dt = F.softplus(dt.float() + p["dt_bias"].float())  # [B,T,H]
+    xs = _mamba_head_constraint(cfg, xs.reshape(B, T, H, hd))
+    dt = _mamba_head_constraint(cfg, F.softplus(dt.float() + p["dt_bias"].float()))  # [B,T,H]
     A = -torch.exp(p["a_log"].float())  # [H], negative
-    dA = dt * A  # [B,T,H] log decay per step
-
     Lc = min(s.chunk_len, T)
     if T % Lc:
         raise ValueError(f"mamba2_forward: T={T} is not a multiple of the chunk {Lc}")
+    if state is None:
+        state = torch.zeros((B, H, N, hd), dtype=torch.float32, device=x.device)
+    # independent per batch row: on a mesh each rank runs its rows
+    y, state = per_batch_shard(lambda *a: _ssd_chunked(*a, Lc), (xs, Bm, Cm, dt, state), (A,),
+                               n_out=2)
+    y = y + p["d_skip"].float()[None, None, :, None] * xs
+    return _mamba2_out(cfg, p, x, y.reshape(B, T, d_inner), z), (state, new_conv)
+
+
+def _ssd_chunked(xs, Bm, Cm, dt, state, A, Lc):
+    """Mamba2's chunked SSD in f32: xs [B,T,H,hd], Bm / Cm [B,T,N], dt
+    [B,T,H] (softplus'd), state [B,H,N,hd], A [H] -> (y [B,T,H,hd], the
+    state after the last chunk)."""
+    B, T, H, hd = xs.shape
+    N = Bm.shape[-1]
     nC = T // Lc
+    dA = dt * A  # [B,T,H] log decay per step
     xs_c = xs.float().reshape(B, nC, Lc, H, hd)
     B_c = Bm.float().reshape(B, nC, Lc, N)
     C_c = Cm.float().reshape(B, nC, Lc, N)
@@ -305,7 +334,7 @@ def mamba2_forward(cfg, p, x, *, state=None, conv_state=None):
 
     # within a chunk: the causal decay, masked before the exp (C7)
     decay_qk = cum[:, :, :, None, :] - cum[:, :, None, :, :]  # [B,nC,Lt,Ls,H]
-    causal = torch.tril(torch.ones((Lc, Lc), dtype=torch.bool, device=x.device))
+    causal = torch.tril(torch.ones((Lc, Lc), dtype=torch.bool, device=xs.device))
     Lmask = torch.exp(torch.where(causal[:, :, None], decay_qk, NEG_INF))
     scores = torch.matmul(C_c, B_c.transpose(-1, -2))  # [B,nC,Lt,Ls]
     w_ts = scores[..., None] * Lmask * dt_c[:, :, None, :, :]  # [B,nC,Lt,Ls,H]
@@ -319,8 +348,6 @@ def mamba2_forward(cfg, p, x, *, state=None, conv_state=None):
     Sc = torch.matmul(B_c.transpose(-1, -2), xw).reshape(B, nC, N, H, hd).transpose(2, 3)
     chunk_decay = torch.exp(cum[:, :, -1, :])  # [B,nC,H]
 
-    if state is None:
-        state = torch.zeros((B, H, N, hd), dtype=torch.float32, device=x.device)
     S_in = []  # the state entering each chunk
     for c in range(nC):
         S_in.append(state)
@@ -330,10 +357,7 @@ def mamba2_forward(cfg, p, x, *, state=None, conv_state=None):
     # from the entering state: C_t . S_in, decayed from the chunk's start
     y_inter = torch.matmul(C_c, S_in.permute(0, 1, 3, 2, 4).reshape(B, nC, N, H * hd))
     y_inter = y_inter.reshape(B, nC, Lc, H, hd) * torch.exp(cum)[..., None]
-
-    y = (y_intra + y_inter).reshape(B, T, H, hd)
-    y = y + p["d_skip"].float()[None, None, :, None] * xs
-    return _mamba2_out(cfg, p, x, y.reshape(B, T, d_inner), z), (state, new_conv)
+    return (y_intra + y_inter).reshape(B, T, H, hd), state
 
 
 def mamba2_decode(cfg, p, x, state, conv_state):

@@ -10,6 +10,13 @@ Reddi et al.).
 trees (leading client axis C) every update is leaf-wise, so one call
 advances C independent trajectories. This is not ``torch.optim``: the FL
 engines need the state as a value they can stack and slice.
+
+A sharded train step (``launch.steps``) runs ``adamw`` and ``adafactor``
+on each rank's local shards. AdamW is elementwise; Adafactor's row and
+column means and its two rms terms span the leaf, so its ``update`` takes
+``spans``, a tree of ``ShardSpan`` (or None) that sums those over the
+process groups that split the leaf. Unsplit dims take the one-device
+expressions, so a mesh of one rank computes the one-device bits.
 """
 
 from __future__ import annotations
@@ -17,8 +24,11 @@ from __future__ import annotations
 from dataclasses import dataclass
 from typing import Callable, Optional
 
+import math
+
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from repro_torch.utils.pytree import tree_leaves, tree_map
 
@@ -29,6 +39,33 @@ _F = np.float32
 class Optimizer:
     init: Callable
     update: Callable  # (grads, state, params, step) -> (updates, state)
+
+
+class ShardSpan:
+    """Where a local shard sits in its leaf: ``groups[d]`` are the process
+    groups that split dim ``d`` of the whole leaf (of shape ``shape``)."""
+
+    def __init__(self, groups, shape):
+        self.groups = tuple(tuple(g) for g in groups)
+        self.shape = tuple(shape)
+
+    def sum(self, x: torch.Tensor, dims) -> torch.Tensor:
+        """``x``, a sum over this shard's part of ``dims``, summed over the
+        groups that split those dims (in place)."""
+        done = set()
+        for d in dims:
+            for g in self.groups[d]:
+                if id(g) not in done:
+                    done.add(id(g))
+                    dist.all_reduce(x, group=g)
+        return x
+
+    def mean(self, x: torch.Tensor, dim: int, leaf_dim: int, keepdim=False) -> torch.Tensor:
+        """The mean of the whole leaf along ``leaf_dim`` (``dim`` of ``x``)."""
+        if not self.groups[leaf_dim]:
+            return torch.mean(x, dim=dim, keepdim=keepdim)
+        total = self.sum(torch.sum(x, dim=dim, keepdim=keepdim), (leaf_dim,))
+        return total / self.shape[leaf_dim]
 
 
 def apply_updates(params, updates):
@@ -148,7 +185,7 @@ def adamw(
             st["master"] = tree_map(lambda p: p.to(master_dtype, copy=True), params)
         return st
 
-    def update(grads, state, params, step):
+    def update(grads, state, params, step, spans=None):  # elementwise: spans unused
         lr_t = lr_fn(step)
         t = _F(int(step) + 1)
         c1 = float(_F(1.0) - _F(b1) ** t)
@@ -202,11 +239,16 @@ def adafactor(lr: Callable | float, eps: float = 1e-30, decay: float = 0.8,
 
         return {"v": tree_map(factored, params)}
 
-    def update(grads, state, params, step):
+    def update(grads, state, params, step, spans=None):
         lr_t = lr_fn(step)
         beta = float(_F(1.0) - (_F(int(step)) + _F(1.0)) ** _F(-decay))
 
-        def upd(g, v, p):
+        def mean(x, dim, leaf_dim, span, keepdim=False):
+            if span is None:
+                return torch.mean(x, dim=dim, keepdim=keepdim)
+            return span.mean(x, dim, leaf_dim, keepdim=keepdim)
+
+        def upd(g, v, p, span):
             u = torch.empty(g.shape, dtype=torch.float32, device=g.device)
             new_v = {k: torch.empty_like(x) for k, x in v.items()}
             u_sq = p_sq = 0.0
@@ -217,27 +259,32 @@ def adafactor(lr: Callable | float, eps: float = 1e-30, decay: float = 0.8,
                     nv = new_v["v"][s] = beta * v["v"][s] + (1 - beta) * g2
                     u[s] = gs / torch.clamp(_sqrt_f32(nv), min=1e-30)
                 else:
-                    vr = new_v["vr"][s] = beta * v["vr"][s] + (1 - beta) * torch.mean(g2, dim=-1)
-                    vc = new_v["vc"][s] = beta * v["vc"][s] + (1 - beta) * torch.mean(g2, dim=-2)
+                    nd = g.ndim
+                    vr = new_v["vr"][s] = beta * v["vr"][s] + (1 - beta) * mean(g2, -1, nd - 1, span)
+                    vc = new_v["vc"][s] = beta * v["vc"][s] + (1 - beta) * mean(g2, -2, nd - 2, span)
                     del g2
-                    r = vr / torch.clamp(torch.mean(vr, dim=-1, keepdim=True), min=1e-30)
+                    r = vr / torch.clamp(mean(vr, -1, nd - 2, span, keepdim=True), min=1e-30)
                     denom = _sqrt_f32(r)[..., None] * _sqrt_f32(vc)[..., None, :]
                     u[s] = gs / torch.clamp(denom, min=1e-30)
                 u_sq = u_sq + torch.sum(torch.square(u[s]))
                 p_sq = p_sq + torch.sum(torch.square(p[s].float()))
             n = g.numel()
+            if span is not None:  # the rms terms span the whole leaf
+                every = range(len(span.shape))
+                u_sq, p_sq = span.sum(u_sq, every), span.sum(p_sq, every)
+                n = math.prod(span.shape)
             scale = torch.clamp(_sqrt_f32(u_sq / n) / clip_threshold, min=1.0)
             # parameter-scale: relative step sizes (Shazeer & Stern)
             p_rms = _sqrt_f32(p_sq / n)
             return u.mul_(-lr_t * torch.clamp(p_rms, min=eps_scale)).div_(scale), new_v
 
-        def walk(g, v, p):
+        def walk(g, v, p, sp):
             if isinstance(g, dict):
-                pairs = {k: walk(g[k], v[k], p[k]) for k in g}
+                pairs = {k: walk(g[k], v[k], p[k], None if sp is None else sp[k]) for k in g}
                 return {k: u for k, (u, _) in pairs.items()}, {k: nv for k, (_, nv) in pairs.items()}
-            return upd(g, v, p)
+            return upd(g, v, p, sp)
 
-        updates, new_v = walk(grads, state["v"], params)
+        updates, new_v = walk(grads, state["v"], params, spans)
         return updates, {"v": new_v}
 
     return Optimizer(init, update)

@@ -69,6 +69,9 @@ CANDIDATES = {
 
 def mesh_sizes(mesh) -> Dict[str, int]:
     """{axis name: size} of a mesh (see the module docstring)."""
+    names = getattr(mesh, "mesh_dim_names", None)
+    if names is not None:  # a torch DeviceMesh
+        return dict(zip(names, (int(s) for s in mesh.mesh.shape)))
     devices = getattr(mesh, "devices", None)
     shape = mesh.shape if devices is None else devices.shape
     return dict(zip(mesh.axis_names, (int(s) for s in shape)))
@@ -177,3 +180,52 @@ def to_placements(spec: Spec, mesh) -> tuple:
     unknown = set(owner) - set(names)
     assert not unknown, f"{spec} names axes {sorted(unknown)} the mesh {names} lacks"
     return tuple(Shard(owner[n]) if n in owner else Replicate() for n in names)
+
+
+# ---------------------------------------------------------------------------
+# Concrete tensors on a torch DeviceMesh (the counterpart of jit's
+# in_shardings / out_shardings on concrete arrays)
+# ---------------------------------------------------------------------------
+
+_AMBIENT: list = []
+
+
+def ambient_mesh():
+    """The DeviceMesh set by ``launch.mesh.mesh_context`` (the innermost),
+    or None: what the activation constraints and ``models.moe_sharded``
+    read, as the reference's read jax's ambient mesh."""
+    return _AMBIENT[-1] if _AMBIENT else None
+
+
+def placements_on(spec: Spec, mesh) -> tuple:
+    """``to_placements`` on a DeviceMesh, an axis of one rank whole: it
+    splits nothing, and its ``Shard`` would only leave DTensor's views
+    (merging or splitting dims) something to refuse."""
+    from torch.distributed.tensor import Replicate
+
+    return tuple(Replicate() if mesh.size(i) == 1 else p
+                 for i, p in enumerate(to_placements(spec, mesh)))
+
+
+def distribute_tree(tree, spec_tree, mesh):
+    """Each leaf of ``tree`` (a whole tensor, the same on every rank: each
+    rank keeps its own part, nothing is sent) distributed over ``mesh`` by
+    its spec: a DTensor holding this rank's shard. A leaf that is already a
+    DTensor is redistributed."""
+    from torch.distributed.tensor import DTensor, distribute_tensor
+
+    def one(t, spec):
+        placements = placements_on(spec, mesh)
+        if isinstance(t, DTensor):
+            return t.redistribute(mesh, placements)
+        return distribute_tensor(t, mesh, placements, src_data_rank=None)
+
+    return tree_map(one, tree, spec_tree)
+
+
+def full_tree(tree):
+    """Every DTensor leaf of ``tree`` gathered whole onto each rank (a
+    plain tensor); other leaves as they are."""
+    from torch.distributed.tensor import DTensor
+
+    return tree_map(lambda t: t.full_tensor() if isinstance(t, DTensor) else t, tree)

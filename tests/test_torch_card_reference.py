@@ -13,12 +13,14 @@ import numpy as np
 import pytest
 
 import _card_reference as card
-from _torch_parity import ref_params_np
+from _torch_parity import one_torch_thread, ref_params_np  # noqa: F401
 import repro.chaos as r_chaos
 import repro.compress as r_comp
 import repro.core as r_core
 import repro.data as r_data
 import repro.transport as r_tr
+
+pytestmark = pytest.mark.usefixtures("one_torch_thread")
 
 R_TASK = r_core.mnist_cnn_task()
 P_TASK = card.port_task("cpu")

@@ -6,7 +6,7 @@ import jax
 import numpy as np
 import pytest
 
-from _torch_parity import max_abs_diff, ref_params_np
+from _torch_parity import one_torch_thread, max_abs_diff, ref_params_np  # noqa: F401
 from repro.core import EdgeClient as REdgeClient
 from repro.core import client as r_client
 from repro.data import make_federated_mnist as r_make
@@ -14,6 +14,8 @@ from repro_torch.convert import params_from_numpy
 from repro_torch.core import client as p_client
 from repro_torch.data import make_federated_mnist as p_make
 from repro_torch.utils import tree_unstack
+
+pytestmark = pytest.mark.usefixtures("one_torch_thread")
 
 R_TASK = r_client.mnist_cnn_task()
 P_TASK = p_client.mnist_cnn_task(device="cpu")

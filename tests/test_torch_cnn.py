@@ -8,12 +8,14 @@ import numpy as np
 import pytest
 import torch
 
-from _torch_parity import max_abs_diff, ref_params_np, to_np
+from _torch_parity import one_torch_thread, max_abs_diff, ref_params_np, to_np  # noqa: F401
 from repro.models import cnn as r_cnn
 from repro.utils import tree_stack as r_stack
 from repro_torch.convert import params_from_numpy
 from repro_torch.models import cnn as p_cnn
 from repro_torch.utils import tree_stack as p_stack
+
+pytestmark = pytest.mark.usefixtures("one_torch_thread")
 
 ATOL = 1e-5
 

@@ -11,7 +11,7 @@ import numpy as np
 import pytest
 import torch
 
-from _torch_parity import ref_params_np, to_np, with_params
+from _torch_parity import one_torch_thread, ref_params_np, to_np, with_params  # noqa: F401
 import repro.compress as r_comp
 import repro_torch.chaos as p_chaos
 import repro_torch.compress as p_comp
@@ -19,6 +19,8 @@ import repro_torch.core as p_core
 import repro_torch.data as p_data
 import repro_torch.transport as p_tr
 from repro_torch.utils import tree_stack, tree_unstack
+
+pytestmark = pytest.mark.usefixtures("one_torch_thread")
 
 P_TASK = with_params(p_core.mnist_cnn_task(device="cpu"), ref_params_np(0))
 SHARDS = p_data.make_federated_mnist(6, 64, seed=0)

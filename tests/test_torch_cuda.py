@@ -1067,3 +1067,74 @@ def test_reduced_whisper_on_the_card_matches_the_cpu(device):
     assert results["cuda"][1] == 3 * L + 2 * L and results["cpu"][1] == 0
     got, want = results["cuda"][0], results["cpu"][0]
     assert torch.max(torch.abs(got - want)).item() <= 1e-4 * torch.max(torch.abs(want)).item()
+
+
+# --------------------------------------------------------------------------
+# the two LM kernels on DTensors: ``ops.flash_attention`` / ``ops.swiglu``
+# run each rank's shard through the kernel under ``local_map`` (a 1 x 1
+# nccl mesh here), against autograd through their plain versions
+# --------------------------------------------------------------------------
+
+
+@pytest.fixture
+def card_mesh(device):
+    from repro_torch.launch.mesh import MeshShape, make_device_mesh
+
+    return make_device_mesh(MeshShape(("data", "model"), (1, 1)), device="cuda")
+
+
+def _sharded(fn, specs, mesh):
+    """``fn`` on DTensors laid out by ``specs`` over a mesh of one rank
+    (whose local part is the whole tensor), differentiable in the inputs,
+    returning the whole output."""
+    from torch.distributed.tensor import DTensor
+
+    from repro_torch.sharding.rules import placements_on
+
+    assert mesh.size() == 1
+
+    def run(*ts):
+        return fn(*[DTensor.from_local(t, mesh, placements_on(s, mesh))
+                    for t, s in zip(ts, specs)]).full_tensor()
+
+    return run
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_attention_under_local_map_matches_plain_autograd(card_mesh, dtype):
+    B, S, Hq, Hkv, D = 2, 256, 8, 2, 128
+    g = torch.Generator(device="cuda").manual_seed(3)
+    q, k, v = [torch.randn(s, generator=g, device="cuda").to(dtype)
+               for s in ((B, S, Hq, D), (B, S, Hkv, D), (B, S, Hkv, D))]
+    spec = ("data", None, "model", None)
+    launches, backs = fa.launches, fa.backward_calls
+    gaps = _grad_gaps(_sharded(lambda *t: ops.flash_attention(*t, causal=True), [spec] * 3,
+                               card_mesh), _plain_bshd, [q, k, v], 4)
+    torch.cuda.synchronize()
+    assert (fa.launches, fa.backward_calls) == (launches + 1, backs + 1)
+    assert max(gaps) < GRAD_RTOL[dtype], gaps
+
+
+def _plain_bshd(q, k, v):
+    """``flash_attention_ref`` on [B, S, H, D] tensors (head-major flattening)."""
+    B, S, Hq, D = q.shape
+    Hkv = k.shape[2]
+    flat = lambda t, H: t.transpose(1, 2).reshape(B * H, S, t.shape[-1])  # noqa: E731
+    out = flash_attention_ref(flat(q, Hq), flat(k, Hkv), flat(v, Hkv), causal=True)
+    return out.reshape(B, Hq, S, -1).transpose(1, 2)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_swiglu_under_local_map_matches_plain_autograd(card_mesh, dtype):
+    B, S, d, F = 2, 64, 512, 1536
+    g = torch.Generator(device="cuda").manual_seed(5)
+    x = torch.randn(B, S, d, generator=g, device="cuda").to(dtype)
+    w = [(torch.randn(s, generator=g, device="cuda") * s[0] ** -0.5).to(dtype)
+         for s in ((d, F), (d, F), (F, d))]
+    specs = [("data", "model", None), ("data", "model"), ("data", "model"), ("model", "data")]
+    launches, backs = sw.launches, sw.backward_calls
+    gaps = _grad_gaps(_sharded(ops.swiglu, specs, card_mesh),
+                      lambda x, *w: swiglu_ref(x.reshape(-1, d), *w).reshape(B, S, d), [x, *w], 6)
+    torch.cuda.synchronize()
+    assert (sw.launches, sw.backward_calls) == (launches + 1, backs + 1)
+    assert max(gaps) < GRAD_RTOL[dtype], gaps

@@ -16,6 +16,9 @@ from repro.utils import tree_weighted_mean as r_wmean
 from repro_torch.kernels import fedavg_reduce as p_fr
 from repro_torch.kernels import ops as p_ops
 from repro_torch.kernels import ref as p_ref
+from _torch_parity import one_torch_thread  # noqa: F401
+
+pytestmark = pytest.mark.usefixtures("one_torch_thread")
 
 TOL = {"float32": 1e-5, "bfloat16": 3e-2}
 

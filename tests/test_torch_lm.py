@@ -34,7 +34,9 @@ from repro_torch.models import base as p_base
 from repro_torch.models import lm as p_lm
 from repro_torch.models import mlp as p_mlp
 
-from _torch_parity import max_abs_diff
+from _torch_parity import one_torch_thread, max_abs_diff  # noqa: F401
+
+pytestmark = pytest.mark.usefixtures("one_torch_thread")
 
 F32_TOL = 1e-4
 # bf16 logits: one bf16 rounding of every activation (~2**-9 relative) over

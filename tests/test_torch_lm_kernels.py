@@ -22,6 +22,9 @@ from repro_torch.kernels import flash_attention as p_fa
 from repro_torch.kernels import ops as p_ops
 from repro_torch.kernels import ref as p_ref
 from repro_torch.kernels import swiglu as p_sw
+from _torch_parity import one_torch_thread  # noqa: F401
+
+pytestmark = pytest.mark.usefixtures("one_torch_thread")
 
 FLASH_TOL = {"float32": 2e-5, "bfloat16": 5e-2}
 SWIGLU_TOL = {"float32": 1e-4, "bfloat16": 5e-2}

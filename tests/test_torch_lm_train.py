@@ -44,7 +44,9 @@ from repro_torch.models import base as p_base
 from repro_torch.models.base import Ctx
 from repro_torch.utils import tree_leaves, tree_map, tree_unflatten
 
-from _torch_parity import max_abs_diff, to_np
+from _torch_parity import one_torch_thread, max_abs_diff, to_np  # noqa: F401
+
+pytestmark = pytest.mark.usefixtures("one_torch_thread")
 
 F32_TOL = 1e-4
 LOSS_TOL = 1e-5

@@ -40,8 +40,10 @@ from repro_torch.configs import TrainConfig
 from repro_torch.convert import params_from_numpy
 from repro_torch.launch import Request, Server
 from repro_torch.launch import steps as p_steps
+from repro_torch.launch.mesh import MeshShape, make_device_mesh
 from repro_torch.models import Model
 from repro_torch.models import mlp as p_mlp
+from repro_torch.sharding.rules import full_tree
 
 from _torch_parity import max_abs_diff, one_torch_thread  # noqa: F401
 
@@ -316,12 +318,14 @@ def test_lm_loss_with_aux_matches(impl):
     assert abs(float(rm["accuracy"]) - float(pm["accuracy"])) < LOSS_TOL
 
 
-@pytest.mark.parametrize("impl", IMPLS)
+@pytest.mark.parametrize("impl", IMPLS + ["auto"])
 def test_train_step_matches_reference(impl):
     """Two Adafactor steps of the port's train step and the reference's
     (jit on the host mesh) from the same params. ``impl`` names the
-    dispatch in both: on a mesh the reference's ``auto`` would take its
-    expert-parallel path, which the port does not have (item 16)."""
+    dispatch in both. With ``auto`` the reference's step takes its
+    expert-parallel ``ep_a2a`` path on the host mesh, and so does the
+    port's built step on a 1 x 1 mesh (``models.moe_sharded``); the
+    one-device step takes the named path."""
     rcfg, pcfg = _cfgs(impl=impl)
     kw = dict(optimizer="adafactor", learning_rate=2e-3, total_steps=4, warmup_steps=1)
     B, S = 2, 16
@@ -333,7 +337,15 @@ def test_train_step_matches_reference(impl):
     tcfg = TrainConfig(**kw)
     p_state = {"params": pp, "opt": p_steps.make_optimizer(tcfg).init(pp),
                "step": torch.zeros((), dtype=torch.int32)}
-    step_fn = p_steps.build_train_step(pcfg, tcfg)
+    if impl == "auto":
+        p_mesh = make_device_mesh(MeshShape(("data", "model"), (1, 1)), device="cpu")
+        p_built = p_steps.build_train_step(pcfg, tcfg, ShapeSpec("t", "train", S, B), p_mesh)
+
+        def step_fn(state, batch):
+            state, metrics = p_steps.run_built(p_built, p_mesh, state, batch)
+            return full_tree(state), full_tree(metrics)
+    else:
+        step_fn = p_steps.build_train_step(pcfg, tcfg)
     with mesh_context(mesh):
         r_fn = jax.jit(built.fn, in_shardings=built.in_shardings, out_shardings=built.out_shardings)
         for i in range(2):

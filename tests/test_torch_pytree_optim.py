@@ -7,13 +7,15 @@ import numpy as np
 import pytest
 import torch
 
-from _torch_parity import max_abs_diff
+from _torch_parity import one_torch_thread, max_abs_diff  # noqa: F401
 from repro import optim as ref_optim
 from repro import utils as ref_utils
 from repro.models.cnn import cnn_init as ref_cnn_init
 from repro_torch import optim as pt_optim
 from repro_torch import utils as pt_utils
 from repro_torch.convert import params_from_numpy, params_to_numpy
+
+pytestmark = pytest.mark.usefixtures("one_torch_thread")
 
 
 def _tree(seed, scale=1.0, lead=()):

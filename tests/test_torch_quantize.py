@@ -17,6 +17,9 @@ from repro.kernels import ref as r_ref
 from repro_torch.kernels import ops as p_ops
 from repro_torch.kernels import quantize as p_q
 from repro_torch.kernels import ref as p_ref
+from _torch_parity import one_torch_thread  # noqa: F401
+
+pytestmark = pytest.mark.usefixtures("one_torch_thread")
 
 
 def _rows(R, N, seed=0, spread=2.5):

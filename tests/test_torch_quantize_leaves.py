@@ -17,6 +17,9 @@ from repro.kernels import ref as r_ref
 import repro_torch.compress as p_comp
 from repro_torch.kernels import ops as p_ops
 from repro_torch.kernels import quantize as p_q
+from _torch_parity import one_torch_thread  # noqa: F401
+
+pytestmark = pytest.mark.usefixtures("one_torch_thread")
 
 # the MNIST CNN's leaf sizes in tree_leaves order (conv1.b .. fc2.w)
 CNN_LEAVES = [16, 144, 32, 4608, 128, 200704, 10, 1280]

@@ -16,6 +16,9 @@ from repro.models import Model as RModel
 from repro_torch.convert import params_from_numpy
 from repro_torch.launch import Request, Server
 from repro_torch.models import Model
+from _torch_parity import one_torch_thread  # noqa: F401
+
+pytestmark = pytest.mark.usefixtures("one_torch_thread")
 
 
 def _f32_servers(batch, max_len):

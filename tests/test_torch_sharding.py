@@ -23,6 +23,9 @@ from repro_torch import sharding as p_sharding
 from repro_torch.launch import mesh as p_mesh
 from repro_torch.models import Model
 from repro_torch.utils import tree_leaves
+from _torch_parity import one_torch_thread  # noqa: F401
+
+pytestmark = pytest.mark.usefixtures("one_torch_thread")
 
 
 class FakeMesh:

@@ -13,7 +13,7 @@ import torch
 from hypothesis import given, settings, strategies as st
 
 from _card_reference import assert_histories_match
-from _torch_parity import ref_params_np, with_params
+from _torch_parity import one_torch_thread, ref_params_np, with_params  # noqa: F401
 import repro.chaos as r_chaos
 import repro.compress as r_comp
 import repro.core as r_core
@@ -27,6 +27,8 @@ import repro_torch.transport as p_tr
 from repro_torch.convert import state_plane_from_numpy
 from repro_torch.core import StatePlane
 from repro_torch.utils import tree_leaves
+
+pytestmark = pytest.mark.usefixtures("one_torch_thread")
 
 R_TASK = r_core.mnist_cnn_task()
 P_TASK = with_params(p_core.mnist_cnn_task(device="cpu"), ref_params_np(0))

@@ -45,8 +45,9 @@ from repro_torch.configs import TrainConfig, get_reduced
 from repro_torch.convert import params_from_numpy
 from repro_torch.launch import steps as p_steps
 from repro_torch.launch import train as p_train
+from repro_torch.launch.mesh import MeshShape, make_device_mesh
 from repro_torch.models import Model
-from repro_torch.utils import tree_leaves
+from repro_torch.utils import tree_leaves, tree_map
 
 from _card_reference import assert_records_match, history_record
 from _torch_parity import one_torch_thread, to_np, with_params  # noqa: F401
@@ -161,15 +162,52 @@ def test_trainer_local_sgd_mode():
     assert len(out["losses"]) == 12
 
 
-@pytest.mark.parametrize("build", [
-    lambda: p_train.train("qwen3-8b", steps=1, mesh_kind="prod", device="cpu"),
-    lambda: p_steps.build_outer_sync(None, None, None),
-    lambda: p_steps.build_step(None, None, None, None),
-    lambda: p_steps.build_train_step(get_reduced("qwen3-8b"), TrainConfig(), mode="local_sgd"),
-], ids=["prod_mesh", "outer_sync", "build_step", "local_sgd_step"])
+def _prod_mesh_raises():
+    with pytest.raises(ValueError, match="256 ranks"):
+        p_train.train("qwen3-8b", steps=1, mesh_kind="prod", device="cpu")
+    with pytest.raises(ValueError, match="512 ranks"):
+        p_train.train("qwen3-8b", steps=1, inner_steps=2, mesh_kind="prod", device="cpu")
+
+
+def _outer_sync_needs_pods():
+    mesh = make_device_mesh(MeshShape(("data", "model"), (1, 1)), device="cpu")
+    with pytest.raises(ValueError, match="multi-pod"):
+        p_steps.build_outer_sync(get_reduced("qwen3-8b"), TrainConfig(), mesh)
+
+
+def _build_step_dispatches():
+    mesh = make_device_mesh(MeshShape(("data", "model"), (1, 1)), device="cpu")
+    cfg = get_reduced("qwen3-8b")
+    names = [p_steps.build_step(cfg, TrainConfig(), ShapeSpec("s", kind, 16, 2), mesh).name
+             for kind in ("train", "prefill", "decode")]
+    assert names == [f"train:{cfg.name}:s:sync", f"prefill:{cfg.name}:s", f"decode:{cfg.name}:s"]
+
+
+def _local_sgd_without_a_mesh_is_sync():
+    _, pcfg = _cfgs()
+    tcfg = TrainConfig(optimizer="adafactor", total_steps=4, warmup_steps=1)
+    params = Model(pcfg).init(torch.Generator().manual_seed(0))
+    batch = {k: torch.as_tensor(v) for k, v in token_batch_for(pcfg, batch=2, seq=16).items()}
+    out = []
+    for mode in ("local_sgd", "sync"):
+        p = tree_map(torch.clone, params)
+        state = {"params": p, "opt": p_steps.make_optimizer(tcfg).init(p),
+                 "step": torch.zeros((), dtype=torch.int32)}
+        out.append(p_steps.build_train_step(pcfg, tcfg, mode=mode)(state, batch))
+    assert _abs_gap(out[0][0]["params"], out[1][0]["params"]) == 0.0
+    assert float(out[0][1]["loss"]) == float(out[1][1]["loss"])
+
+
+@pytest.mark.parametrize("build", [_prod_mesh_raises, _outer_sync_needs_pods, _build_step_dispatches,
+                                   _local_sgd_without_a_mesh_is_sync],
+                         ids=["prod_mesh", "outer_sync", "build_step", "local_sgd_step"])
 def test_item_16_parts_raise(build):
-    with pytest.raises(NotImplementedError, match=r"ROADMAP Queue 1, item 16\)"):
-        build()
+    """Item 16's sharded steps, once raise cases: the production mesh asks
+    for its 256 / 512 ranks, the outer sync for a "pod" axis, ``build_step``
+    dispatches on the shape kind, and ``mode="local_sgd"`` without a mesh
+    (no pods) is the sync step, bit for bit, as the reference's mode is on
+    a mesh without pods."""
+    build()
 
 
 def _lm_server(core, data, tr, chaos, task, batched):

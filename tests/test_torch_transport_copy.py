@@ -4,7 +4,7 @@
 import numpy as np
 import pytest
 
-from _torch_parity import assert_same
+from _torch_parity import one_torch_thread, assert_same  # noqa: F401
 import repro.chaos as r_chaos
 import repro.data as r_data
 import repro.transport as r_tr
@@ -15,6 +15,8 @@ import repro_torch.data as p_data
 import repro_torch.transport as p_tr
 import repro_torch.transport.des as p_des
 import repro_torch.transport.model as p_model
+
+pytestmark = pytest.mark.usefixtures("one_torch_thread")
 
 # (tcp name, profile, link fields) — the cliff, the tuned stack, lossy
 # and jittery links, and the zero-RTT profile

@@ -16,6 +16,9 @@ import repro_torch.transport as p_tr
 import repro_torch.transport.des as p_des
 import repro_torch.tuning as p_tuning
 import repro_torch.tuning.grid as p_grid
+from _torch_parity import one_torch_thread  # noqa: F401
+
+pytestmark = pytest.mark.usefixtures("one_torch_thread")
 
 
 def _rows(results):
