@@ -9,7 +9,7 @@ Run from the repository root. Phases, each printing one JSON line:
              defaults: the port's CNN task turns TF32 off in its own scope);
 2. build     every ``src/repro_torch/kernels/csrc/*.cu``, one nvcc each, in
              parallel, into ``build/repro_torch/``; registers, shared memory
-             and spill bytes of the bf16 flash_attention (each of its 15
+             and spill bytes of the bf16 flash_attention (each of its 17
              (D, Dv) instances) and swiglu kernels, which must not spill;
 3. kernel    fedavg_reduce against its plain PyTorch version on the card, at
              the reference test shapes and as the main path calls it (one
@@ -303,7 +303,31 @@ Run from the repository root. Phases, each printing one JSON line:
              (3e-2 of max |logit|); Mixtral, 2 layers, through ``ep_a2a``
              at drop-free capacity; local-SGD then the int8 outer sync
              bit for bit against plain torch; then ``lm_phases``, the
-             seconds of phases 23-40 against their budget.
+             seconds of phases 23-40 against their budget;
+41. flash_small_heads
+             the flash kernel at (D, Dv) = (16, 16) and (24, 16), f32 and
+             bf16, against the plain version (timed at B = 4 x S = 64 beside
+             the bound and SDPA); then reduced Phi-3-medium, StarCoder2,
+             Phi-3-vision, Whisper (heads of 16) and DeepSeek-V2 (MLA
+             prefill at 24 / 16) served (a prefill, two decode steps) and
+             trained (a loss and gradient) on the card: f32 against the same
+             weights on the CPU, bf16 against the plain flash version on the
+             card (the kernel zeroed must fail);
+42. dryrun    item 16.2: ``python -m repro_torch.launch.dryrun`` for Qwen3-8B
+             x train_4k on the 16 x 16 mesh, and on 2 x 16 x 16 with the int8
+             outer sync, each a process of its own started after the build
+             (they trace while the card works): every record ``ok``, one
+             rank's FLOPs, bytes, collective bytes by kind, peak live bytes
+             and ``fits_hbm``, the roofline terms on ``H100_SXM``, printed
+             as model estimates;
+43. examples  ``repro_torch.examples``: quickstart (2 x 8 rounds), edge_africa
+             (7 profiles x 2 x 5 rounds), tcp_tuning and train_100m (200
+             steps, its loss falling by more than 0.5) on the card (the FL
+             drivers keep the reference's sequential engine, whose mean is
+             plain torch), flash_attention and swiglu in every train step;
+             then ``port_completion_phases``,
+             the seconds of phases 41-43 against their 240 s budget
+             (checked).
 
 Then the kernels line, the card's name and power limit as nvidia-smi gives
 them, and the final ``{"ok": true, ...}`` line. A failed phase raises: the
@@ -1913,9 +1937,9 @@ def swiglu_work(M, d, F, itemsize) -> tuple:
 # ring + mma.sync, and its cast launch), held to zero spills at build time
 NEW_KERNELS = ("flash_kernel_wgmma", "swiglu_kernel_mma", "swiglu_cast_kernel")
 # every (D, Dv) flash_attention takes (csrc/flash_attention.cu's FLASH_PAIRS)
-FLASH_HEAD_PAIRS = ((32, 32), (64, 32), (64, 64), (96, 32), (96, 64), (96, 96), (112, 112),
-                    (128, 32), (128, 64), (128, 96), (128, 128), (192, 32), (192, 64), (192, 96),
-                    (192, 128))
+FLASH_HEAD_PAIRS = ((16, 16), (24, 16), (32, 32), (64, 32), (64, 64), (96, 32), (96, 64),
+                    (96, 96), (112, 112), (128, 32), (128, 64), (128, 96), (128, 128), (192, 32),
+                    (192, 64), (192, 96), (192, 128))
 # MLA's prefill heads (DeepSeek-V2: 128 heads, q/k 128 + 64 rope, v 128) and
 # Phi-3-vision's (32 heads of 96; 256 patches before a 16-token prompt) and
 # Zamba2's shared attention (32 heads of 3584 / 32 = 112)
@@ -4270,8 +4294,341 @@ def phase_sharded_steps(torch):
     return out
 
 
+# --------------------------------------------------------------------------
+# the port's last slice: the flash kernel's heads of 16 and 24 / 16, the
+# dry-run and the example drivers
+# --------------------------------------------------------------------------
+
+# the reduced configs whose attention heads are narrower than 32: heads of
+# 16, and reduced DeepSeek-V2's MLA prefill at q / k 24 (16 + 8 rope), v 16
+SMALL_HEAD_ARCHS = ("phi3-medium-14b", "starcoder2-3b", "phi-3-vision-4.2b", "whisper-base",
+                    "deepseek-v2-236b")
+# (B, Sq, Skv, Hq, Hkv, D, Dv): the reduced models' prefill heads at a
+# 64-token prompt, batch 4 (Phi-3-medium's 5 heads of 16, DeepSeek-V2's 4
+# MLA heads), timed; then past one query tile with GQA (StarCoder2's 6 / 2)
+# and a window, and packed (G * Sq <= 64)
+SMALL_HEAD_TIMED = (((4, 64, 64, 5, 5, 16, 16), "small_d16"),
+                    ((4, 64, 64, 4, 4, 24, 16), "small_d24"))
+SMALL_HEAD_CHECKED = (((1, 300, 300, 6, 2, 16, 16), 0), ((1, 300, 300, 4, 4, 24, 16), 0),
+                      ((2, 200, 200, 6, 2, 16, 16), 64), ((2, 200, 200, 4, 4, 24, 16), 64),
+                      ((2, 9, 9, 6, 2, 16, 16), 0), ((2, 13, 13, 4, 1, 24, 16), 0))
+SMALL_HEAD_SEQ, SMALL_HEAD_DECODE = 16, 2
+# f32: the card (the kernel) against the CPU (the plain version), relative
+# to the CPU's max |value|, as the f32 parity tests (1e-4); bf16: the
+# kernel against the plain version on the card (every other op the same),
+# logits as the serving checks (3e-2 of max |logit|), loss and gradient norm
+# TRAIN_RTOL's; the bf16 card-against-CPU gaps are read, not checked (cuBLAS
+# and the CPU round every other bf16 product their own way)
+SMALL_HEAD_RTOL = {"float32": 1e-4, "bfloat16": 3e-2}
+
+
+def _small_head_run(torch, model, params, batch, device, flash=None):
+    """(prefill + decode logits stacked, loss, gradient global norm, flash
+    launches, flash backward passes) of one reduced model on ``device``;
+    ``flash`` in place of the flash op when given."""
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import ops
+    from repro_torch.utils import tree_leaves, tree_map
+
+    params = tree_map(lambda t: t.to(device), params)
+    batch = {k: torch.as_tensor(v, device=device) for k, v in batch.items()}
+    counts = (fa.launches, fa.backward_calls)
+    toks = batch["tokens"]
+    S = toks.shape[1] - SMALL_HEAD_DECODE
+    prompt = {k: v for k, v in batch.items() if k not in ("targets", "loss_mask")}
+    saved = ops.flash_attention_grad
+    ops.flash_attention_grad = flash or saved
+    try:
+        with torch.no_grad():
+            logits, cache = model.prefill(params, dict(prompt, tokens=toks[:, :S]), S + 8)
+            out = [logits]
+            for j in range(S, S + SMALL_HEAD_DECODE):
+                logits, cache = model.decode_step(params, cache, toks[:, j:j + 1])
+                out.append(logits)
+        ps = tree_map(lambda p: p.detach().requires_grad_(True), params)
+        loss, _ = model.loss(ps, batch)
+        grads = torch.autograd.grad(loss, tree_leaves(ps))
+    finally:
+        ops.flash_attention_grad = saved
+    gnorm = torch.sqrt(sum(torch.sum(torch.square(g.float())) for g in grads))
+    torch.cuda.synchronize()
+    return (torch.stack(out).float().cpu(), float(loss.detach()), float(gnorm),
+            fa.launches - counts[0], fa.backward_calls - counts[1])
+
+
+def phase_flash_small_heads(torch):
+    """The flash kernel at (D, Dv) = (16, 16) and (24, 16), f32 and bf16,
+    against the plain version (timed at the reduced prefill shapes beside
+    their bound and SDPA); then each of the five reduced configs with such
+    heads served (a prefill and two decode steps) and trained (one loss and
+    gradient) on the card through the kernel: in f32 against the same
+    weights on the CPU through the plain versions, in bf16 against the
+    plain flash version on the card (``SMALL_HEAD_RTOL``), the kernel's
+    output zeroed failing that check."""
+    import torch.nn.functional as F
+
+    from repro_torch.configs import get_reduced
+    from repro_torch.data.tokens import token_batch_for
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels.ref import flash_attention_ref
+    from repro_torch.models import Model
+
+    t0 = time.perf_counter()
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(16)
+    f32, bf16 = torch.float32, torch.bfloat16
+    tol = {f32: 2e-5, bf16: 5e-2}
+    out = {"max_abs_err": 0.0, "timed": {}}
+    cases = [(s, g, 0) for s, g in SMALL_HEAD_TIMED] + [(s, "checked", w) for s, w in SMALL_HEAD_CHECKED]
+    for (shape, group, window), dt in [(c, dt) for c in cases for dt in (f32, bf16)]:
+        B, Sq, Skv, Hq, Hkv, D, Dv = shape
+        q = torch.randn(B * Hq, Sq, D, generator=gen, device=dev).to(dt)
+        k = torch.randn(B * Hkv, Skv, D, generator=gen, device=dev).to(dt)
+        v = torch.randn(B * Hkv, Skv, Dv, generator=gen, device=dev).to(dt)
+        kernel = lambda: fa.flash_attention_bhsd(q, k, v, causal=True, window=window)
+        plain = lambda: flash_attention_ref(q, k, v, causal=True, window=window)
+        before = fa.launches
+        got, want = kernel(), plain()
+        torch.cuda.synchronize()
+        check(fa.launches == before + 1, f"flash_small_heads {shape}: the kernel did not launch")
+        err = float(torch.max(torch.abs(got.float() - want.float())))
+        check(got.dtype == dt and got.shape == (B * Hq, Sq, Dv), f"flash {shape} output")
+        check(err < tol[dt], f"flash_attention {shape} {dt} w={window}: max err {err} >= {tol[dt]}")
+        out["max_abs_err"] = max(out["max_abs_err"], err)
+        row = {"shape": list(shape), "dtype": str(dt).split(".")[1], "window": window,
+               "group": group, "max_abs_err": err}
+        if group != "checked":
+            library = lambda: F.scaled_dot_product_attention(
+                q.view(B, Hq, Sq, D), k.view(B, Hkv, Skv, D), v.view(B, Hkv, Skv, Dv),
+                is_causal=True, enable_gqa=True)
+            row.update(_timings(torch, kernel, plain, library,
+                                flash_work(B, Sq, Skv, Hq, Hkv, D, q.element_size(), Dv=Dv), dt))
+            out["timed"][group if dt == bf16 else f"{group}_f32"] = row
+        emit("flash_small_heads", **row)
+
+    def gaps(got, want):
+        return (float(torch.max(torch.abs(got[0] - want[0]))
+                      / torch.max(torch.abs(want[0])).clamp_min(1e-30)),
+                abs(got[1] - want[1]) / max(abs(want[1]), 1e-30),
+                abs(got[2] - want[2]) / max(abs(want[2]), 1e-30))
+
+    def within(g, dtype):
+        tol = ((SMALL_HEAD_RTOL[dtype], TRAIN_RTOL["loss"], TRAIN_RTOL["grad_norm"])
+               if dtype == "bfloat16" else (SMALL_HEAD_RTOL[dtype],) * 3)
+        return all(a <= b for a, b in zip(g, tol)), list(tol)
+
+    plain_flash = lambda q, k, v, **kw: flash_attention_ref(q, k, v, **kw)
+    served = {}
+    for arch in SMALL_HEAD_ARCHS:
+        for dtype in ("float32", "bfloat16"):
+            cfg = get_reduced(arch).replace(dtype=dtype, param_dtype=dtype)
+            model = Model(cfg)
+            params = model.init(torch.Generator().manual_seed(0))
+            batch = token_batch_for(cfg, batch=2, seq=SMALL_HEAD_SEQ + SMALL_HEAD_DECODE, seed=3)
+            card = _small_head_run(torch, model, params, batch, dev)
+            cpu = _small_head_run(torch, model, params, batch, torch.device("cpu"))
+            check(card[3] > 0 and card[4] > 0 and cpu[3] == 0,
+                  f"flash_small_heads {arch} {dtype}: launches {card[3]}, backward {card[4]}")
+            row = {"arch": arch, "dtype": dtype, "head_dims": sorted(_flash_pairs(cfg)),
+                   "flash_launches": card[3], "flash_backward_calls": card[4],
+                   "cpu_flash_launches": cpu[3],
+                   "card_vs_cpu_gaps": dict(zip(("logits", "loss", "grad_norm"), gaps(card, cpu)))}
+            if dtype == "float32":
+                ok, tol = within(gaps(card, cpu), dtype)
+            else:
+                plain = _small_head_run(torch, model, params, batch, dev, flash=plain_flash)
+                ok, tol = within(gaps(card, plain), dtype)
+                row["kernel_vs_plain_gaps"] = dict(zip(("logits", "loss", "grad_norm"),
+                                                       gaps(card, plain)))
+                flash = fa.flash_attention_grad
+                zeroed = _small_head_run(torch, model, params, batch, dev,
+                                         flash=lambda q, k, v, **kw: flash(q, k, v, **kw) * 0)
+                row["zeroed_kernel_vs_plain_gaps"] = dict(zip(("logits", "loss", "grad_norm"),
+                                                              gaps(zeroed, plain)))
+                check(not within(gaps(zeroed, plain), dtype)[0],
+                      f"flash_small_heads {arch}: the kernel zeroed passes {row}")
+            row["rtol"] = dict(zip(("logits", "loss", "grad_norm"), tol))
+            emit("flash_small_heads", **row)
+            check(ok, f"flash_small_heads {arch} {dtype}: {row}")
+            served[f"{arch}/{dtype}"] = row
+    out["served"] = served
+    out["seconds"] = time.perf_counter() - t0
+    emit("flash_small_heads", seconds=out["seconds"], max_abs_err=out["max_abs_err"])
+    return out
+
+
+def _flash_pairs(cfg) -> set:
+    """The (D, Dv) pairs ``ops.flash_attention`` reaches in ``cfg``'s loss,
+    read from a forward on meta tensors."""
+    import torch
+
+    from repro_torch.configs.base import ShapeSpec
+    from repro_torch.kernels import ops
+    from repro_torch.models import Model
+
+    seen, orig = set(), ops.flash_attention
+
+    def record(q, k, v, **kw):
+        seen.add((int(q.shape[-1]), int(v.shape[-1])))
+        return orig(q, k, v, **kw)
+
+    ops.flash_attention = record
+    try:
+        model = Model(cfg)
+        with torch.no_grad():
+            model.loss(model.abstract_params(), model.input_specs(ShapeSpec("pairs", "train", 512, 2)))
+    finally:
+        ops.flash_attention = orig
+    return seen
+
+
+# item 16.2's dry-run: the two commands (16 x 16, then 2 x 16 x 16 with the
+# int8 outer sync), each a process of its own (the fake world of 256 or
+# 512 ranks is the process's default group), started before the first
+# phase so that they trace while the card works; their records are read at
+# the end
+DRYRUN_ARGS = (("16x16", ["--arch", "qwen3-8b", "--shape", "train_4k"]),
+               ("2x16x16", ["--arch", "qwen3-8b", "--shape", "train_4k", "--multi-pod",
+                            "--outer-sync", "--compression", "int8"]))
+DRYRUN_TIMEOUT_S = 900
+# flash_small_heads, dryrun (the wait for its processes) and examples together
+PORT_COMPLETION_BUDGET_S = 240.0
+
+
+def start_dryrun(tmp: str) -> list:
+    """The dry-run commands as background processes; each writes its
+    records to ``<tmp>/<mesh>.json`` and its output to ``<tmp>/<mesh>.log``."""
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"), OMP_NUM_THREADS="1")
+    procs = []
+    for mesh, args in DRYRUN_ARGS:
+        out, log = os.path.join(tmp, f"{mesh}.json"), os.path.join(tmp, f"{mesh}.log")
+        with open(log, "w") as f:
+            proc = subprocess.Popen([sys.executable, "-m", "repro_torch.launch.dryrun", *args,
+                                     "--out", out], stdout=f, stderr=subprocess.STDOUT, env=env,
+                                    cwd=str(ROOT))
+        procs.append((mesh, proc, out, log, time.time()))
+    return procs
+
+
+def phase_dryrun(procs) -> dict:
+    """Waits for the dry-run processes and checks their records: every one
+    ``ok``, the train cells with per-rank FLOPs, bytes and collective bytes
+    by kind, ``fits_hbm`` against 80 GB, roofline terms on ``H100_SXM``;
+    the outer sync's int8 payload. Prints each record's terms (model
+    estimates from a trace, not measurements)."""
+    t0 = time.perf_counter()
+    out = {"records": {}}
+    try:
+        for mesh, proc, path, log, started in procs:
+            try:
+                rc = proc.wait(timeout=max(DRYRUN_TIMEOUT_S - (time.time() - started), 1))
+            except subprocess.TimeoutExpired:
+                proc.kill()
+                proc.wait()
+                raise PhaseFailed(f"dryrun {mesh}: no result in {DRYRUN_TIMEOUT_S} s")
+            text = Path(log).read_text()
+            check(rc == 0 and os.path.exists(path),
+                  f"dryrun {mesh}: exit {rc}\n{text[-4000:]}")
+            records = json.loads(Path(path).read_text())
+            # the process's own seconds: its last record is written as it ends
+            wall = os.path.getmtime(path) - started
+            check(records and all(r.get("status") == "ok" for r in records),
+                  f"dryrun {mesh}: {[(r.get('step', r.get('shape')), r.get('status'), r.get('error')) for r in records]}")
+            for r in records:
+                if "roofline" in r:
+                    t = r["trace"]
+                    check(t["flops_per_chip"] > 0 and t["bytes_per_chip"] > 0
+                          and t["collective_bytes"] and isinstance(r["fits_hbm"], bool),
+                          f"dryrun {mesh}: record {r}")
+                    row = {"mesh": r["mesh"], "cell": f"{r['arch']} x {r['shape']}",
+                           "microbatches": r["microbatches"], "trace_s": r["trace_s"],
+                           "n_ops": t["n_ops"], "fits_hbm": r["fits_hbm"],
+                           "peak_memory_in_bytes": r["memory"]["peak_memory_in_bytes"],
+                           "argument_size_in_bytes": r["memory"]["argument_size_in_bytes"],
+                           "roofline": {k: r["roofline"][k] for k in (
+                               "flops_per_chip", "bytes_per_chip", "collective_bytes_per_chip",
+                               "compute_s", "memory_s", "collective_s", "dominant", "link",
+                               "model_flops", "useful_ratio", "step_s", "roofline_fraction",
+                               "collective_breakdown")}}
+                else:  # the outer sync
+                    check(r["collective_bytes"].get("all-gather", 0) > 0,
+                          f"dryrun {mesh}: outer sync moved nothing {r}")
+                    row = {"mesh": r["mesh"], "cell": f"{r['arch']} {r['step']}",
+                           "trace_s": r["trace_s"], "collective_bytes": r["collective_bytes"],
+                           "fits_hbm": r["fits_hbm"],
+                           "peak_memory_in_bytes": r["memory"]["peak_memory_in_bytes"]}
+                emit("dryrun", estimate="model estimate from a trace, not a measurement",
+                     process_wall_s=wall, **row)
+                out["records"][row["cell"] + " " + row["mesh"]] = row
+    finally:
+        for _, proc, *_ in procs:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+    out["seconds"] = time.perf_counter() - t0  # the wait, not the processes' time
+    emit("dryrun", seconds=out["seconds"], records=len(out["records"]))
+    return out
+
+
+def phase_examples(torch) -> dict:
+    """The four example drivers at their reference sizes on the card:
+    quickstart (2 x 8 rounds), edge_africa (7 profiles x 2 TCP settings x 5
+    rounds), tcp_tuning (numpy) and train_100m (200 steps, batch 8 x 128,
+    its own check that the loss falls by more than 0.5); launches counted
+    from 0 over the drivers. The FL drivers keep the reference's
+    ``ServerConfig`` and so its sequential engine, whose aggregation is the
+    plain list mean in both packages (no kernel: fedavg_reduce serves the
+    batched engine, phase 5); flash_attention and swiglu launch in every
+    train_100m step."""
+    from repro_torch.examples import edge_africa, quickstart, tcp_tuning, train_100m
+
+    out, t_all = {}, time.perf_counter()
+    reset_launches()
+    t = time.perf_counter()
+    d, tuned = quickstart.main([])
+    quick_rounds = d["completed_rounds"] + tuned["completed_rounds"]
+    out["quickstart"] = {"seconds": time.perf_counter() - t, "default": d, "tuned": tuned}
+    check(d["completed_rounds"] == tuned["completed_rounds"] == 8
+          and d["final_accuracy"] > 0.5, f"examples quickstart: {d} {tuned}")
+    t = time.perf_counter()
+    rows = edge_africa.main([])
+    fl_rounds = quick_rounds + sum(r[1]["completed_rounds"] + r[2]["completed_rounds"]
+                                   for r in rows.values())
+    out["edge_africa"] = {"seconds": time.perf_counter() - t,
+                          "rows": {k: {"region": r[0], "default_time_s": r[1]["total_time_s"],
+                                       "tuned_time_s": r[2]["total_time_s"],
+                                       "tuned_accuracy": r[2]["final_accuracy"],
+                                       "default_rounds": r[1]["completed_rounds"],
+                                       "tuned_rounds": r[2]["completed_rounds"]}
+                                   for k, r in rows.items()}}
+    check(len(rows) == 7 and rows["europe"][2]["completed_rounds"] == 5,
+          f"examples edge_africa: {out['edge_africa']['rows']}")
+    out["fl_launches"] = read_launches()
+    t = time.perf_counter()
+    tcp_tuning.main()
+    out["tcp_tuning"] = {"seconds": time.perf_counter() - t}
+    before = read_launches()
+    t = time.perf_counter()
+    steps = 200
+    res = train_100m.main(["--steps", str(steps)])
+    lm = {k: read_launches()[k] - before[k] for k in ("flash_attention", "swiglu",
+                                                       "flash_attention_backward",
+                                                       "swiglu_backward")}
+    out["train_100m"] = {"seconds": time.perf_counter() - t, "first_loss": res["losses"][0],
+                         "final_loss": res["final_loss"], "steps": steps,
+                         "launches_per_step": {k: v / steps for k, v in lm.items()}}
+    check(all(lm[k] > 0 and lm[k] % steps == 0 for k in lm), f"examples train_100m: {lm}")
+    out["launches"] = read_launches()
+    out["fl_rounds"] = fl_rounds
+    out["seconds"] = time.perf_counter() - t_all
+    emit("examples", **{k: v for k, v in out.items() if k != "edge_africa"},
+         edge_africa_seconds=out["edge_africa"]["seconds"],
+         edge_africa=out["edge_africa"]["rows"])
+    return out
+
+
 def lm_rows(lm, served, grad, qwen, moe_launches, head_launches, hybrid_launches,
-            encdec_launches, sharded):
+            encdec_launches, sharded, small, examples):
     """The kernels-line rows of flash_attention (at the serving prefill
     shape, with the S = 4096 prefill beside it) and swiglu (at decode,
     M = 4, with the M = 64 prefill beside it), launches from the serve run;
@@ -4290,7 +4647,10 @@ def lm_rows(lm, served, grad, qwen, moe_launches, head_launches, hybrid_launches
     1,536 keys; the encoder's backward at B = 2), with its launches and the
     per-call copy of a layer's cross k / v in the Whisper phases; and both
     kernels' launches under ``local_map`` in the sharded steps (a step,
-    a prefill, a decode step of 8-layer Qwen3-8B on a 1 x 1 mesh)."""
+    a prefill, a decode step of 8-layer Qwen3-8B on a 1 x 1 mesh); flash
+    at (D, Dv) = (16, 16) and (24, 16) (the reduced configs' prefill heads,
+    B = 4 x S = 64, f32 and bf16); both kernels' launches in train_100m's
+    200 steps (``examples``)."""
     launches, n_pre, n_dec = served["launches"], served["prefills"], served["decode_steps"]
     per_pre, per_dec = served["per_prefill"], served["per_decode"]
 
@@ -4320,6 +4680,13 @@ def lm_rows(lm, served, grad, qwen, moe_launches, head_launches, hybrid_launches
                 f"{prefix}wall_ms": row["wall_us"] / 1e3, f"{prefix}shape": row["shape"]}
 
     fa, sw = lm["flash_attention"], lm["swiglu"]
+
+    def example_launches(name):
+        return {"examples_train_100m_launches": examples["launches"][name],
+                "examples_train_100m_launches_per_step":
+                    examples["train_100m"]["launches_per_step"][name],
+                "examples_train_100m_backward_calls_per_step":
+                    examples["train_100m"]["launches_per_step"][f"{name}_backward"]}
 
     def sharded_launches(name):
         q = sharded["qwen_train"]["steps"][-1]["launches"]
@@ -4355,6 +4722,10 @@ def lm_rows(lm, served, grad, qwen, moe_launches, head_launches, hybrid_launches
             for k, v in ms(dict(row[part], shape=row["shape"]), f"{g}_{part}_").items()},
          **moe_launches, **head_launches, **hybrid_launches["flash_attention"],
          **encdec_launches, **sharded_launches("flash_attention"),
+         **{k: v for g in ("small_d16", "small_d24") for k, v in ms(small["timed"][g], f"{g}_").items()},
+         **{f"{g}_f32_ms": small["timed"][f"{g}_f32"]["us"] / 1e3 for g in ("small_d16", "small_d24")},
+         "small_heads_max_abs_err": small["max_abs_err"],
+         **example_launches("flash_attention"),
          "library_note": "F.scaled_dot_product_attention(is_causal=True, enable_gqa=True); "
                          "window_prefill_library_ms: with a boolean window mask; "
                          "whisper_*_library_ms: with no mask (is_causal=False); "
@@ -4376,7 +4747,8 @@ def lm_rows(lm, served, grad, qwen, moe_launches, head_launches, hybrid_launches
          "prefill_reduction_share": sw["reduction"][64]["reduction_share"],
          "library_note": SWIGLU_NO_LIBRARY + " (composite_ms: silu(x@Wg)*(x@Wu)@Wd in cuBLAS bf16;"
                          " train_backward_composite_ms: its autograd backward)",
-         **hybrid_launches["swiglu"], **train("swiglu"), **sharded_launches("swiglu")},
+         **hybrid_launches["swiglu"], **train("swiglu"), **sharded_launches("swiglu"),
+         **example_launches("swiglu")},
     ]
 
 
@@ -4406,10 +4778,7 @@ def main() -> int:
          tf32={"matmul": torch.backends.cuda.matmul.allow_tf32,
                "cudnn": torch.backends.cudnn.allow_tf32})
 
-    from repro_torch.compress import get_compressor
     from repro_torch.kernels.build import build_all
-    from repro_torch.models.cnn import cnn_init
-    from repro_torch.utils import tree_leaves
 
     t0 = time.perf_counter()
     reports = build_all()
@@ -4424,6 +4793,28 @@ def main() -> int:
          ptxas={k: [ln.strip() for ln in v.splitlines() if "Used" in ln]
                 for k, v in reports.items()},
          redesigned=redesigned, dynamic_smem_bytes=redesigned_smem())
+
+    import shutil
+    import tempfile
+
+    dry_tmp = tempfile.mkdtemp(prefix="chip_smoke_dryrun_")
+    dry_procs = start_dryrun(dry_tmp)
+    try:
+        return run_phases(torch, smi, dry_procs)
+    finally:
+        for _, proc, *_ in dry_procs:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+        shutil.rmtree(dry_tmp, ignore_errors=True)
+
+
+def run_phases(torch, smi, dry_procs) -> int:
+    """Every phase after the build, then the kernels line, the card's line
+    and the result."""
+    from repro_torch.compress import get_compressor
+    from repro_torch.models.cnn import cnn_init
+    from repro_torch.utils import tree_leaves
 
     leaf_sizes = [l.numel() for l in tree_leaves(cnn_init(torch.Generator()))]
     max_err, main_kernel = phase_kernel(torch, leaf_sizes)
@@ -4562,6 +4953,17 @@ def main() -> int:
     lm_s["sharded_steps"] = time.perf_counter() - t
     emit("lm_phases", seconds=sum(lm_s.values()), budget_s=LM_BUDGET_S,
          within_budget=sum(lm_s.values()) <= LM_BUDGET_S, by_phase=lm_s)
+    small = phase_flash_small_heads(torch)
+    dry = phase_dryrun(dry_procs)
+    examples = phase_examples(torch)
+    port_s = {"flash_small_heads": small["seconds"], "dryrun": dry["seconds"],
+              "examples": examples["seconds"]}
+    emit("port_completion_phases", seconds=sum(port_s.values()),
+         budget_s=PORT_COMPLETION_BUDGET_S,
+         within_budget=sum(port_s.values()) <= PORT_COMPLETION_BUDGET_S, by_phase=port_s)
+    check(sum(port_s.values()) <= PORT_COMPLETION_BUDGET_S,
+          f"port_completion_phases: {sum(port_s.values()):.1f} s over the "
+          f"{PORT_COMPLETION_BUDGET_S} s budget")
 
     us = main_kernel
     agg_bound_us, agg_bound_by = bound_us(us["bytes"], us["flops"])
@@ -4671,7 +5073,7 @@ def main() -> int:
         # the whole flattened CNN (N = 206,922), as ops.quantize_tree feeds it
         quant_row("quantize_stochastic", None, "src/repro/kernels/quantize.py:44", NO_LIBRARY),
         *lm_rows(lm, served, grad, qwen, moe_launches, head_launches, hybrid_launches,
-                 encdec_launches, sharded),
+                 encdec_launches, sharded, small, examples),
     ]}), flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {

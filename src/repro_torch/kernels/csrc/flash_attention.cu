@@ -4,10 +4,12 @@
 // (pallas_call in flash_attention_bhsd). q is [BH, Sq, D], k is [BKV, Skv, D]
 // and v is [BKV, Skv, Dv], all contiguous, float32 or bfloat16; query head
 // bh reads kv head bh / G with G = BH / BKV (GQA, no repeated copy). out is
-// [BH, Sq, Dv] in q's dtype. D is one of 32, 64, 96, 112, 128, 192 and Dv
-// one of 32, 64, 96, 112, 128 with Dv <= D (FLASH_PAIRS below): MLA's
-// prefill is D = 192 (128 + 64 rope) with Dv = 128, Phi-3-vision's
-// D = Dv = 96, Zamba2's shared attention D = Dv = 112 (3584 / 32 heads).
+// [BH, Sq, Dv] in q's dtype. D is one of 16, 24, 32, 64, 96, 112, 128, 192
+// and Dv one of 16, 32, 64, 96, 112, 128 with Dv <= D (FLASH_PAIRS below):
+// MLA's prefill is D = 192 (128 + 64 rope) with Dv = 128, Phi-3-vision's
+// D = Dv = 96, Zamba2's shared attention D = Dv = 112 (3584 / 32 heads);
+// the reduced test configs take D = Dv = 16 (heads of 16) and reduced
+// MLA's prefill D = 24 (16 + 8 rope) with Dv = 16.
 // Masks, as in the Pallas body: kpos < Skv; causal keeps
 // qpos >= kpos (top-left aligned, no query offset); a window > 0 keeps
 // qpos - kpos < window. Masked scores are -1e30, not -inf, m and l are
@@ -44,9 +46,15 @@
 //     row, 192 B, is no multiple of the 128-byte span); 112 (a 224 B row, a
 //     multiple of neither span) as seven 16-column boxes of 32 B rows under
 //     the 32-byte swizzle, one box a k16 step of Q K^T. K (D columns) and V
-//     (Dv) have their own maps and boxes: S = Q K^T runs D / 16 steps of
+//     (Dv) have their own maps and boxes: S = Q K^T runs padded(D) / 16 steps of
 //     k16 (12 at D = 192, 7 at D = 112), O += P V keeps a Dv-wide
-//     accumulator (an n112 product at Dv = 112). The tensor maps are encoded per call on the host
+//     accumulator (an n112 product at Dv = 112, n16 at Dv = 16). D = 16 is
+//     one 16-column box; D = 24, no whole number of k16 steps, is padded
+//     to 32 inside the kernel: Q and K tiles are 32 columns wide (one
+//     64-byte-swizzle box), K's tensor map has a global width of 24 and a
+//     box of 32, so TMA writes zeros into columns 24-31, and the consumers
+//     store zeros there for Q; zero columns add nothing to Q K^T, and the
+//     scale stays 24^-0.5. The tensor maps are encoded per call on the host
 //     through the runtime's driver entry point, so the library needs no
 //     -lcuda.
 //   * The consumers store Q into shared memory themselves, in K's swizzle; so when G * Sq <= 64 (a short prompt: 4 x 14 = 56 at the
@@ -73,8 +81,9 @@
 
 // every (D, Dv) the kernels take
 #define FLASH_PAIRS(X)                                                                       \
-  X(32, 32) X(64, 32) X(64, 64) X(96, 32) X(96, 64) X(96, 96) X(112, 112) X(128, 32)        \
-  X(128, 64) X(128, 96) X(128, 128) X(192, 32) X(192, 64) X(192, 96) X(192, 128)
+  X(16, 16) X(24, 16) X(32, 32) X(64, 32) X(64, 64) X(96, 32) X(96, 64) X(96, 96)           \
+  X(112, 112) X(128, 32) X(128, 64) X(128, 96) X(128, 128) X(192, 32) X(192, 64) X(192, 96) \
+  X(192, 128)
 
 namespace {
 
@@ -375,6 +384,18 @@ __device__ __forceinline__ void wgmma_ss_m64n64(float (&d)[32], uint64_t da, uin
       : "l"(da), "l"(db), "r"(scale_d));
 }
 
+// RS: A from registers, B from shared memory MN-major (transposed); D += A B, m64n16k16, f32 accumulators
+__device__ __forceinline__ void wgmma_rs_m64n16(float (&d)[8], const uint32_t (&a)[4], uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %13, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n16k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7}, "
+      "{%8, %9, %10, %11}, %12, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]),
+        "+f"(d[7])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
+
 // RS: A from registers, B from shared memory MN-major (transposed); D += A B, m64n32k16, f32 accumulators
 __device__ __forceinline__ void wgmma_rs_m64n32(float (&d)[16], const uint32_t (&a)[4], uint64_t db) {
   asm volatile(
@@ -498,11 +519,14 @@ struct Tile {
   static constexpr int kKVBytes = kBKV * W * 2;       // one K or V tile
 };
 
+// a head width in shared memory: a whole number of k16 steps (24 -> 32)
+__host__ __device__ constexpr int padded(int w) { return (w + 15) / 16 * 16; }
+
 // Q, the K ring and the V ring, 1024-byte aligned, and the ring's mbarriers
 template <int D, int Dv>
 constexpr size_t wgmma_smem_bytes() {
-  return 1024 + Tile<D>::kQBytes + kStages * (Tile<D>::kKVBytes + Tile<Dv>::kKVBytes) +
-         2 * kStages * 8;
+  return 1024 + Tile<padded(D)>::kQBytes +
+         kStages * (Tile<padded(D)>::kKVBytes + Tile<Dv>::kKVBytes) + 2 * kStages * 8;
 }
 
 // the byte offset within a swizzled box at which TMA puts logical offset off
@@ -516,8 +540,9 @@ flash_kernel_wgmma(const __grid_constant__ CUtensorMap k_map,
                    const __grid_constant__ CUtensorMap v_map,
                    const __nv_bfloat16* __restrict__ q, __nv_bfloat16* __restrict__ o, int G,
                    int Sq, int Skv, int causal, int window, float scale_log2) {
-  using L = Tile<D>;    // Q and K
-  using LV = Tile<Dv>;  // V
+  static_assert(Dv % 16 == 0, "Dv is a whole number of 16-column boxes");
+  using L = Tile<padded(D)>;  // Q and K, D padded to whole k16 steps
+  using LV = Tile<Dv>;        // V
   extern __shared__ uint8_t smem_raw[];
   const uint32_t raw = smem_addr(smem_raw);
   const uint32_t base = (raw + 1023u) & ~1023u;
@@ -590,17 +615,18 @@ flash_kernel_wgmma(const __grid_constant__ CUtensorMap k_map,
     return;
   }
 
-  // consumers: Q into shared memory in the boxes' swizzle, 16 bytes a load;
-  // every load of a thread is issued before the first store
+  // consumers: Q into shared memory in the boxes' swizzle, 16 bytes a load
+  // (chunks past D, the padding, are zeros); every load of a thread is
+  // issued before the first store
   const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
-  constexpr int kChunks = D / 8;                            // per row
+  constexpr int kChunks = padded(D) / 8;                    // per row
   constexpr int kPerThread = kBQ * kChunks / kConsumers;
   uint4 qv[kPerThread];
 #pragma unroll
   for (int i = 0; i < kPerThread; ++i) {
     const int idx = tid + i * kConsumers, r = idx / kChunks, c = idx % kChunks;
     qv[i] = make_uint4(0u, 0u, 0u, 0u);
-    if (r < nrows) {
+    if (r < nrows && c < D / 8) {
       const long long row = (long long)(head0 + r / per) * Sq + pos0 + r % per;
       qv[i] = *reinterpret_cast<const uint4*>(q + row * D + c * 8);
     }
@@ -634,13 +660,13 @@ flash_kernel_wgmma(const __grid_constant__ CUtensorMap k_map,
     mbar_wait(full(stage), phase);
     const uint32_t k_tile = k_s + stage * L::kKVBytes, v_tile = v_s + stage * LV::kKVBytes;
 
-    // S = Q K^T, D / 16 steps of 16 along the head dimension
+    // S = Q K^T, padded(D) / 16 steps of 16 along the head dimension
     float s[kBKV / 2];
 #pragma unroll
     for (int j = 0; j < kBKV / 2; ++j) s[j] = 0.f;
     wgmma_fence();
 #pragma unroll
-    for (int kk = 0; kk < D / 16; ++kk) {
+    for (int kk = 0; kk < padded(D) / 16; ++kk) {
       const int box = kk * 32 / L::kRowBytes;
       const uint32_t within = kk * 32 % L::kRowBytes;
       const uint64_t da = smem_desc(q_s + box * L::kQBoxBytes + within, 16, L::kSbo, L::kLayout);
@@ -710,7 +736,8 @@ flash_kernel_wgmma(const __grid_constant__ CUtensorMap k_map,
       else if constexpr (Dv == 112) wgmma_rs_m64n112(acc, a[kk], db);
       else if constexpr (Dv == 96) wgmma_rs_m64n96(acc, a[kk], db);
       else if constexpr (Dv == 64) wgmma_rs_m64n64(acc, a[kk], db);
-      else wgmma_rs_m64n32(acc, a[kk], db);
+      else if constexpr (Dv == 32) wgmma_rs_m64n32(acc, a[kk], db);
+      else wgmma_rs_m64n16(acc, a[kk], db);
     }
     wgmma_commit();
     wgmma_wait_all();
@@ -768,10 +795,11 @@ EncodeTiled encode_tiled() {
 }
 
 // [heads, Skv, W] bf16 as a 3-d map of (kW columns x kBKV keys x 1 head)
-// boxes, swizzled as wgmma reads them; keys past Skv read as zeros
+// boxes of the padded tile, swizzled as wgmma reads them; keys past Skv and
+// columns past W (a padded width) read as zeros
 template <int W>
 bool encode_kv_map(CUtensorMap* map, const void* ptr, int heads, int Skv) {
-  using L = Tile<W>;
+  using L = Tile<padded(W)>;
   EncodeTiled fn = encode_tiled();
   if (fn == nullptr) return false;
   const cuuint64_t dims[3] = {(cuuint64_t)W, (cuuint64_t)Skv, (cuuint64_t)heads};

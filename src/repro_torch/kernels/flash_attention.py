@@ -5,11 +5,12 @@
 k [BKV, Skv, D], v [BKV, Skv, Dv], query head bh reading kv head bh // G;
 the output is [BH, Sq, Dv]. On a CUDA tensor it launches a hand-written
 sm_90a kernel in ``csrc/flash_attention.cu`` (online softmax, m / l /
-accumulator in f32, fully masked kv tiles skipped; any Sq; D of 32, 64, 96,
-112, 128 or 192 and Dv of 32, 64, 96, 112 or 128 with Dv <= D, each pair
-of ``csrc/flash_attention.cu``'s FLASH_PAIRS: MLA's prefill takes D = 192
-with Dv = 128, Phi-3-vision's D = Dv = 96, Zamba2's D = Dv = 112, the GQA
-models Dv = D of 32 to 128): bfloat16 runs on the tensor cores
+accumulator in f32, fully masked kv tiles skipped; any Sq; D of 16, 24, 32,
+64, 96, 112, 128 or 192 and Dv of 16, 32, 64, 96, 112 or 128 with Dv <= D,
+each pair of ``csrc/flash_attention.cu``'s FLASH_PAIRS: MLA's prefill takes
+D = 192 with Dv = 128 (reduced: 24 with 16), Phi-3-vision's D = Dv = 96,
+Zamba2's D = Dv = 112, the GQA models Dv = D of 32 to 128, the reduced
+configs' heads of 16 D = Dv = 16): bfloat16 runs on the tensor cores
 (``flash_kernel_wgmma``: wgmma, TMA loads of K / V, P rounded to bf16
 before P V, GQA rows packed into one tile when G * Sq <= 64) and needs
 Skv >= 1 and 16-byte aligned tensors; float32 runs on the CUDA cores
@@ -53,9 +54,9 @@ backward_calls = 0
 
 # the (D, Dv) pairs the kernels are built for (FLASH_PAIRS in the source):
 # D of q and k, Dv of v and the output
-HEAD_PAIRS = ((32, 32), (64, 32), (64, 64), (96, 32), (96, 64), (96, 96), (112, 112),
-              (128, 32), (128, 64), (128, 96), (128, 128), (192, 32), (192, 64), (192, 96),
-              (192, 128))
+HEAD_PAIRS = ((16, 16), (24, 16), (32, 32), (64, 32), (64, 64), (96, 32), (96, 64), (96, 96),
+              (112, 112), (128, 32), (128, 64), (128, 96), (128, 128), (192, 32), (192, 64),
+              (192, 96), (192, 128))
 MAX_HEADS = 65535  # BH indexes the grid's y dimension
 _DTYPES = {torch.float32: "flash_attention_f32", torch.bfloat16: "flash_attention_bf16"}
 _P = ctypes.c_void_p

@@ -8,7 +8,7 @@ layouts, 16 x 16 ("data", "model") or 2 x 16 x 16 ("pod", "data",
 be held to the reference's on any host. ``make_host_mesh`` lays the CUDA
 devices present (1 x 1 on the CPU) out as data x model, as the
 reference's does with its host devices. ``H100_SXM`` replaces the
-reference's TPU constants for the roofline of a later slice.
+reference's TPU constants in the roofline (``launch.roofline``).
 """
 
 from __future__ import annotations
@@ -93,12 +93,17 @@ def mesh_context(mesh):
 
 # Roofline constants of one card (NVIDIA H100 SXM5 data sheet): dense bf16
 # tensor-core rate, HBM3 bandwidth and size, NVLink 4 (900 GB/s both ways
-# in all, 450 GB/s each way), at the card's 700 W power limit
+# in all, 450 GB/s each way), at the card's 700 W power limit. Between
+# nodes (NVIDIA DGX H100 data sheet: 8 cards a node, one ConnectX-7
+# InfiniBand NDR port of 400 Gb/s per card) a card sends 50e9 bytes/s each
+# way; ``launch.roofline`` says which link a mesh's collectives cross.
 H100_SXM = {
     "name": "h100_sxm",
     "peak_flops_bf16": 989e12,  # FLOP/s per card
     "hbm_bw": 3.35e12,  # bytes/s per card
     "hbm_bytes": 80e9,  # per card
-    "nvlink_bw": 450e9,  # bytes/s each way per card
+    "nvlink_bw": 450e9,  # bytes/s each way per card, within a node
+    "ib_bw": 50e9,  # bytes/s each way per card, between nodes (400 Gb/s NDR)
+    "cards_per_node": 8,
     "power_limit_w": 700,
 }

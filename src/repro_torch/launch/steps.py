@@ -318,7 +318,10 @@ def _replicated(t, mesh):
 
 def _pod_slice(t: DTensor, j: int, sub):
     """Local pod ``j`` of a pod-stacked DTensor, as a DTensor on the
-    (data, model) sub-mesh (a view of the stacked storage)."""
+    (data, model) sub-mesh (a view of the stacked storage); any other leaf
+    (the dry-run's step, a Python int) as it is."""
+    if not isinstance(t, DTensor):
+        return t
     pl = tuple(Shard(p.dim - 1) if p.is_shard() else p for p in t.placements[1:])
     return DTensor.from_local(t._local_tensor[j], sub, pl, run_check=False)
 
@@ -339,8 +342,10 @@ def _per_pod(step, sub, state, batch):
             metrics = {k: _replicated(v, sub) for k, v in metrics.items()}
         with torch.no_grad():  # the new optimizer state (and step) into pod j's slot
             for path in _paths(state):
-                new = _at(st, path)
-                dst = _at(state, path)._local_tensor[j]
+                new, old = _at(st, path), _at(state, path)
+                if not isinstance(old, DTensor):
+                    continue
+                dst = old._local_tensor[j]
                 src = _local(new)
                 if src.data_ptr() != dst.data_ptr():
                     dst.copy_(src)
@@ -544,7 +549,7 @@ def build_prefill_step(cfg: ModelConfig, shape: ShapeSpec, mesh) -> BuiltStep:
 
     def prefill(params, batch):
         with mesh_context(mesh), implicit_replication():
-            device = torch.device(mesh.device_type)
+            device = _local(tree_leaves(params)[0]).device  # meta in the dry-run
             cache = distribute_tree(model.init_cache(shape.global_batch, shape.seq_len,
                                                      device=device), c_shard, mesh)
             with torch.no_grad():

@@ -335,9 +335,12 @@ def shard_view(t):
     if not isinstance(t, DTensor):
         return t, (0,) * t.ndim
     from torch.distributed.tensor._utils import compute_local_shape_and_global_offset
+    from torch.fx.experimental.proxy_tensor import disable_proxy_modes_tracing
 
-    _, offset = compute_local_shape_and_global_offset(t.shape, t.device_mesh, t.placements)
-    return t._local_tensor, tuple(offset)
+    # host arithmetic on small index tensors: kept out of a traced step (the dry-run's)
+    with disable_proxy_modes_tracing():
+        _, offset = compute_local_shape_and_global_offset(t.shape, t.device_mesh, t.placements)
+    return t._local_tensor, tuple(int(o) for o in offset)
 
 
 def like_shards(vals, dst, dims):

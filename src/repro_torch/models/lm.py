@@ -270,13 +270,15 @@ def _logits(h, w):
     so the logits are not rounded to bf16 and the unembedding is never
     copied to f32. That call has no CPU kernel and no derivative, so on the
     CPU, and under autograd, both operands are upcast instead (exact: bf16
-    products are exact in f32)."""
+    products are exact in f32). A ``meta`` tensor (the dry-run's) takes the
+    card's path."""
     if isinstance(h, DTensor):  # each rank's shards (DTensor has no f32-output product)
         return _matmul_sharded(h, w, local=_logits)
     h2 = h.reshape(-1, h.shape[-1])
     if h.dtype == torch.float32:
         out = torch.mm(h2, w)
-    elif h.is_cuda and not (torch.is_grad_enabled() and (h.requires_grad or w.requires_grad)):
+    elif h.device.type != "cpu" and not (torch.is_grad_enabled()
+                                         and (h.requires_grad or w.requires_grad)):
         out = torch.mm(h2, w, out_dtype=torch.float32)
     else:
         out = torch.mm(h2.float(), w.float())

@@ -146,8 +146,9 @@ def _sqrt_f32(x: torch.Tensor) -> torch.Tensor:
     ~0.7 % of inputs, so on the CPU the root is taken in f64 and rounded
     to f32, which is the correctly rounded f32 root (53 >= 2 * 24 + 2
     bits). (On the card an f64 copy of a large leaf would cost memory the
-    optimizers of a full-width model do not have.)"""
-    return torch.sqrt(x) if x.is_cuda else torch.sqrt(x.double()).float()
+    optimizers of a full-width model do not have; a ``meta`` tensor, the
+    dry-run's, takes the card's path.)"""
+    return torch.sqrt(x.double()).float() if x.device.type == "cpu" else torch.sqrt(x)
 
 
 def _slabs(t: torch.Tensor):

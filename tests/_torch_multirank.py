@@ -334,12 +334,8 @@ def main(rank: int, root: str, device: str = "cpu"):
         inp = pickle.load(f)
     out = {}
     mesh = make_device_mesh(MeshShape(("data", "model"), (2, 2)), device=device)
-    from repro_torch.configs import get_reduced
-
     for arch in ("qwen3-8b", "phi3-medium-14b"):
-        # the card's flash kernel takes head dims of 32 and up (reduced Phi-3's are 16)
-        if device == "cpu" or get_reduced(arch).resolved_head_dim >= 32:
-            _sync_and_serve(arch, inp, mesh, out)
+        _sync_and_serve(arch, inp, mesh, out)
     _moe_paths(inp, mesh, out)
     pod_mesh = make_device_mesh(MeshShape(("pod", "data", "model"), (2, 2, 1)), device=device)
     _local_sgd_and_outer(inp, pod_mesh, rank, out)

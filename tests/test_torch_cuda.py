@@ -434,9 +434,9 @@ def test_flash_attention_bf16_refuses_what_the_kernel_does_not_take(device):
 
 
 # every (D, Dv) the kernels take (csrc/flash_attention.cu's FLASH_PAIRS)
-FLASH_HEAD_PAIRS = [(32, 32), (64, 32), (64, 64), (96, 32), (96, 64), (96, 96), (112, 112),
-                    (128, 32), (128, 64), (128, 96), (128, 128), (192, 32), (192, 64), (192, 96),
-                    (192, 128)]
+FLASH_HEAD_PAIRS = [(16, 16), (24, 16), (32, 32), (64, 32), (64, 64), (96, 32), (96, 64),
+                    (96, 96), (112, 112), (128, 32), (128, 64), (128, 96), (128, 128), (192, 32),
+                    (192, 64), (192, 96), (192, 128)]
 # MLA's prefill (D 192, Dv 128; 128 heads, no GQA): serving, past one tile,
 # packed; Phi-3-vision's (D = Dv = 96, 32 heads): 256 patches + 16 tokens;
 # Zamba2's shared attention (D = Dv = 112, 32 heads): serving, past one
@@ -1067,6 +1067,50 @@ def test_reduced_whisper_on_the_card_matches_the_cpu(device):
     assert results["cuda"][1] == 3 * L + 2 * L and results["cpu"][1] == 0
     got, want = results["cuda"][0], results["cpu"][0]
     assert torch.max(torch.abs(got - want)).item() <= 1e-4 * torch.max(torch.abs(want)).item()
+
+
+@pytest.mark.parametrize("arch", ["phi3-medium-14b", "starcoder2-3b", "phi-3-vision-4.2b",
+                                  "whisper-base", "deepseek-v2-236b"])
+def test_reduced_small_head_configs_on_the_card_match_the_cpu(device, arch):
+    """The reduced configs whose heads the flash kernel took only from
+    (D, Dv) = (16, 16) and (24, 16) on (heads of 16; reduced DeepSeek-V2's
+    MLA prefill at 16 + 8 = 24, v 16), in f32: a prefill and two decode
+    steps and one loss and gradient on the card (the kernel, launched)
+    against the same weights on the CPU (the plain versions), logits within
+    1e-4 of max |logit|, loss and gradient norm within 1e-4."""
+    from repro_torch.configs import get_reduced
+    from repro_torch.data.tokens import token_batch_for
+    from repro_torch.models import Model
+    from repro_torch.utils import tree_leaves, tree_map
+
+    cfg = get_reduced(arch).replace(dtype="float32", param_dtype="float32")
+    model = Model(cfg)
+    params = model.init(torch.Generator().manual_seed(0))
+    batch = token_batch_for(cfg, batch=2, seq=18, seed=3)
+    results = {}
+    for where in ("cuda", "cpu"):
+        ps = tree_map(lambda t: t.to(where), params)
+        b = {k: torch.as_tensor(v, device=where) for k, v in batch.items()}
+        prompt = {k: v for k, v in b.items() if k not in ("targets", "loss_mask")}
+        S = b["tokens"].shape[1] - 2  # the vision stub's patches take 4 of the 18 positions
+        before = (fa.launches, fa.backward_calls)
+        with torch.no_grad():
+            logits, cache = model.prefill(ps, dict(prompt, tokens=b["tokens"][:, :S]), 24)
+            out = [logits]
+            for j in (S, S + 1):
+                logits, cache = model.decode_step(ps, cache, b["tokens"][:, j:j + 1])
+                out.append(logits)
+        ps = tree_map(lambda p: p.detach().requires_grad_(True), ps)
+        loss, _ = model.loss(ps, b)
+        grads = torch.autograd.grad(loss, tree_leaves(ps))
+        gnorm = torch.sqrt(sum(torch.sum(g * g) for g in grads))
+        results[where] = (torch.stack(out).cpu(), float(loss.detach()), float(gnorm),
+                          fa.launches - before[0], fa.backward_calls - before[1])
+    got, want = results["cuda"], results["cpu"]
+    assert got[3] > 0 and got[4] > 0 and want[3] == 0
+    assert torch.max(torch.abs(got[0] - want[0])).item() <= 1e-4 * torch.max(torch.abs(want[0])).item()
+    assert abs(got[1] - want[1]) <= 1e-4 * abs(want[1])
+    assert abs(got[2] - want[2]) <= 1e-4 * abs(want[2])
 
 
 # --------------------------------------------------------------------------

@@ -132,9 +132,6 @@ def ranks(tmp_path_factory):
 
 
 def _arch_results(ranks, arch, what):
-    if f"{arch}/{what}" not in ranks:  # a card run: its flash kernel takes head dims >= 32
-        assert os.environ.get("REPRO_MULTIRANK_RESULTS")
-        pytest.skip(f"{arch} is not in these results (reduced head dim 16)")
     return ranks[f"{arch}/{what}"]
 
 
