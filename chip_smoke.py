@@ -319,7 +319,8 @@ Run from the repository root. Phases, each printing one JSON line:
              (they trace while the card works): every record ``ok``, one
              rank's FLOPs, bytes, collective bytes by kind, peak live bytes
              and ``fits_hbm``, the roofline terms on ``H100_SXM``, printed
-             as model estimates;
+             as model estimates; each train cell's peak printed beside the
+             card's 80 GB and ``fits_hbm`` required true;
 43. examples  ``repro_torch.examples``: quickstart (2 x 8 rounds), edge_africa
              (7 profiles x 2 x 5 rounds), tcp_tuning and train_100m (200
              steps, its loss falling by more than 0.5) on the card (the FL
@@ -4513,9 +4514,13 @@ def start_dryrun(tmp: str) -> list:
 def phase_dryrun(procs) -> dict:
     """Waits for the dry-run processes and checks their records: every one
     ``ok``, the train cells with per-rank FLOPs, bytes and collective bytes
-    by kind, ``fits_hbm`` against 80 GB, roofline terms on ``H100_SXM``;
-    the outer sync's int8 payload. Prints each record's terms (model
-    estimates from a trace, not measurements)."""
+    by kind, roofline terms on ``H100_SXM``, and one rank's peak within the
+    card's 80 GB (``fits_hbm`` true: the loss keeps its vocab split); the
+    outer sync's int8 payload. Prints each record's terms (model estimates
+    from a trace, not measurements), and each train cell's peak beside
+    80 GB on a line of its own."""
+    from repro_torch.launch.mesh import H100_SXM
+
     t0 = time.perf_counter()
     out = {"records": {}}
     try:
@@ -4540,6 +4545,13 @@ def phase_dryrun(procs) -> dict:
                     check(t["flops_per_chip"] > 0 and t["bytes_per_chip"] > 0
                           and t["collective_bytes"] and isinstance(r["fits_hbm"], bool),
                           f"dryrun {mesh}: record {r}")
+                    peak = r["memory"]["peak_memory_in_bytes"]
+                    emit("dryrun_fit", mesh=r["mesh"], cell=f"{r['arch']} x {r['shape']}",
+                         peak_memory_in_bytes=peak, hbm_bytes=H100_SXM["hbm_bytes"],
+                         fits_hbm=r["fits_hbm"])
+                    check(r["fits_hbm"] is True and peak <= H100_SXM["hbm_bytes"],
+                          f"dryrun {mesh}: one rank's peak {peak / 1e9:.2f} GB over "
+                          f"{H100_SXM['hbm_bytes'] / 1e9:.0f} GB")
                     row = {"mesh": r["mesh"], "cell": f"{r['arch']} x {r['shape']}",
                            "microbatches": r["microbatches"], "trace_s": r["trace_s"],
                            "n_ops": t["n_ops"], "fits_hbm": r["fits_hbm"],

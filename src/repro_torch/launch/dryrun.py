@@ -15,9 +15,15 @@ of all of them; a collective sends nothing). The cell's ``BuiltStep``
 rank 0's shards, ``meta`` tensors of each input's local shape, by
 ``launch.hlo_analysis``: FLOPs, bytes and collective bytes per rank, and
 the peak of live bytes, which ``fits_hbm`` compares with one card's 80 GB
-(``launch.mesh.H100_SXM``). ``launch.roofline.derive`` turns them into
-roofline terms. The step's scalar step count enters as a Python int (0):
-the optimizer reads it on the host. Records append to a JSON file
+(``launch.mesh.H100_SXM``). The peak counts each storage the traced step
+makes on rank 0, from the op that makes it to its last use, with the
+inputs and outputs held throughout: the shards of the params and the
+optimizer state, the activations the backward keeps, and every temporary
+(the loss's f32 logits shard [b, chunk, V / model] a chunk among them); not
+the caching allocator's slack, nor what runs outside the trace.
+``launch.roofline.derive`` turns the counts into roofline terms. The
+step's scalar step count enters as a Python int (0): the optimizer reads
+it on the host. Records append to a JSON file
 (resumable). Nothing runs on a card and no kernel is launched.
 
 The default process group is global to a process, so the dry-run runs in
@@ -105,7 +111,7 @@ def _traced_step(built, mesh):
                 continue
             pl = placements_on(leaf_spec, mesh)
             local, _ = compute_local_shape_and_global_offset(leaf.shape, mesh, pl)
-            slots.append((path, (pl, tuple(leaf.shape))))
+            slots.append((path, (pl, tuple(leaf.shape), leaf.stride())))
             shards.append(torch.empty(local, dtype=leaf.dtype, device="meta"))
 
     def fn(*locals_):
@@ -114,8 +120,7 @@ def _traced_step(built, mesh):
             if layout is None:
                 values[path] = 0
                 continue
-            pl, shape = layout
-            stride = torch.empty(shape, device="meta").stride()
+            pl, shape, stride = layout  # read outside the trace: no whole-leaf allocation in it
             values[path] = DTensor.from_local(next(it), mesh, pl, run_check=False, shape=shape,
                                               stride=stride)
         args = [_rebuild(a, values, (i,)) for i, a in enumerate(built.abstract_args)]

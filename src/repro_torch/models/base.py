@@ -120,6 +120,8 @@ class Ctx:
 
 
 def rms_norm(x, weight, eps: float = 1e-5):
+    if isinstance(x, DTensor):
+        return _rowwise_sharded(lambda x, w: rms_norm(x, w, eps), x, (weight,))
     xf = x.float()
     var = torch.mean(xf * xf, dim=-1, keepdim=True)
     out = xf * torch.rsqrt(var + eps)
@@ -127,11 +129,33 @@ def rms_norm(x, weight, eps: float = 1e-5):
 
 
 def layer_norm(x, weight, bias, eps: float = 1e-5):
+    if isinstance(x, DTensor):
+        return _rowwise_sharded(lambda x, w, b: layer_norm(x, w, b, eps), x, (weight, bias))
     xf = x.float()
     mu = torch.mean(xf, dim=-1, keepdim=True)
     var = torch.mean(torch.square(xf - mu), dim=-1, keepdim=True)  # jnp.var: biased
     out = (xf - mu) * torch.rsqrt(var + eps)
     return (out * weight.float() + bias.float()).to(x.dtype)
+
+
+def _rowwise_sharded(fn, x, params):
+    """``fn(x, *params)``, a function of each row of x's last dim (a norm)
+    with params over that dim, on each rank's shard under ``local_map``: x
+    keeps its splits but one of the last dim, the params are whole and
+    their gradients partial sums over the axes that split x. Under
+    DTensor's rules (torch 2.11) a norm of the residual stream, split over
+    both batch and sequence, ran on tensors of its global shape in f32."""
+    from torch.distributed.tensor.experimental import local_map
+
+    mesh = x.device_mesh
+    rep = tuple(Replicate() for _ in range(mesh.ndim))
+    x_pl = tuple(p if p.is_shard() and p.dim != x.ndim - 1 else Replicate() for p in x.placements)
+    g_pl = tuple(Partial() if p.is_shard() else Replicate() for p in x_pl)
+    params = [(t if isinstance(t, DTensor) else DTensor.from_local(t, mesh, rep)).redistribute(
+        mesh, rep) for t in params]
+    return local_map(fn, out_placements=(x_pl,), in_placements=(x_pl,) + (rep,) * len(params),
+                     in_grad_placements=(x_pl,) + (g_pl,) * len(params), device_mesh=mesh)(
+        x.redistribute(mesh, x_pl), *params)
 
 
 def apply_norm(cfg, x, w):
@@ -258,7 +282,10 @@ def rope_frequencies(head_dim: int, theta: float, device=None):
 
 def apply_rope(x, positions, theta: float):
     """x: [..., S, H, D]; positions: broadcastable to [..., S]. Rotates the
-    two halves of D (not interleaved pairs), as the reference does."""
+    two halves of D (not interleaved pairs), as the reference does. On a
+    DTensor each rank rotates its shard (``_rope_sharded``)."""
+    if isinstance(x, DTensor):
+        return _rope_sharded(x, positions, theta)
     d = x.shape[-1]
     inv = rope_frequencies(d, theta, device=x.device)  # [D/2]
     ang = positions[..., None].float() * inv  # [..., S, D/2]
@@ -267,6 +294,32 @@ def apply_rope(x, positions, theta: float):
     x1, x2 = torch.chunk(x.float(), 2, dim=-1)
     out = torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin], dim=-1)
     return out.to(x.dtype)
+
+
+def _rope_sharded(x, positions, theta: float):
+    """``apply_rope`` on each rank's shard under ``local_map``: x keeps its
+    splits of the leading (batch) dims and of the heads, and is whole in S
+    and D (neither is split where the blocks rotate); positions with x's
+    batch dim take its split there, other positions are whole. Under
+    DTensor's rules (torch 2.11) the halves' backward made a zero gradient
+    of x's global shape, in f32, for each half."""
+    from torch.distributed.tensor.experimental import local_map
+
+    mesh = x.device_mesh
+    rep = [Replicate()] * mesh.ndim
+    pos = positions if isinstance(positions, DTensor) else DTensor.from_local(positions, mesh, rep)
+    per_row = pos.ndim >= 2 and pos.shape[0] == x.shape[0] > 1
+    x_pl, p_pl = [], []
+    for p in x.placements:
+        if p.is_shard() and (p.dim < x.ndim - 3 or p.dim == x.ndim - 2):
+            x_pl.append(p), p_pl.append(p if per_row and p.dim == 0 else Replicate())
+        else:
+            x_pl.append(Replicate()), p_pl.append(Replicate())
+    x_pl, p_pl = tuple(x_pl), tuple(p_pl)
+    x, pos = x.redistribute(mesh, x_pl), pos.redistribute(mesh, p_pl)
+    return local_map(lambda x, pos: apply_rope(x, pos, theta), out_placements=(x_pl,),
+                     in_placements=(x_pl, p_pl), in_grad_placements=(x_pl, p_pl),
+                     device_mesh=mesh)(x, pos)
 
 
 def constrain(t, dims):
@@ -286,16 +339,6 @@ def constrain(t, dims):
         placements.append(Replicate() if d is None or mesh.size(i) == 1 else Shard(d))
     placements = tuple(placements)
     return t if t.placements == placements else t.redistribute(mesh, placements)
-
-
-def whole_dim(t, dim: int):
-    """``t`` with dim ``dim`` gathered whole on every rank (other shards
-    kept); the identity on a plain tensor."""
-    if not isinstance(t, DTensor):
-        return t
-    dim %= t.ndim
-    pl = tuple(Replicate() if p.is_shard(dim) else p for p in t.placements)
-    return t if pl == tuple(t.placements) else t.redistribute(t.device_mesh, pl)
 
 
 def heads_constraint(cfg, t):

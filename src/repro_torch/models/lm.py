@@ -39,6 +39,12 @@ products and the norms are recomputed, so under "block" the flash kernel
 launches twice per layer and step and the SwiGLU kernel once; under
 "full" both twice. Values are the same at every setting.
 
+On a mesh the loss keeps the unembedding's vocab split over "model", as
+the reference's partitioner keeps its logits split on "vocab": each rank
+holds its f32 logits shard of a chunk, and the cross entropy's row max,
+sum of exp, target logit and argmax are reduced over "model" alone
+(``_loss_sharded``); no rank holds a row of the whole vocab.
+
 Caches are updated IN PLACE: ``lm_prefill`` and ``lm_decode_step`` return
 the cache they were given (or built), written through, where the
 reference returns an updated copy.
@@ -51,7 +57,7 @@ from typing import Any, Dict, List, Tuple
 import functools
 
 import torch
-from torch.distributed.tensor import DTensor
+from torch.distributed.tensor import DTensor, Partial, Replicate
 from torch.utils.checkpoint import CheckpointPolicy, checkpoint, create_selective_checkpoint_contexts
 
 from repro_torch.configs.base import ModelConfig
@@ -61,7 +67,6 @@ from repro_torch.models import ssm as ssm_mod
 from repro_torch.models.base import (
     Ctx, _matmul_sharded, apply_norm, dtype_of, embed_lookup, like_shards, linear, norm_params,
     seq_constraint, shard_view,
-    whole_dim,
 )
 from repro_torch.utils import tree_unstack
 
@@ -264,7 +269,8 @@ def _unembed_weight(cfg, params, dtype):
 
 
 def _logits(h, w):
-    """h [..., d] @ w [d, V] (same dtype) -> f32 logits, summed in f32.
+    """h [..., d] @ w [d, V] -> f32 logits, summed in f32; w in h's dtype,
+    or in f32 (the sharded loss's weight, upcast once for every chunk).
 
     A bf16 product on the card takes ``torch.mm(..., out_dtype=float32)``,
     so the logits are not rounded to bf16 and the unembedding is never
@@ -275,8 +281,8 @@ def _logits(h, w):
     if isinstance(h, DTensor):  # each rank's shards (DTensor has no f32-output product)
         return _matmul_sharded(h, w, local=_logits)
     h2 = h.reshape(-1, h.shape[-1])
-    if h.dtype == torch.float32:
-        out = torch.mm(h2, w)
+    if w.dtype == torch.float32:
+        out = torch.mm(h2.float(), w)
     elif h.device.type != "cpu" and not (torch.is_grad_enabled()
                                          and (h.requires_grad or w.requires_grad)):
         out = torch.mm(h2, w, out_dtype=torch.float32)
@@ -291,14 +297,117 @@ def unembed(cfg, params, h):
 
 
 def _xent(logits, targets, mask):
-    """Summed masked NLL, mask count and correct count of f32 logits (on a
-    mesh with the vocab whole: a vocab-split gather trips DTensor)."""
-    logits = whole_dim(logits, -1)
+    """Summed masked NLL, mask count and correct count of f32 logits (a
+    mesh's loss: ``_loss_sharded``)."""
     lse = torch.logsumexp(logits, dim=-1)
     gold = torch.gather(logits, -1, targets[..., None]).squeeze(-1)
     nll = (lse - gold) * mask
     correct = (torch.argmax(logits, -1) == targets).float() * mask
     return torch.sum(nll), torch.sum(mask), torch.sum(correct)
+
+
+def _all_reduce(t, op, group):
+    import torch.distributed._functional_collectives as funcol
+
+    out = funcol.all_reduce(t, op, group)
+    return out.wait() if isinstance(out, funcol.AsyncCollectiveTensor) else out
+
+
+class _SplitVocabXent(torch.autograd.Function):
+    """Per-position masked NLL and correct flags of f32 logits [..., Vl]
+    holding the vocab columns ``first .. first + Vl`` of a vocab split over
+    ``group`` (None: the whole vocab). Over the group go the row max, the
+    sum of exp(logit - max), the target's logit (0 off the rank that owns
+    its column) and the argmax, ties to the lowest global column as
+    ``torch.argmax``'s. The backward is local: (softmax - one-hot(target))
+    times the mask and the upstream gradient, on this rank's columns."""
+
+    @staticmethod
+    def forward(ctx, logits, targets, mask, group, first):
+        idx = targets - first
+        own = (idx >= 0) & (idx < logits.shape[-1])
+        idx = torch.where(own, idx, 0)
+        top = torch.amax(logits, dim=-1)
+        arg = torch.argmax(logits, dim=-1)
+        big = top if group is None else _all_reduce(top, "max", group)
+        e = (logits - big[..., None]).exp_()
+        s = torch.sum(e, dim=-1)
+        gold = torch.where(own, torch.gather(logits, -1, idx[..., None]).squeeze(-1), 0.0)
+        if group is not None:
+            s = _all_reduce(s, "sum", group)
+            gold = _all_reduce(gold, "sum", group)
+            arg = torch.where(top == big, arg + first, torch.iinfo(arg.dtype).max)
+            arg = _all_reduce(arg, "min", group)
+        nll = (torch.log(s) + big - gold) * mask
+        correct = (arg == targets).float() * mask
+        e.div_(s[..., None])  # the softmax, kept for the backward
+        ctx.save_for_backward(e, idx, own, mask)
+        ctx.mark_non_differentiable(correct)
+        return nll, correct
+
+    @staticmethod
+    def backward(ctx, g_nll, g_correct):
+        p, idx, own, mask = ctx.saved_tensors
+        w = g_nll * mask
+        d = p * w[..., None]
+        d.scatter_add_(-1, idx[..., None], torch.where(own, -w, 0.0)[..., None])
+        return d, None, None, None, None
+
+
+def _loss_sharded(h, w, targets, mask, chunk: int):
+    """``loss_from_hidden``'s three sums on DTensors, each rank on its
+    shards under ``local_map`` (no DTensor rule picks a layout): the
+    unembedding keeps its vocab split and is whole on every other mesh axis;
+    h, the targets and the mask keep their batch split and are whole on the
+    vocab's axis. Each rank upcasts its unembedding shard to f32 once, then
+    per chunk of ``chunk`` positions computes its logits shard [b, chunk,
+    V / model] in f32 and ``_SplitVocabXent`` over the vocab's axis, so no
+    rank holds a row of the whole vocab and the gradients stay on the
+    shards: h's a partial sum over the vocab's axis, the unembedding's over
+    the batch's, each reduced once after the last chunk. The sums come
+    out partial over the batch's axes."""
+    from torch.distributed.tensor.experimental import local_map
+
+    mesh = h.device_mesh
+    rep = [Replicate()] * mesh.ndim
+    w, targets, mask = (t if isinstance(t, DTensor) else DTensor.from_local(t, mesh, rep)
+                        for t in (w, targets, mask))
+    h_pl, w_pl, o_pl, hg, wg, vocab = [], [], [], [], [], None
+    for i, (hp, wp) in enumerate(zip(h.placements, w.placements)):
+        if wp.is_shard(1):
+            vocab = i
+            h_pl.append(Replicate()), w_pl.append(wp), o_pl.append(Replicate())
+            hg.append(Partial()), wg.append(wp)
+        elif hp.is_shard(0):
+            h_pl.append(hp), w_pl.append(Replicate()), o_pl.append(Partial())
+            hg.append(hp), wg.append(Partial())
+        else:
+            for lst in (h_pl, w_pl, o_pl, hg, wg):
+                lst.append(Replicate())
+    group, first = None, 0
+    if vocab is not None and mesh.size(vocab) > 1:
+        group = mesh.get_group(vocab)
+        first = mesh.get_local_rank(vocab) * (w.shape[1] // mesh.size(vocab))
+
+    def local(h, w, t, m):
+        w = w.float()
+        tot = None
+        for c in range(t.shape[1] // chunk):
+            sl = slice(c * chunk, (c + 1) * chunk)
+            nll, correct = _SplitVocabXent.apply(_logits(h[:, sl], w), t[:, sl], m[:, sl],
+                                                 group, first)
+            sums = (torch.sum(nll), torch.sum(m[:, sl]), torch.sum(correct))
+            tot = sums if tot is None else tuple(a + b for a, b in zip(tot, sums))
+        return tot
+
+    t_pl = tuple(h_pl)
+    h_pl, w_pl, o_pl, hg, wg = (tuple(x) for x in (h_pl, w_pl, o_pl, hg, wg))
+    h, w = h.redistribute(mesh, h_pl), w.redistribute(mesh, w_pl)
+    targets, mask = targets.redistribute(mesh, t_pl), mask.redistribute(mesh, t_pl)
+    return local_map(local, out_placements=(o_pl, o_pl, o_pl),
+                     in_placements=(h_pl, w_pl, t_pl, t_pl),
+                     in_grad_placements=(hg, wg, t_pl, t_pl), device_mesh=mesh)(
+        h, w, targets, mask)
 
 
 def loss_from_hidden(cfg, params, h, batch):
@@ -317,7 +426,10 @@ def loss_from_hidden(cfg, params, h, batch):
     w = _unembed_weight(cfg, params, h.dtype)
 
     chunk = cfg.loss_chunk
-    if chunk and St % chunk == 0 and St > chunk:
+    chunked = chunk and St % chunk == 0 and St > chunk
+    if isinstance(h, DTensor):
+        tot, cnt, corr = _loss_sharded(h, w, targets, mask, chunk if chunked else St)
+    elif chunked:
         zero = torch.zeros((), dtype=torch.float32, device=h.device)
         tot, cnt, corr = zero, zero, zero
         for c in range(St // chunk):

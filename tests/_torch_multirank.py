@@ -1,8 +1,9 @@
 """The four ranks of ``tests/test_torch_multirank.py``: one ``gloo`` world
 on the CPU (a ``FileStore``, no port) that runs the port's sharded steps
-on (2, 2) and (2, 2, 1) meshes and writes what the parent's tests assert
-on. Imports no jax: the parent brings the reference's inputs in
-``inputs.pkl`` and holds the results to it.
+on (2, 2) and (2, 2, 1) meshes and the loss with its vocab split over
+"model", and writes what the parent's tests assert on. Imports no jax:
+the parent brings the reference's inputs in ``inputs.pkl`` and holds the
+results to it.
 
 Run alone: ``PYTHONPATH=src:tests python tests/_torch_multirank.py DIR
 [cuda]`` (DIR holding the parent's ``inputs.pkl``; ``rank0.pkl`` is
@@ -207,6 +208,31 @@ def _moe_paths(inp, mesh, out):
         }
 
 
+def _split_vocab_loss(inp, mesh, out):
+    """``loss_from_hidden`` on the mesh for each case of ``inp["xent"]``:
+    h split over "data", the unembedding laid out as the production rules
+    lay it out ("data", "model"), the vocab split over "model". Returns the
+    loss, the accuracy and the gradients in h and the unembedding, whole."""
+    from repro_torch.configs import get_reduced
+    from repro_torch.models.lm import loss_from_hidden
+    from repro_torch.sharding.rules import distribute_tree
+
+    for case in inp["xent"]:
+        cfg = get_reduced("qwen3-8b").replace(**case["cfg"])
+        h = distribute_tree(_t(case["h"]), ("data", None, None), mesh).requires_grad_(True)
+        w = distribute_tree(_t(case["unembed"]), ("data", "model"), mesh).requires_grad_(True)
+        batch = distribute_tree({k: _t(v) for k, v in case["batch"].items()},
+                                {k: ("data", None) for k in case["batch"]}, mesh)
+        loss, metrics = loss_from_hidden(cfg, {"unembed": w}, h, batch)
+        g_h, g_w = torch.autograd.grad(loss, [h, w])
+        out[f"xent/{case['name']}"] = {
+            "loss": float(loss.detach().full_tensor()),
+            "accuracy": float(metrics["accuracy"].detach().full_tensor()),
+            "grad_h": g_h.full_tensor().cpu().numpy(),
+            "grad_unembed": g_w.full_tensor().cpu().numpy(),
+        }
+
+
 def _local_sgd_and_outer(inp, mesh, rank, out):
     """local-SGD on the pod mesh: both pods take a step, then pod 0 takes a
     second with pod 1 sitting it out (a collective across "pod" would then
@@ -337,6 +363,7 @@ def main(rank: int, root: str, device: str = "cpu"):
     for arch in ("qwen3-8b", "phi3-medium-14b"):
         _sync_and_serve(arch, inp, mesh, out)
     _moe_paths(inp, mesh, out)
+    _split_vocab_loss(inp, mesh, out)
     pod_mesh = make_device_mesh(MeshShape(("pod", "data", "model"), (2, 2, 1)), device=device)
     _local_sgd_and_outer(inp, pod_mesh, rank, out)
     if rank == 0:

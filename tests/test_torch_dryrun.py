@@ -14,9 +14,13 @@ and collective bytes from a traced step), ``launch.roofline`` and
   ``cost_analysis``. Bytes are not compared: eager torch runs unfused ops.
 - ``model_flops`` and ``derive`` equal to the reference's for every grid
   arch and shape, given the reference's TPU constants on the port's keys.
-- ``run_cell`` on the 16 x 16 fake mesh (2 layers of Qwen3-8B x train_4k)
-  and the collectives run in one subprocess: a fake process group is the
-  process's default group, which a test worker must not hold.
+- ``run_cell`` on the 16 x 16 and 2 x 16 x 16 fake meshes (2 layers of
+  Qwen3-8B x train_4k) and the collectives run in one subprocess: a fake
+  process group is the process's default group, which a test worker must
+  not hold. One rank holds under 8 GB on both meshes: the loss keeps its
+  vocab split over "model", so no rank gathers the f32 logits over the
+  whole vocab (64.6 GB and 141.8 GB a rank, and 2.49 GB of the 16 x 16
+  cell's 3.50 GB of all-gather, when it did).
 """
 
 import json
@@ -255,6 +259,8 @@ def loop(x):
 
 out["loop"] = analyze_graph(trace(loop, torch.empty(16, 32, device="meta"))).collective_bytes
 out["cell"] = dryrun.run_cell("qwen3-8b", "train_4k", overrides={"n_layers": 2})
+out["cell_multi_pod"] = dryrun.run_cell("qwen3-8b", "train_4k", multi_pod=True,
+                                        overrides={"n_layers": 2})
 print("RESULT " + json.dumps(out))
 '''
 
@@ -308,3 +314,18 @@ def test_run_cell_on_the_production_mesh(fake_world):
     useful = roofline.model_flops(cfg, SHAPES_BY_NAME["train_4k"]) / 256
     assert 1.0 < t["flops_per_chip"] / useful < 2.0
     assert rec["memory"]["peak_memory_in_bytes"] >= rec["memory"]["argument_size_in_bytes"] > 0
+
+
+@pytest.mark.parametrize("cell", ["cell", "cell_multi_pod"])
+def test_one_rank_fits_and_gathers_no_vocab(fake_world, cell):
+    """Two layers of Qwen3-8B x train_4k on each production mesh: one rank's
+    peak under 8 GB (the loss's logits stay [b, chunk, V / 16] a rank), and
+    on 16 x 16 the all-gather bytes without the loss's 16 gathers of a
+    [8, 512, 9,504] f32 shard (2.49 GB)."""
+    rec = fake_world[cell]
+    assert rec["status"] == "ok", rec.get("error")
+    assert rec["mesh"] == ("16x16" if cell == "cell" else "2x16x16")
+    assert rec["memory"]["peak_memory_in_bytes"] < 8e9
+    assert rec["fits_hbm"] is True
+    if cell == "cell":
+        assert rec["trace"]["collective_bytes"]["all-gather"] < 1.5e9

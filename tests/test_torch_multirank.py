@@ -14,6 +14,12 @@ the card's four-rank runs do over ``nccl``.
   the reference's ``_route`` / ``_dispatch_local`` / ``_expert_ffn`` /
   ``_combine_local`` applied shard by shard: outputs within 1e-5, the aux
   within 1e-6, gradients (``jax.grad``) within 1e-4 of each leaf's max.
+- The loss with its vocab split over "model" (``loss_from_hidden`` on the
+  (2, 2) mesh, chunked and unchunked): h split over "data", an identity
+  unembedding, so the logits are h and d logits is d h, exactly; argmax
+  ties across the split and targets in the padded columns. Loss, accuracy
+  and both gradients within ``XENT_RTOL`` of the reference's
+  ``loss_from_hidden`` and ``jax.grad``.
 - (2, 2, 1) ("pod", "data", "model"): local-SGD, where pod 0 takes a second
   step with pod 1 sitting it out (a collective across "pod" would time
   out): pod 0's params equal a one-rank run on its batches, and no
@@ -40,6 +46,7 @@ import torch.multiprocessing as mp
 
 from repro.configs import get_reduced as r_get_reduced
 from repro.data.tokens import token_batch_for
+from repro.models import lm as r_lm
 from repro.models import Model as RModel
 from repro.models import mlp as r_mlp
 from repro.models import moe_sharded as r_moe
@@ -56,6 +63,12 @@ ROUTER_TOL = 1e-6
 GRAD_RTOL = 1e-4
 F32 = dict(dtype="float32", param_dtype="float32", loss_chunk=0)
 LAYERS = 1  # the dense models' depth here: the shards, not the depth, are under test
+
+XENT_RTOL = 1e-6
+# the split loss's cases: (name, loss_chunk); 16 positions, a padded vocab of
+# 64 (= d_model, the unembedding the identity) over 60 real tokens
+XENT_CASES = [("chunked", 4), ("unchunked", 0)]
+XENT_V, XENT_VOCAB, XENT_B, XENT_S = 64, 60, 4, 16
 
 # (name, MoE fields, x shape, token shards (data, model))
 MOE_CASES = [
@@ -85,6 +98,40 @@ def _moe_inputs(name):
     return cfg, _np(p), x, r
 
 
+def _xent_cfg(chunk):
+    return dict(dtype="float32", param_dtype="float32", loss_chunk=chunk, vocab_size=XENT_VOCAB,
+                vocab_pad_to=XENT_V, d_model=XENT_V, tie_embeddings=False)
+
+
+@functools.lru_cache(maxsize=None)
+def _xent_inputs():
+    """h [4, 16, 64] (the logits: the unembedding is the identity), targets
+    and a 0 / 1 mask. Ties: at 6 positions the row's max sits in a column of
+    each model rank's half (the lower column the argmax), the target the
+    lower column at 4 of them and the upper at the other 2; at 2 more two
+    columns of one half tie, the target the lower at one. 4 targets sit in
+    the padded columns 60-63."""
+    rng = np.random.default_rng(21)
+    h = (3.0 * rng.standard_normal((XENT_B, XENT_S, XENT_V))).astype(np.float32)
+    targets = rng.integers(0, XENT_VOCAB, (XENT_B, XENT_S)).astype(np.int32)
+    mask = (rng.random((XENT_B, XENT_S)) < 0.75).astype(np.float32)
+    half = XENT_V // 2
+    spots = [(b, s) for b in range(XENT_B) for s in range(XENT_S)]
+    pick = rng.permutation(len(spots))
+    for n, i in enumerate(pick[:8]):
+        b, s = spots[i]
+        lo = int(rng.integers(0, half - 1))
+        hi = int(rng.integers(half, XENT_V)) if n < 6 else lo + 1
+        h[b, s, lo] = h[b, s, hi] = h[b, s].max() + 1.0
+        targets[b, s] = lo if n in (0, 1, 2, 3, 6) else hi
+        mask[b, s] = 1.0
+    for i in pick[8:12]:
+        b, s = spots[i]
+        targets[b, s] = int(rng.integers(XENT_VOCAB, XENT_V))
+        mask[b, s] = 1.0
+    return h, np.eye(XENT_V, dtype=np.float32), {"targets": targets, "loss_mask": mask}
+
+
 def _inputs():
     out = {"moe": []}
     for arch in ("qwen3-8b", "phi3-medium-14b"):
@@ -104,6 +151,9 @@ def _inputs():
         return {k: v.reshape((2, 2) + v.shape[1:]) for k, v in b.items()}
 
     out["local_sgd"] = {"batches": [pods(3), pods(4)]}
+    h, unembed, batch = _xent_inputs()
+    out["xent"] = [{"name": name, "cfg": _xent_cfg(chunk), "h": h, "unembed": unembed,
+                    "batch": batch} for name, chunk in XENT_CASES]
     out["layers"] = LAYERS
     return out
 
@@ -125,6 +175,8 @@ def ranks(tmp_path_factory):
                                nprocs=_torch_multirank.WORLD, join=False, start_method="spawn")
     for name, *_ in MOE_CASES:  # the reference's side while the ranks run
         _moe_reference(name)
+    for name, _ in XENT_CASES:
+        _xent_reference(name)
     while not world.join():
         pass
     with open(os.path.join(root, "rank0.pkl"), "rb") as f:
@@ -209,6 +261,42 @@ def test_moe_path_matches_the_reference_shard_by_shard(ranks, name):
     for k, g in got["grads"].items():
         w = np.asarray(wants[k])
         assert float(np.max(np.abs(w - g))) <= GRAD_RTOL * float(np.max(np.abs(w))), k
+
+
+@functools.lru_cache(maxsize=None)
+def _xent_reference(name):
+    """The reference's ``loss_from_hidden`` on a case: (loss, accuracy,
+    ``jax.grad`` of the loss in h and the unembedding)."""
+    chunk = dict(XENT_CASES)[name]
+    cfg = r_get_reduced("qwen3-8b").replace(**_xent_cfg(chunk))
+    h, unembed, batch = _xent_inputs()
+    batch = {k: jnp.asarray(v) for k, v in batch.items()}
+
+    def loss(w, h):
+        return r_lm.loss_from_hidden(cfg, {"unembed": w}, h, batch)
+
+    (val, metrics), (g_w, g_h) = jax.jit(jax.value_and_grad(loss, argnums=(0, 1), has_aux=True))(
+        jnp.asarray(unembed), jnp.asarray(h))
+    return float(val), float(metrics["accuracy"]), np.asarray(g_h), np.asarray(g_w)
+
+
+def test_split_vocab_inputs_plant_ties_across_the_split():
+    h, _, batch = _xent_inputs()
+    half = XENT_V // 2
+    top = h.max(-1, keepdims=True)
+    across = ((h[..., :half] == top).any(-1) & (h[..., half:] == top).any(-1))
+    assert across.sum() == 6 and batch["loss_mask"][across].all()
+    assert ((batch["targets"] >= XENT_VOCAB) & (batch["loss_mask"] > 0)).sum() >= 4
+
+
+@pytest.mark.parametrize("name", [c[0] for c in XENT_CASES])
+def test_split_vocab_loss_matches_the_reference(ranks, name):
+    got = ranks[f"xent/{name}"]
+    loss, acc, g_h, g_w = _xent_reference(name)
+    assert abs(got["loss"] - loss) <= XENT_RTOL * abs(loss)
+    assert abs(got["accuracy"] - acc) <= XENT_RTOL * abs(acc)
+    for g, want in ((got["grad_h"], g_h), (got["grad_unembed"], g_w)):
+        assert float(np.max(np.abs(g - want))) <= XENT_RTOL * float(np.max(np.abs(want)))
 
 
 def test_local_sgd_trains_each_pod_alone(ranks):
